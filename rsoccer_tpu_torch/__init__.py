@@ -1,0 +1,27 @@
+"""rsoccer_tpu_torch — the PyTorch/CUDA port of ``rsoccer_tpu``.
+
+Same layout and names as the JAX package; batch-last tensors, NamedTuples
+of tensors for state, an explicit ``device`` everywhere, and explicit keys
+(``ops/philox.py``) instead of any global RNG.  The VSS-v0 step runs as one
+hand-written CUDA kernel per step on an NVIDIA card (``ops/vss_full.py``).
+Imports ``torch`` and never ``jax``.
+"""
+
+from rsoccer_tpu_torch.registry import make, registered_ids
+
+__version__ = "0.1.0"
+
+
+def make_vec(env_id: str, n_envs: int, device="cpu", fused: bool = False,
+             fused_rng: str = "input", **kwargs):
+    """Create a :class:`~rsoccer_tpu_torch.batch.vecenv.BatchedEnv`
+    directly; ``kwargs`` go to the env constructor."""
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+
+    return BatchedEnv(
+        make(env_id, **kwargs), n_envs, device=device, fused=fused,
+        fused_rng=fused_rng,
+    )
+
+
+__all__ = ["make", "make_vec", "registered_ids", "__version__"]

@@ -1,0 +1,57 @@
+"""World-state containers: NamedTuples of tensors, batch-last.
+
+Same fields and order as ``rsoccer_tpu/core/state.py``.  Every leaf carries
+the env batch as its LAST axis: ball fields ``(B,)``, robot fields
+``(N, B)``, ``v_wheel`` ``(N, 4, B)`` — the layout the JAX package's vmap
+produces, so the two packages compare elementwise and the fused kernel's
+packed ``(S, B)`` rows are contiguous slices of it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class BallState(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor  # center height, m; rest = ball_radius
+    v_x: torch.Tensor
+    v_y: torch.Tensor
+    v_z: torch.Tensor
+
+
+class RobotsState(NamedTuple):
+    """All robots of a world, blues first then yellows. Leaves (N, B)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    theta: torch.Tensor  # radians, wrapped to [-pi, pi)
+    v_x: torch.Tensor  # world-frame m/s
+    v_y: torch.Tensor
+    v_theta: torch.Tensor  # rad/s
+    infrared: torch.Tensor  # bool; always False for VSS worlds
+    v_wheel: torch.Tensor  # (N, 4, B) achieved wheel speeds, rad/s
+
+
+class WorldState(NamedTuple):
+    ball: BallState
+    robots: RobotsState
+
+
+class VSSCommands(NamedTuple):
+    """Per-robot VSS wheel-speed targets, rad/s, leaves (N, B)."""
+
+    v_wheel0: torch.Tensor
+    v_wheel1: torch.Tensor
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over (nested) NamedTuples of tensors."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(
+            *(tree_map(fn, *leaves) for leaves in zip(tree, *rest))
+        )
+    return fn(tree, *rest)

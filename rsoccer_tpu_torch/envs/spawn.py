@@ -1,0 +1,47 @@
+"""Spawn placement via fixed-shape masked rejection sampling.
+
+Port of ``rsoccer_tpu/envs/spawn.py`` on batch-last tensors: each entity
+draws ``N_CANDIDATES`` uniform candidates and takes the first one at least
+``min_dist`` from every entity placed before it, else candidate 0 (the
+reference's sequential rejection loop, vss_gym.py:214-231, with a fixed
+budget).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# P(no valid candidate) <= 0.16^8 per point at reference densities
+N_CANDIDATES = 8
+
+
+def place_separated(u, x_lo: float, x_hi: float, y_lo: float, y_hi: float,
+                    min_dist: float):
+    """Place points sequentially in a box.
+
+    ``u``: ``(n_points, 2, N_CANDIDATES, B)`` uniforms in [0, 1).
+    Returns ``(xs, ys)``, each ``(n_points, B)``.
+    """
+    px, py = [], []
+    for i in range(u.shape[0]):
+        cx = x_lo + u[i, 0] * (x_hi - x_lo)  # (K, B)
+        cy = y_lo + u[i, 1] * (y_hi - y_lo)
+        ok = torch.ones_like(cx, dtype=torch.bool)
+        for qx, qy in zip(px, py):
+            ddx = cx - qx
+            ddy = cy - qy
+            ok = ok & ((ddx * ddx + ddy * ddy) >= min_dist * min_dist)
+        # one-hot of the first valid candidate; candidate 0 when none
+        first = ok & (torch.cumsum(ok.to(torch.int32), dim=0) == 1)
+        any_ok = ok.any(dim=0)
+        sel = first.to(cx.dtype)
+        px.append(torch.where(any_ok, (cx * sel).sum(0), cx[0]))
+        py.append(torch.where(any_ok, (cy * sel).sum(0), cy[0]))
+    return torch.stack(px), torch.stack(py)
+
+
+def angles_from_uniform(u):
+    """Uniform [0, 1) samples -> headings in radians."""
+    return u * (2.0 * math.pi)

@@ -1,0 +1,114 @@
+"""The CUDA kernel vs its plain PyTorch version, on the card.
+
+Every test needs an NVIDIA card and nvcc: it is marked ``cuda`` and skips
+where ``torch.cuda.is_available()`` is false.  This file imports no JAX,
+so it runs on a machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
+"""
+
+import math
+
+import pytest
+import torch
+
+import rsoccer_tpu_torch
+from rsoccer_tpu_torch.batch import rollout as R
+from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+from rsoccer_tpu_torch.ops import vss_full as vf
+from rsoccer_tpu_torch.ops.philox import make_key, philox_words
+
+pytestmark = pytest.mark.cuda
+
+B = 256
+ATOL = 5e-5
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is false")
+    return torch.device("cuda")
+
+
+def assert_step_close(env, got, want, tag):
+    n = env.n_robots
+    st, obs, aux = got
+    w_st, w_obs, w_aux = want
+    th = slice(6 + 2 * n, 6 + 3 * n)
+    d = (st - w_st).abs()
+    d[th] = (torch.remainder(st[th] - w_st[th] + math.pi, 2 * math.pi) - math.pi).abs()
+    steps_row = 6 + 6 * n
+    assert float(d[:steps_row].max()) <= ATOL, tag
+    assert float(d[steps_row + 1:].max()) <= ATOL, tag
+    assert torch.equal(st[steps_row], w_st[steps_row]), tag
+    assert float((obs - w_obs).abs().max()) <= ATOL, tag
+    assert float((aux[0] - w_aux[0]).abs().max()) <= ATOL, tag
+    assert torch.equal(aux[1:3], w_aux[1:3]), tag
+    assert float((aux[3:] - w_aux[3:]).abs().max()) <= ATOL, tag
+
+
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+@pytest.mark.parametrize("max_steps", [None, 3], ids=["limit1200", "limit3"])
+def test_kernel_matches_plain(cuda, rng_mode, emit_final, max_steps):
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    if max_steps is not None:
+        env.max_episode_steps = max_steps
+    key = make_key(1, device=cuda)
+    st_k, _ = BatchedEnv(env, B, device=cuda, fused=True).reset(key)
+    st_p, key_p = st_k.clone(), key.clone()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    launches = vf.vss_full_step.launches
+    for t in range(5):
+        act = torch.rand((2, B), generator=gen, device=cuda) * 2 - 1
+        if rng_mode == "kernel":
+            got = vf.vss_full_step(env, st_k, act, key=key, emit_final=emit_final)
+            rows = vf.draw_step_rows(env, key_p, B)
+        else:
+            rows = vf.draw_step_rows(env, key, B)
+            got = vf.vss_full_step(env, st_k, act, *rows, emit_final=emit_final)
+        want = vf.vss_full_step_plain(env, st_p, act, *rows, emit_final)
+        torch.cuda.synchronize()
+        assert_step_close(env, got, want, f"step {t}")
+        st_k, st_p = got[0], want[0]
+    assert vf.vss_full_step.launches == launches + 5
+    if rng_mode == "kernel":  # the kernel advanced its key as draw_noise did
+        assert torch.equal(key, key_p)
+
+
+def test_philox_words_bit_equal(cuda):
+    lib = vf._library()
+    key = make_key(99, stream=2, device=cuda)
+    key[2] = (3 << 32) + 1
+    n_blk = 36
+    out = torch.empty((4 * n_blk, B), dtype=torch.int32, device=cuda)
+    assert lib.philox_words(key.data_ptr(), out.data_ptr(), n_blk, B,
+                            torch.cuda.current_stream().cuda_stream) == 0
+    assert torch.equal(out.to(torch.int64) & 0xFFFFFFFF, philox_words(key, 4 * n_blk, B))
+
+
+def test_main_path_goes_through_the_kernel(cuda):
+    benv = BatchedEnv(rsoccer_tpu_torch.make("VSS-v0"), B, device=cuda, fused=True,
+                      fused_rng="kernel")
+    carry = R.init_carry(benv, seed=0)
+    launches = vf.vss_full_step.launches
+    carry, ms = R.make_rollout_fn(benv, 20)(carry)
+    assert vf.vss_full_step.launches == launches + 20
+    assert bool(torch.isfinite(carry.obs).all())
+    assert bool((carry.obs.abs() <= torch.tensor(1.2)).all())
+
+
+def test_bad_operands_raise(cuda):
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    st = torch.zeros((vf.state_size(6), B), device=cuda)
+    key = make_key(0, device=cuda)
+    with pytest.raises(ValueError):
+        vf.vss_full_step(env, st, torch.zeros((3, B), device=cuda), key=key)
+    with pytest.raises(ValueError):
+        vf.vss_full_step(env, st, torch.zeros((2, B), device=cuda), key=key.cpu())
+    for odd in (rsoccer_tpu_torch.make("VSS-v0", n_robots_blue=5, n_robots_yellow=5),
+                rsoccer_tpu_torch.make("VSS-v0", time_step=0.2)):
+        with pytest.raises(NotImplementedError):
+            vf.vss_full_step(odd, torch.zeros((vf.state_size(odd.n_robots), B), device=cuda),
+                             torch.zeros((2, B), device=cuda), key=key)

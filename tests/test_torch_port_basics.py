@@ -1,0 +1,197 @@
+"""The PyTorch port's scaffold: no JAX inside it, copied tables equal to
+the JAX package's, state conversion and the packed kernel layout."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rsoccer_tpu
+import rsoccer_tpu_torch
+from rsoccer_tpu.batch.vecenv import BatchedEnv as JaxBatchedEnv
+from rsoccer_tpu.core import field as jfield
+from rsoccer_tpu.ops import pallas_vss_full as jpvf
+from rsoccer_tpu.physics import config as jconfig
+from rsoccer_tpu_torch import convert
+from rsoccer_tpu_torch.core import field as tfield
+from rsoccer_tpu_torch.ops import vss_full as tvf
+from rsoccer_tpu_torch.physics import config as tconfig
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "rsoccer_tpu_torch")
+
+
+def _jax_reset(b=16, seed=0):
+    env = rsoccer_tpu.make("VSS-v0")
+    state, obs = JaxBatchedEnv(env, b).reset(jax.random.PRNGKey(seed))
+    return env, state, obs
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, rsoccer_tpu_torch, rsoccer_tpu_torch.batch.rollout, "
+        "rsoccer_tpu_torch.ops.vss_full, rsoccer_tpu_torch.convert; "
+        "assert 'jax' not in sys.modules, 'jax was imported'; print('ok')"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_no_jax_import_in_port_sources():
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
+    offenders = []
+    for root, dirs, files in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not sources
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                if pat.search(open(path).read()):
+                    offenders.append(os.path.relpath(path, REPO))
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize(
+    "port, ref",
+    [
+        (tfield.vss_field(0), jfield.vss_field(0)),
+        (tfield.vss_field(1), jfield.vss_field(1)),
+        (tconfig.VSS_PHYSICS, jconfig.VSS_PHYSICS),
+        (tconfig.PhysicsConfig(), jconfig.PhysicsConfig()),
+    ],
+    ids=["vss_field0", "vss_field1", "VSS_PHYSICS", "PhysicsConfig_defaults"],
+)
+def test_copied_tables_equal_jax(port, ref):
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("ft", [0, 1])
+def test_derived_field_values_equal_jax(ft):
+    p, r = tfield.vss_field(ft), jfield.vss_field(ft)
+    for name in ("half_length", "half_width", "max_pos", "max_wheel_rad_s", "max_v"):
+        assert getattr(p, name) == getattr(r, name), name
+
+
+def test_convert_round_trips():
+    _, state, _ = _jax_reset()
+    np_state = jax.tree.map(np.asarray, state)
+    port = convert.state_from_numpy(np_state)
+    assert port.steps.dtype == torch.int32
+    assert port.has_potential.dtype == torch.bool
+    back = convert.state_to_numpy(port)
+    for a, b in zip(jax.tree.leaves(np_state), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    again = convert.state_from_numpy(back)
+    for a, b in zip(jax.tree.leaves(port), jax.tree.leaves(again)):
+        assert torch.equal(a, b)
+
+    rng = np.random.default_rng(0)
+    noise = {"ou": rng.normal(size=(6, 2, 4)).astype(np.float32)}
+    got = convert.noise_to_numpy(convert.noise_from_numpy(noise))
+    np.testing.assert_array_equal(got["ou"], noise["ou"])
+
+
+def test_pack_unpack_equal_jax():
+    env, state, _ = _jax_reset(b=16, seed=3)
+    # step once so velocities, OU, potential and shaping are non-trivial
+    benv = JaxBatchedEnv(env, 16)
+    acts = jnp.asarray(np.random.default_rng(1).uniform(-1, 1, (2, 16)), jnp.float32)
+    state = benv.step(state, acts, jax.random.PRNGKey(9))[0]
+    np_state = jax.tree.map(np.asarray, state)
+
+    packed_j = np.asarray(jpvf.pack_vss_state(state))
+    packed_t = tvf.pack_vss_state(convert.state_from_numpy(np_state))
+    assert packed_t.shape == (tvf.state_size(6), 16)
+    np.testing.assert_array_equal(packed_t.numpy(), packed_j)
+
+    un_j = jax.tree.map(
+        np.asarray, jpvf.unpack_vss_state(jnp.asarray(packed_j), 6, env.field.rbt_wheel_radius)
+    )
+    un_t = convert.state_to_numpy(
+        tvf.unpack_vss_state(packed_t, 6, env.field.rbt_wheel_radius)
+    )
+    for a, b in zip(jax.tree.leaves(un_j), jax.tree.leaves(un_t)):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(b, a, atol=1e-6)  # v_wheel recomputed
+
+
+def test_registry_and_make_vec():
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    assert (env.obs_size, env.action_size, env.max_episode_steps) == (40, 2, 1200)
+    assert rsoccer_tpu_torch.registered_ids() == ["VSS-v0"]
+    for env_id in ("SSLStaticDefenders-v0", "VSSSelfPlay-v0"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rsoccer_tpu_torch.make(env_id)
+    with pytest.raises(KeyError):
+        rsoccer_tpu_torch.make("nope-v0")
+    benv = rsoccer_tpu_torch.make_vec("VSS-v0", 8, fused=True, field_type=1)
+    assert benv.env.field == tfield.vss_field(1) and benv.fused
+
+
+def test_batched_env_refuses_unported_paths():
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchedEnv(env, 8, pallas_physics=True)
+    with pytest.raises(ValueError):
+        BatchedEnv(env, 8, fused=True, fused_rng="hardware")
+
+
+def test_kernel_param_struct_matches_cuda_source():
+    """ctypes mirror of VssParams == the X-list in csrc/vss_full.cu."""
+    src = open(os.path.join(PORT, "csrc", "vss_full.cu")).read()
+    block = src[src.index("#define VSS_PARAMS(X)"): src.index("struct VssParams")]
+    fields = re.findall(r"X\((\w+)\)", block)
+    assert fields == tvf.PARAM_FIELDS
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    assert sorted(tvf.kernel_params(env)) == sorted(tvf.PARAM_FIELDS)
+    assert tvf.taylor_rotation_holds(env)  # VSS-v0's turn bound admits Taylor
+    assert not tvf.taylor_rotation_holds(rsoccer_tpu_torch.make("VSS-v0", time_step=0.2))
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    """No CUDA device: chip_smoke.py exits non-zero and prints no result,
+    from the repo and from a directory holding the script alone."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run for real")
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if where == "alone":
+        cwd = str(tmp_path)
+        with open(script) as src, open(tmp_path / "chip_smoke.py", "w") as dst:
+            dst.write(src.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    """No nvcc: the build raises (with the places it looked); nothing
+    falls back to the plain version."""
+    from rsoccer_tpu_torch.ops import _build
+
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a system nvcc exists at /usr/local/cuda/bin")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
