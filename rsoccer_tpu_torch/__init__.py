@@ -2,9 +2,11 @@
 
 Same layout and names as the JAX package; batch-last tensors, NamedTuples
 of tensors for state, an explicit ``device`` everywhere, and explicit keys
-(``ops/philox.py``) instead of any global RNG.  The VSS-v0 step runs as one
-hand-written CUDA kernel per step on an NVIDIA card (``ops/vss_full.py``).
-Imports ``torch`` and never ``jax``.
+(``ops/philox.py``) instead of any global RNG.  Entry points run on the
+card (``device="cuda"``) unless the caller asks for the CPU.  The VSS-v0,
+SSLStaticDefenders-v0 and SSLContestedPossession-v0 steps each run as one
+hand-written CUDA kernel per step on an NVIDIA card (``ops/vss_full.py``,
+``ops/ssl_full.py``).  Imports ``torch`` and never ``jax``.
 """
 
 from rsoccer_tpu_torch.registry import make, registered_ids
@@ -12,7 +14,7 @@ from rsoccer_tpu_torch.registry import make, registered_ids
 __version__ = "0.1.0"
 
 
-def make_vec(env_id: str, n_envs: int, device="cpu", fused: bool = False,
+def make_vec(env_id: str, n_envs: int, device="cuda", fused: bool = False,
              fused_rng: str = "input", **kwargs):
     """Create a :class:`~rsoccer_tpu_torch.batch.vecenv.BatchedEnv`
     directly; ``kwargs`` go to the env constructor."""

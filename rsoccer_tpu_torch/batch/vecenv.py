@@ -8,8 +8,12 @@ Randomness: one key tensor (``ops/philox.make_key``) for the whole batch.
 A step draws its reset and transition noise as one Philox draw and
 advances the key's step counter in place (``envs/base.draw_noise``).
 
+The envs live on ``device``, the card unless the caller asks for the CPU.
+
 ``fused=True`` is the counterpart of the JAX package's ``pallas_full``:
-the whole step is one kernel launch (``ops/vss_full.py``) on a CUDA
+the whole step is one kernel launch (``ops/vss_full.py`` for VSS-v0,
+``ops/ssl_full.py`` for SSLStaticDefenders-v0 and
+SSLContestedPossession-v0, chosen by the env's exact type) on a CUDA
 device — or its plain version on the CPU — and the state flows through
 the rollout packed as one ``(S, B)`` tensor; :meth:`unpack_state` gives a
 structured view.  ``fused_rng`` is the counterpart of ``pallas_rng``:
@@ -20,11 +24,42 @@ the same Philox stream, so the two modes give the same trajectory.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from rsoccer_tpu_torch.envs.base import Env, draw_noise, step_noise_spec
-from rsoccer_tpu_torch.envs.vss import _SHAPING_KEYS, VSSEnv
-from rsoccer_tpu_torch.ops import vss_full
+from rsoccer_tpu_torch.envs.ssl_contested_possession import SSLContestedPossessionEnv
+from rsoccer_tpu_torch.envs.ssl_static_defenders import SSLStaticDefendersEnv
+from rsoccer_tpu_torch.envs.vss import VSSEnv
+from rsoccer_tpu_torch.ops import ssl_full, vss_full
+
+
+class FusedOps(NamedTuple):
+    """One env type's fused step and the plumbing around it."""
+
+    step: Callable  # (env, state, action, *rows, key=, emit_final=) -> (st, obs, aux)
+    rows: Callable  # (env, t_noise, r_noise) -> the kernel's noise rows
+    pack: Callable  # structured state -> (S, B)
+    unpack: Callable  # (S, B), env -> structured state
+    info_keys: tuple  # aux rows 3: in order
+
+
+_FUSED = {
+    VSSEnv: FusedOps(
+        vss_full.vss_full_step, vss_full.noise_rows, vss_full.pack_vss_state,
+        lambda s, env: vss_full.unpack_vss_state(s, env.n_robots, env.field.rbt_wheel_radius),
+        vss_full._SHAPING_KEYS,
+    ),
+    SSLStaticDefendersEnv: FusedOps(
+        ssl_full.sd_full_step, lambda env, t, r: ssl_full.sd_noise_rows(env, r),
+        ssl_full.pack_sd_state, ssl_full.unpack_sd_state, ssl_full.SD_KEYS,
+    ),
+    SSLContestedPossessionEnv: FusedOps(
+        ssl_full.cp_full_step, lambda env, t, r: ssl_full.cp_noise_rows(env, r),
+        ssl_full.pack_cp_state, ssl_full.unpack_cp_state, ssl_full.CP_KEYS,
+    ),
+}
 
 
 class BatchedEnv:
@@ -34,7 +69,7 @@ class BatchedEnv:
         self,
         env: Env,
         n_envs: int,
-        device="cpu",
+        device="cuda",
         fused: bool = False,
         fused_rng: str = "input",
         pallas_physics: bool = False,
@@ -47,16 +82,24 @@ class BatchedEnv:
             )
         if fused_rng not in ("input", "kernel"):
             raise ValueError(f"fused_rng must be 'input' or 'kernel', got {fused_rng!r}")
-        if fused and type(env) is not VSSEnv:
+        if fused and type(env) not in _FUSED:
             raise NotImplementedError(
-                f"fused=True is ported for VSSEnv only, not {type(env).__name__}: "
-                "ROADMAP.md, TPU kernel queue items K3-K7 (SSL full-step kernels)"
+                f"fused=True is ported for {', '.join(t.__name__ for t in _FUSED)} "
+                f"(exact types), not {type(env).__name__}: ROADMAP.md, TPU kernel "
+                "queue items K6-K7 (Dribbling, PassEndurance)"
+            )
+        if fused and (getattr(env, "curriculum", False) or getattr(env, "terminal_penalty", 0.0)):
+            raise ValueError(
+                "the fused kernels implement the reference's exact reset and "
+                "reward; the training-time extensions (curriculum, "
+                "terminal_penalty) run on the unfused path (fused=False)"
             )
         self.env = env
         self.n_envs = n_envs
         self.device = torch.device(device)
         self.fused = fused
         self.fused_rng = fused_rng
+        self._ops = _FUSED[type(env)] if fused else None
         self.obs_size = env.obs_size
         self.action_size = env.action_size
         self._r_spec = env.reset_noise_spec()
@@ -64,17 +107,22 @@ class BatchedEnv:
 
     def unpack_state(self, state):
         """Structured view of a ``fused`` packed state."""
-        return vss_full.unpack_vss_state(
-            state, self.env.n_robots, self.env.field.rbt_wheel_radius
-        )
+        return self._ops.unpack(state, self.env)
 
     def reset(self, key):
-        """One key for the whole batch; returns (state, obs)."""
+        """One key for the whole batch, on ``device``; returns (state, obs)."""
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "BatchedEnv is on 'cuda' (the default) but no CUDA device is "
+                "available; pass device='cpu' to run the plain versions on the CPU"
+            )
+        if key.device.type != self.device.type:
+            raise ValueError(f"key is on {key.device}, the envs on {self.device}")
         noise = draw_noise(key, self._r_spec, self.n_envs)
         state = self.env.reset_state(noise)
         obs = self.env.observe(state)
         if self.fused:
-            return vss_full.pack_vss_state(state), obs
+            return self._ops.pack(state), obs
         return state, obs
 
     def _draw(self, key):
@@ -88,7 +136,7 @@ class BatchedEnv:
         reward = aux[0]
         term = aux[1] > 0.5
         trunc = aux[2] > 0.5
-        info = {k: aux[3 + i] for i, k in enumerate(_SHAPING_KEYS)}
+        info = {k: aux[3 + i] for i, k in enumerate(self._ops.info_keys)}
         if final:
             o = self.obs_size
             return st, obs[:o], obs[o:], reward, term, trunc, info
@@ -96,7 +144,7 @@ class BatchedEnv:
 
     def _step(self, state, actions, key, final: bool):
         if self.fused and self.fused_rng == "kernel":
-            st, obs, aux = vss_full.vss_full_step(
+            st, obs, aux = self._ops.step(
                 self.env, state, actions, key=key, emit_final=final
             )
             return self._fused_out(st, obs, aux, final)
@@ -104,9 +152,9 @@ class BatchedEnv:
 
     def _step_with_noise(self, state, actions, t_noise, r_noise, final: bool):
         if self.fused:
-            st, obs, aux = vss_full.vss_full_step(
+            st, obs, aux = self._ops.step(
                 self.env, state, actions,
-                *vss_full.noise_rows(self.env, t_noise, r_noise),
+                *self._ops.rows(self.env, t_noise, r_noise),
                 emit_final=final,
             )
             return self._fused_out(st, obs, aux, final)

@@ -1,11 +1,13 @@
 """State carried across between the JAX package and the port.
 
-``state_from_numpy`` takes the JAX package's batched ``VSSState`` with
-numpy leaves (``jax.tree.map(np.asarray, s)``) — or any object with the
-same attribute tree — and builds the port's ``VSSState`` on ``device``.
-``state_to_numpy`` goes back: the port's ``VSSState`` with numpy leaves,
-whose fields flatten in the JAX package's leaf order.  The same pair
-exists for noise dicts.  This slice has no model weights to carry.
+``state_from_numpy`` takes one of the JAX package's batched env states
+(``VSSState``, ``SDState``, ``CPState``) with numpy leaves
+(``jax.tree.map(np.asarray, s)``) — or any object with the same attribute
+tree — and builds the port's state of the class it is given on ``device``
+(the card unless the caller asks for the CPU).  ``state_to_numpy`` goes
+back: the port's state with numpy leaves, whose fields flatten in the JAX
+package's leaf order.  The same pair exists for noise dicts.  The ported
+slices have no model weights to carry.
 """
 
 from __future__ import annotations
@@ -16,7 +18,6 @@ import numpy as np
 import torch
 
 from rsoccer_tpu_torch.core.state import tree_map
-from rsoccer_tpu_torch.envs.vss import VSSState
 
 
 def _is_namedtuple_type(t) -> bool:
@@ -35,17 +36,18 @@ def _from(obj, cls, device):
     return cls(*fields)
 
 
-def state_from_numpy(tree, device="cpu") -> VSSState:
-    """JAX-package ``VSSState`` (numpy leaves) -> port ``VSSState``."""
-    return _from(tree, VSSState, device)
+def state_from_numpy(tree, cls, device="cuda"):
+    """JAX-package env state (numpy leaves) -> the port's ``cls``
+    (``VSSState``, ``SDState`` or ``CPState``)."""
+    return _from(tree, cls, device)
 
 
-def state_to_numpy(state: VSSState) -> VSSState:
-    """Port ``VSSState`` -> the same NamedTuple with numpy leaves."""
+def state_to_numpy(state):
+    """Port env state -> the same NamedTuple with numpy leaves."""
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
 
 
-def noise_from_numpy(noise: dict, device="cpu") -> dict:
+def noise_from_numpy(noise: dict, device="cuda") -> dict:
     return {k: torch.tensor(np.asarray(v), device=device) for k, v in noise.items()}
 
 

@@ -1,10 +1,11 @@
-"""Field geometry and robot parameter tables (VSS).
+"""Field geometry and robot parameter tables (VSS and SSL).
 
-A copy of ``rsoccer_tpu/core/field.py``'s ``FieldParams`` and VSS tables.
+A copy of ``rsoccer_tpu/core/field.py``'s ``FieldParams`` and its VSS and
+SSL tables.
 It is copied, not imported: importing any ``rsoccer_tpu`` module runs that
 package's ``__init__``, which loads JAX, and the port must run where JAX is
-not installed.  ``tests/test_torch_port_basics.py`` holds the two tables
-equal field by field.
+not installed.  ``tests/test_torch_port_basics.py`` and ``tests/test_torch_env_ssl.py``
+hold the tables equal to the JAX package's field by field.
 
 Units: meters, degrees for wheel mount angles, RPM for the motor limit —
 the reference's ``Field`` contract (Entities/Field.py:4-21), so the derived
@@ -86,5 +87,37 @@ VSS_FIELDS = {
 }
 
 
+# SSL: 4-omni robots (front wheels at +-60 deg, rear at +-135 deg); the
+# motor limit gives the 160 rad/s wheel cap of the reference's energy
+# scale (ssl_hw_challenge/static_defenders.py:71)
+_SSL_ROBOT = dict(
+    ball_radius=0.0215,
+    rbt_distance_center_kicker=0.081,
+    rbt_kicker_thickness=0.005,
+    rbt_kicker_width=0.08,
+    rbt_wheel0_angle=60.0,
+    rbt_wheel1_angle=135.0,
+    rbt_wheel2_angle=225.0,
+    rbt_wheel3_angle=300.0,
+    rbt_radius=0.09,
+    rbt_wheel_radius=0.027,
+    rbt_motor_max_rpm=1528.0,
+)
+
+_SSL_DIV_B = dict(length=9.0, width=6.0, penalty_length=1.0, penalty_width=2.0,
+                  goal_width=1.0, goal_depth=0.18)
+
+SSL_FIELDS = {
+    0: FieldParams(**_SSL_DIV_B, **_SSL_ROBOT),  # division B, 6v6
+    1: FieldParams(length=12.0, width=9.0, penalty_length=1.8,  # division A
+                   penalty_width=3.6, goal_width=1.8, goal_depth=0.18, **_SSL_ROBOT),
+    2: FieldParams(**_SSL_DIV_B, **_SSL_ROBOT),  # 2021 hardware challenges
+}
+
+
 def vss_field(field_type: int) -> FieldParams:
     return VSS_FIELDS[field_type]
+
+
+def ssl_field(field_type: int) -> FieldParams:
+    return SSL_FIELDS[field_type]

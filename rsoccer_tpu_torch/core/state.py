@@ -48,6 +48,33 @@ class VSSCommands(NamedTuple):
     v_wheel1: torch.Tensor
 
 
+class SSLCommands(NamedTuple):
+    """Per-robot SSL commands (the reference's 8-slot layout,
+    Simulators/rsim.py:128-155): four wheel-speed targets or a local-frame
+    velocity target, chosen by ``wheel_speed``, plus kicker and dribbler.
+    Leaves (N, B); ``v_wheel`` (N, 4, B)."""
+
+    wheel_speed: torch.Tensor  # bool — True: wheel targets, False: velocity
+    v_wheel: torch.Tensor  # rad/s targets (wheel_speed mode)
+    v_x: torch.Tensor  # local-frame m/s (velocity mode)
+    v_y: torch.Tensor
+    v_theta: torch.Tensor  # rad/s
+    kick_v_x: torch.Tensor  # m/s along the heading (<= 0: no kick)
+    kick_v_z: torch.Tensor  # m/s vertical (chip kick)
+    dribbler: torch.Tensor  # bool
+
+
+def zero_ssl_commands(n_robots: int, batch: int, device) -> SSLCommands:
+    zn = torch.zeros((n_robots, batch), device=device)
+    off = torch.zeros((n_robots, batch), dtype=torch.bool, device=device)
+    return SSLCommands(
+        wheel_speed=off,
+        v_wheel=torch.zeros((n_robots, 4, batch), device=device),
+        v_x=zn, v_y=zn, v_theta=zn, kick_v_x=zn, kick_v_z=zn,
+        dribbler=off,
+    )
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over (nested) NamedTuples of tensors."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

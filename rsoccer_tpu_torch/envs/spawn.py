@@ -17,14 +17,27 @@ import torch
 N_CANDIDATES = 8
 
 
+def pick_first(ok, *arrays):
+    """Each array's value at the first True of ``ok`` along axis 0, or at
+    index 0 where ``ok`` has none (a one-hot masked sum, as the JAX
+    package's).  ``ok`` and the arrays are ``(K, B)``; returns ``(B,)``s."""
+    first = ok & (torch.cumsum(ok.to(torch.int32), dim=0) == 1)
+    any_ok = ok.any(dim=0)
+    sel = first.to(arrays[0].dtype)
+    return tuple(torch.where(any_ok, (a * sel).sum(0), a[0]) for a in arrays)
+
+
 def place_separated(u, x_lo: float, x_hi: float, y_lo: float, y_hi: float,
-                    min_dist: float):
-    """Place points sequentially in a box.
+                    min_dist: float, preplaced_x=(), preplaced_y=()):
+    """Place points sequentially in a box, each at least ``min_dist`` from
+    the preplaced points (floats or ``(B,)`` tensors) and from every point
+    placed before it.
 
     ``u``: ``(n_points, 2, N_CANDIDATES, B)`` uniforms in [0, 1).
     Returns ``(xs, ys)``, each ``(n_points, B)``.
     """
-    px, py = [], []
+    px, py = list(preplaced_x), list(preplaced_y)
+    n_pre = len(px)
     for i in range(u.shape[0]):
         cx = x_lo + u[i, 0] * (x_hi - x_lo)  # (K, B)
         cy = y_lo + u[i, 1] * (y_hi - y_lo)
@@ -33,13 +46,10 @@ def place_separated(u, x_lo: float, x_hi: float, y_lo: float, y_hi: float,
             ddx = cx - qx
             ddy = cy - qy
             ok = ok & ((ddx * ddx + ddy * ddy) >= min_dist * min_dist)
-        # one-hot of the first valid candidate; candidate 0 when none
-        first = ok & (torch.cumsum(ok.to(torch.int32), dim=0) == 1)
-        any_ok = ok.any(dim=0)
-        sel = first.to(cx.dtype)
-        px.append(torch.where(any_ok, (cx * sel).sum(0), cx[0]))
-        py.append(torch.where(any_ok, (cy * sel).sum(0), cy[0]))
-    return torch.stack(px), torch.stack(py)
+        x_i, y_i = pick_first(ok, cx, cy)
+        px.append(x_i)
+        py.append(y_i)
+    return torch.stack(px[n_pre:]), torch.stack(py[n_pre:])
 
 
 def angles_from_uniform(u):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 nvcc compiles every ``csrc/*.cu`` into ONE shared library with a plain C
-interface, which ctypes loads.  The library goes to
+interface, which ctypes loads: one nvcc process per source, all started
+together, then one link.  The library goes to
 ``rsoccer_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and the flags, at first use (nothing is built when a module is imported),
 so a fresh checkout builds it on the first launch and an edited source
@@ -23,13 +24,15 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # keep each multiply and add rounded as the plain version's separate
     # ops are (see csrc/vss_full.cu); no --use_fast_math
     "--fmad=false",
@@ -64,6 +67,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"librsoccer_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Start every command at once; wait for all.  Returns [(cmd, rc, log)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    return [(cmd, rc, out) for cmd, out, rc in outs]
+
+
 def build() -> tuple[Path, str, float]:
     """Compile the library if it is not built yet.
 
@@ -76,20 +88,47 @@ def build() -> tuple[Path, str, float]:
         return lib, log_path.read_text() if log_path.exists() else "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = nvcc_path()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(cu, objs)])
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, _, out in results)
+    failed = [(cmd, rc) for cmd, rc, _ in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
+        raise RuntimeError(f"nvcc failed ({failed[0][1]}): {' '.join(failed[0][0])}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
     return lib, log, seconds
+
+
+def check_operand(t, name: str, rows: int, batch: int, device, dtype=None):
+    """Raise unless ``t`` is a contiguous ``(rows, batch)`` tensor of
+    ``dtype`` (default float32) on ``device`` — what a kernel takes."""
+    dtype = dtype or torch.float32
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != (rows, batch) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype} ({rows}, {batch}) on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            + ("" if t.is_contiguous() else " (not contiguous)")
+        )
+
+
+def check_key(key, device):
+    """Raise unless ``key`` is an int64 Philox key ``[k0, k1, step]`` on
+    ``device``."""
+    if key.device != device or key.dtype != torch.int64 or tuple(key.shape) != (3,):
+        raise ValueError(f"key: want int64 (3,) on {device}, got {key.dtype} "
+                         f"{tuple(key.shape)} on {key.device}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,4 +147,14 @@ def load() -> ctypes.CDLL:
     # key, out, n_blk, B, stream
     lib.philox_words.argtypes = [p, p, i, i, p]
     lib.philox_words.restype = i
+    lib.ssl_params_fields.argtypes = []
+    lib.ssl_params_fields.restype = ctypes.c_char_p
+    # emit_final, rng_kernel, params*, st, act, ball_u, spawn_u, theta_u,
+    # key, st_out, obs_out, aux_out, B, stream
+    lib.ssl_sd_full_step.argtypes = [i, i] + [p] * 10 + [i, p]
+    lib.ssl_sd_full_step.restype = i
+    # emit_final, rng_kernel, params*, st, act, enemy_u, key, st_out,
+    # obs_out, aux_out, B, stream
+    lib.ssl_cp_full_step.argtypes = [i, i] + [p] * 8 + [i, p]
+    lib.ssl_cp_full_step.restype = i
     return lib

@@ -30,7 +30,7 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
 N_ROUNDS = 10
 
 
-def make_key(seed: int, stream: int = 0, device="cpu") -> torch.Tensor:
+def make_key(seed: int, stream: int = 0, device="cuda") -> torch.Tensor:
     """Key tensor ``[k0, k1, step=0]`` for ``seed``; ``stream`` separates
     independent streams drawn from one seed."""
     k0 = seed & _MASK

@@ -1,0 +1,354 @@
+"""Fused SSL steps: SSLStaticDefenders-v0 and SSLContestedPossession-v0,
+each as ONE CUDA kernel launch.
+
+Replaces the TPU kernels ``rsoccer_tpu/ops/pallas_ssl_full.py:456``
+(``make_pallas_sd_full_step``) and ``:824`` (``make_pallas_cp_full_step``),
+with their shared launch ``_build_call`` (``:289``) and SSL world body
+``make_ssl_physics_body`` (``:90``).  The kernels are ``csrc/ssl_full.cu``
+with the world step ``csrc/ssl_body.cuh`` (and ``pair_collide.cuh``,
+``philox.cuh``), one thread per env: action conversion -> 5 SSL substeps
+(omni drive, robot contacts, dribbler, vertical ball, ball-robot with the
+dribbler face, kick, infrared) -> termination chain and shaping ->
+on done lanes only, the reset spawn -> auto-reset select -> obs.
+
+State row layout (N robots), identical to the TPU kernels':
+    0:6          ball x, y, z, v_x, v_y, v_z
+    6+0N:6+6N    robot x, y, theta, v_x, v_y, v_theta (N rows each)
+    6+6N         steps (f32; exact integers)
+    7+6N:        shaping accumulators (the env's _SHAPING_KEYS order)
+Aux rows: [reward, terminated, truncated, shaping...] with the PRE-reset
+accumulators (the step's info).  Infrared and the wheel speeds are not
+stored; :func:`unpack_sd_state` / :func:`unpack_cp_state` recompute them.
+
+RNG, as ``ops/vss_full.py``: ``key=...`` draws the step's reset noise from
+the port's one Philox stream — in the kernel on the card (only on done
+lanes; the counter scheme has no state, so the words are the same), with
+``envs/base.draw_noise`` on the CPU — at the slots of ``draw_noise``'s spec
+order (SD: ball 0-15, yellow i's candidates 16+16i, theta 112-117; CP:
+enemy 0-1), and advances ``key[2]`` by one.
+
+:func:`sd_full_step` / :func:`cp_full_step` run the plain versions
+:func:`sd_full_step_plain` / :func:`cp_full_step_plain` only for tensors on
+the CPU; for CUDA tensors they launch the kernel or raise.  Each counts
+its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from rsoccer_tpu_torch.core.state import BallState, RobotsState, WorldState
+from rsoccer_tpu_torch.envs import spawn as spawn_mod
+from rsoccer_tpu_torch.envs.base import draw_noise, step_noise_spec
+from rsoccer_tpu_torch.envs.ssl_contested_possession import _SHAPING_KEYS as CP_KEYS, CPState
+from rsoccer_tpu_torch.envs.ssl_static_defenders import (
+    _SHAPING_KEYS as SD_KEYS, SDState, SSLStaticDefendersEnv,
+)
+from rsoccer_tpu_torch.ops import _build
+from rsoccer_tpu_torch.physics.config import SSL_PHYSICS
+from rsoccer_tpu_torch.physics.ssl import (
+    achieved_wheel_speeds, make_face_zone, wheel_jacobian,
+)
+
+N_SUBSTEPS = 5  # compiled into the kernels
+SD_ROBOTS, CP_ROBOTS = 7, 2  # compiled into the kernels
+K = spawn_mod.N_CANDIDATES
+
+
+def state_size(n_robots: int, n_shaping: int) -> int:
+    return 7 + 6 * n_robots + n_shaping
+
+
+def sd_state_size(n_robots: int = SD_ROBOTS) -> int:
+    return state_size(n_robots, len(SD_KEYS))
+
+
+def cp_state_size() -> int:
+    return state_size(CP_ROBOTS, len(CP_KEYS))
+
+
+def pack_ssl_state(state) -> torch.Tensor:
+    """Batched SDState or CPState (batch-last) -> (S, B) f32."""
+    w = state.world
+    b = w.ball
+    return torch.cat([
+        torch.stack([b.x, b.y, b.z, b.v_x, b.v_y, b.v_z]),
+        w.robots.x, w.robots.y, w.robots.theta,
+        w.robots.v_x, w.robots.v_y, w.robots.v_theta,
+        state.steps[None].to(torch.float32),
+        state.shaping,
+    ])
+
+
+pack_sd_state = pack_cp_state = pack_ssl_state
+
+
+def _unpack(arr: torch.Tensor, env, cls):
+    """(S, B) -> batched ``cls`` state.  Infrared comes from the kicker
+    face predicate with ``SSL_PHYSICS`` and the wheel speeds from the
+    forward jacobian, both of the packed state, as the JAX package's
+    ``_unpack_world`` recomputes them."""
+    n = env.n_robots
+    f = env.field
+    x, y, theta, vx, vy, vth = arr[6 : 6 + 6 * n].reshape(6, n, -1)
+    cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+    infrared = make_face_zone(f, SSL_PHYSICS)(x, y, cos_t, sin_t, arr[0], arr[1], arr[2])
+    world = WorldState(
+        ball=BallState(*arr[0:6]),
+        robots=RobotsState(
+            x=x, y=y, theta=theta, v_x=vx, v_y=vy, v_theta=vth, infrared=infrared,
+            v_wheel=achieved_wheel_speeds(vx, vy, cos_t, sin_t, vth,
+                                          wheel_jacobian(f), f.rbt_wheel_radius),
+        ),
+    )
+    o = 6 + 6 * n
+    return cls(world=world, steps=arr[o].to(torch.int32), shaping=arr[o + 1:])
+
+
+def unpack_sd_state(arr: torch.Tensor, env) -> SDState:
+    return _unpack(arr, env, SDState)
+
+
+def unpack_cp_state(arr: torch.Tensor, env) -> CPState:
+    return _unpack(arr, env, CPState)
+
+
+# ------------------------------------------------------------ noise rows
+def sd_noise_rows(env, r_noise: dict):
+    """Reset noise -> SD's input rows (ball_u (2K, B), spawn_u (6*2K, B),
+    theta_u (6, B))."""
+    b = r_noise["ball"].shape[-1]
+    return (r_noise["ball"].reshape(-1, b), r_noise["spawn"].reshape(-1, b),
+            r_noise["theta"].reshape(-1, b))
+
+
+def cp_noise_rows(env, r_noise: dict):
+    """Reset noise -> CP's input row block (enemy_u (2, B),)."""
+    return (r_noise["enemy"].reshape(-1, r_noise["enemy"].shape[-1]),)
+
+
+def sd_draw_step_rows(env, key: torch.Tensor, batch: int):
+    """The step's SD noise rows from ``key``'s Philox stream; advances key."""
+    return sd_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
+
+
+def cp_draw_step_rows(env, key: torch.Tensor, batch: int):
+    """The step's CP noise rows from ``key``'s Philox stream; advances key."""
+    return cp_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
+
+
+# -------------------------------------------------------- plain versions
+def _plain(env, unpack, keys, state, action, r_noise, emit_final):
+    """unpack -> the env's step_with_noise[_final] -> pack."""
+    s = unpack(state, env)
+    if emit_final:
+        ns, obs, fobs, rew, term, trunc, info = env.step_with_noise_final(s, action, {}, r_noise)
+        obs = torch.cat([obs, fobs])
+    else:
+        ns, obs, rew, term, trunc, info = env.step_with_noise(s, action, {}, r_noise)
+    aux = torch.stack([rew, term.to(rew.dtype), trunc.to(rew.dtype)] + [info[k] for k in keys])
+    return pack_ssl_state(ns), obs, aux
+
+
+def sd_full_step_plain(env, state, action, ball_u, spawn_u, theta_u, emit_final: bool = False):
+    """Plain PyTorch version of the fused SD step, over the port's own env
+    functions.  Returns ``(state (57,B), obs (24 or 48,B), aux (11,B))``."""
+    b = state.shape[-1]
+    r_noise = {"ball": ball_u.reshape(2, K, b),
+               "spawn": spawn_u.reshape(env.n_yellow, 2, K, b),
+               "theta": theta_u}
+    return _plain(env, unpack_sd_state, SD_KEYS, state, action, r_noise, emit_final)
+
+
+def cp_full_step_plain(env, state, action, enemy_u, emit_final: bool = False):
+    """Plain PyTorch version of the fused CP step.  Returns
+    ``(state (28,B), obs (14 or 28,B), aux (12,B))``."""
+    return _plain(env, unpack_cp_state, CP_KEYS, state, action, {"enemy": enemy_u}, emit_final)
+
+
+# ------------------------------------------------------------ the kernels
+PARAM_FIELDS = (
+    "dts a_lin a_ang two_pi pi two_r pair_gain "
+    "ground_z fric gravity_dts neg_rest_ground bounce_min_v r_ball rbt_height "
+    "face_dist contact_lo contact_hi reach_hi half_kick_w kicker_height "
+    "pull_accel damping capture_speed r_sum ball_gain drib_gain "
+    "max_v max_w_cmd max_w_norm max_pos nbnd kick_speed "
+    "half_len half_wid gk_x half_pen_wid half_goal_wid "
+    "ball_dist_scale ball_grad_scale energy_scale wheel_r "
+    "j00 j01 j02 j10 j11 j12 j20 j21 j22 j30 j31 j32 max_steps "
+    "sp_x_lo sp_x_span sp_y_lo sp_y_span yl_x_span yl_y_span min_d2 "
+    "en_x_lo en_x_span en_y_lo en_y_span"
+).split()
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in PARAM_FIELDS]
+
+
+def kernel_params(env) -> dict:
+    """The kernels' constants, folded in double precision where the TPU
+    kernels folded Python floats, then rounded to f32 once.  The spawn
+    fields of the task that ``env`` is not are zero."""
+    f, cfg = env.field, env.physics_cfg
+    dts = env.time_step / cfg.n_substeps
+    r_ball = f.ball_radius
+    contact_hi = f.rbt_distance_center_kicker + r_ball + cfg.kicker_depth_slack
+    J = wheel_jacobian(f)
+    half_len, half_wid = f.half_length, f.half_width
+    sd = type(env) is SSLStaticDefendersEnv
+    return dict(
+        dts=dts, a_lin=cfg.robot_accel * dts, a_ang=cfg.robot_alpha * dts,
+        two_pi=2.0 * math.pi, pi=math.pi,
+        two_r=2.0 * f.rbt_radius, pair_gain=-(1.0 + cfg.rest_robot_robot) * 0.5,
+        ground_z=r_ball + 1e-4, fric=cfg.ball_friction_decel * dts,
+        gravity_dts=cfg.gravity * dts, neg_rest_ground=-cfg.rest_ball_ground,
+        bounce_min_v=cfg.ball_bounce_min_v, r_ball=r_ball, rbt_height=cfg.rbt_height,
+        face_dist=f.rbt_distance_center_kicker,
+        contact_lo=f.rbt_distance_center_kicker - f.rbt_kicker_thickness - r_ball,
+        contact_hi=contact_hi, reach_hi=contact_hi + cfg.dribbler_reach,
+        half_kick_w=f.rbt_kicker_width / 2, kicker_height=cfg.kicker_height,
+        pull_accel=cfg.dribbler_pull_accel, damping=cfg.dribbler_damping,
+        capture_speed=cfg.dribbler_capture_speed, r_sum=f.rbt_radius + r_ball,
+        ball_gain=-(1.0 + cfg.rest_ball_robot), drib_gain=-(1.0 + cfg.rest_dribbler),
+        max_v=env.max_v, max_w_cmd=env.max_w_cmd, max_w_norm=env.max_w_norm,
+        max_pos=env.max_pos, nbnd=env.norm_bounds, kick_speed=env.kick_speed_x,
+        half_len=half_len, half_wid=half_wid, gk_x=half_len - f.penalty_length,
+        half_pen_wid=f.penalty_width / 2, half_goal_wid=f.goal_width / 2,
+        ball_dist_scale=env.ball_dist_scale, ball_grad_scale=env.ball_grad_scale,
+        energy_scale=env.energy_scale, wheel_r=f.rbt_wheel_radius,
+        **{f"j{k}{c}": float(J[k, c]) for k in range(4) for c in range(3)},
+        max_steps=float(env.max_episode_steps),
+        sp_x_lo=0.2 if sd else 0.0,
+        sp_x_span=(half_len - 0.1 - 0.2) if sd else 0.0,
+        sp_y_lo=(-half_wid + 0.1) if sd else 0.0,
+        sp_y_span=(2 * half_wid - 0.2) if sd else 0.0,
+        yl_x_span=((half_len - 0.1) - 0.2) if sd else 0.0,
+        yl_y_span=((half_wid - 0.1) - (-half_wid + 0.1)) if sd else 0.0,
+        min_d2=0.2 * 0.2 if sd else 0.0,
+        en_x_lo=0.0 if sd else f.penalty_length,
+        en_x_span=0.0 if sd else half_len - 2 * f.penalty_length,
+        en_y_lo=0.0 if sd else -f.penalty_width / 2,
+        en_y_span=0.0 if sd else f.penalty_width,
+    )
+
+
+_PARAMS_CACHE: dict = {}
+
+
+def _params_struct(env) -> _Params:
+    """The ctypes struct for ``env``'s configuration, built once per
+    configuration rather than per launch."""
+    k = (type(env), env.field, env.physics_cfg, env.time_step, env.max_episode_steps)
+    if k not in _PARAMS_CACHE:
+        _PARAMS_CACHE[k] = _Params(**kernel_params(env))
+    return _PARAMS_CACHE[k]
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.load()
+    fields = lib.ssl_params_fields().decode().rstrip(",").split(",")
+    if fields != PARAM_FIELDS:
+        raise RuntimeError(
+            f"csrc/ssl_full.cu SslParams {fields} != PARAM_FIELDS {PARAM_FIELDS}"
+        )
+    return lib
+
+
+def _launch(entry: str, env, n_robots: int, state, action, noise, noise_rows,
+            key, emit_final, n_aux):
+    """Check the operands, allocate the outputs and launch ``entry``."""
+    if env.n_robots != n_robots or env.physics_cfg.n_substeps != N_SUBSTEPS:
+        raise NotImplementedError(
+            f"the CUDA kernel {entry} is compiled for {n_robots} robots and "
+            f"{N_SUBSTEPS} substeps; got {env.n_robots} robots, "
+            f"{env.physics_cfg.n_substeps} substeps"
+        )
+    dev = state.device
+    b = state.shape[-1]
+    _build.check_operand(state, "state", state_size(n_robots, n_aux - 3), b, dev)
+    _build.check_operand(action, "action", env.action_size, b, dev)
+    rng_kernel = key is not None
+    if rng_kernel:
+        _build.check_key(key, dev)
+    else:
+        for i, (t, rows) in enumerate(zip(noise, noise_rows)):
+            _build.check_operand(t, f"noise[{i}]", rows, b, dev)
+
+    lib = _library()
+    st_out = torch.empty_like(state)
+    obs = torch.empty((env.obs_size * (2 if emit_final else 1), b), dtype=torch.float32, device=dev)
+    aux = torch.empty((n_aux, b), dtype=torch.float32, device=dev)
+    ptrs = [None if rng_kernel else t.data_ptr() for t in noise]
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            int(emit_final), int(rng_kernel), ctypes.byref(_params_struct(env)),
+            state.data_ptr(), action.data_ptr(), *ptrs,
+            key.data_ptr() if rng_kernel else None,
+            st_out.data_ptr(), obs.data_ptr(), aux.data_ptr(), b,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    if rng_kernel:
+        key[2:].add_(1)  # in-stream: the next step reads the next counter
+    return st_out, obs, aux
+
+
+def _dispatch(name, env, state, noise, key):
+    """Which way a fused step runs: True to launch the kernel (CUDA), False
+    for the plain version (CPU); raises on anything else."""
+    if (key is None) == (noise[0] is None):
+        raise ValueError("pass exactly one of: the noise rows, key")
+    if state.device.type == "cuda":
+        return True
+    if state.device.type != "cpu":
+        raise NotImplementedError(
+            f"{name} runs on CUDA (kernel) or CPU (plain version), not {state.device.type}"
+        )
+    return False
+
+
+def sd_full_step(env, state, action, ball_u=None, spawn_u=None, theta_u=None, *,
+                 key=None, emit_final: bool = False):
+    """One fused SSLStaticDefenders-v0 step.
+
+    Noise either as input rows (``ball_u``, ``spawn_u``, ``theta_u``), or
+    drawn from ``key`` (int64 ``[k0, k1, step]``, advanced by one).
+    Returns ``(state, obs, aux)``.
+    """
+    noise = (ball_u, spawn_u, theta_u)
+    if _dispatch("sd_full_step", env, state, noise, key):
+        out = _launch("ssl_sd_full_step", env, SD_ROBOTS, state, action, noise,
+                      (2 * K, env.n_yellow * 2 * K, env.n_yellow), key, emit_final,
+                      3 + len(SD_KEYS))
+        sd_full_step.launches += 1
+        return out
+    if key is not None:
+        noise = sd_draw_step_rows(env, key, state.shape[-1])
+    return sd_full_step_plain(env, state, action, *noise, emit_final)
+
+
+def cp_full_step(env, state, action, enemy_u=None, *, key=None, emit_final: bool = False):
+    """One fused SSLContestedPossession-v0 step.
+
+    Noise either as the input row block ``enemy_u`` (2, B), or drawn from
+    ``key`` (advanced by one).  Returns ``(state, obs, aux)``.
+    """
+    noise = (enemy_u,)
+    if _dispatch("cp_full_step", env, state, noise, key):
+        out = _launch("ssl_cp_full_step", env, CP_ROBOTS, state, action, noise, (2,),
+                      key, emit_final, 3 + len(CP_KEYS))
+        cp_full_step.launches += 1
+        return out
+    if key is not None:
+        noise = cp_draw_step_rows(env, key, state.shape[-1])
+    return cp_full_step_plain(env, state, action, *noise, emit_final)
+
+
+sd_full_step.launches = 0
+cp_full_step.launches = 0

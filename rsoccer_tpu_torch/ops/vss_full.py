@@ -52,6 +52,7 @@ from rsoccer_tpu_torch.envs import spawn as spawn_mod
 from rsoccer_tpu_torch.envs.base import draw_noise, step_noise_spec
 from rsoccer_tpu_torch.envs.ou import OU_THETA
 from rsoccer_tpu_torch.envs.vss import _SHAPING_KEYS, VSSEnv, VSSState
+from rsoccer_tpu_torch.ops import _build
 from rsoccer_tpu_torch.physics.vss import HALF_AXLE, achieved_wheel_speeds
 
 N_AUX = 3 + len(_SHAPING_KEYS)
@@ -230,8 +231,6 @@ def _params_struct(env: VSSEnv) -> _Params:
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    from rsoccer_tpu_torch.ops import _build
-
     lib = _build.load()
     fields = lib.vss_params_fields().decode().rstrip(",").split(",")
     if fields != PARAM_FIELDS:
@@ -239,16 +238,6 @@ def _library():
             f"csrc/vss_full.cu VssParams {fields} != PARAM_FIELDS {PARAM_FIELDS}"
         )
     return lib
-
-
-def _check(t: torch.Tensor, name: str, rows: int, batch: int, device, dtype=torch.float32):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != (rows, batch) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want contiguous {dtype} ({rows}, {batch}) on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            + ("" if t.is_contiguous() else " (not contiguous)")
-        )
 
 
 def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
@@ -263,17 +252,15 @@ def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
         )
     dev = state.device
     b = state.shape[-1]
-    _check(state, "state", state_size(n), b, dev)
-    _check(action, "action", env.action_size, b, dev)
+    _build.check_operand(state, "state", state_size(n), b, dev)
+    _build.check_operand(action, "action", env.action_size, b, dev)
     rng_kernel = key is not None
     if rng_kernel:
-        if key.device != dev or key.dtype != torch.int64 or key.shape != (3,):
-            raise ValueError(f"key: want int64 (3,) on {dev}, got {key.dtype} "
-                             f"{tuple(key.shape)} on {key.device}")
+        _build.check_key(key, dev)
     else:
-        _check(ou_noise, "ou_noise", 2 * n, b, dev)
-        _check(spawn_u, "spawn_u", (1 + n) * 2 * spawn_mod.N_CANDIDATES, b, dev)
-        _check(theta_u, "theta_u", n, b, dev)
+        _build.check_operand(ou_noise, "ou_noise", 2 * n, b, dev)
+        _build.check_operand(spawn_u, "spawn_u", (1 + n) * 2 * spawn_mod.N_CANDIDATES, b, dev)
+        _build.check_operand(theta_u, "theta_u", n, b, dev)
 
     lib = _library()
     params = _params_struct(env)

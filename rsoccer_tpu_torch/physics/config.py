@@ -1,8 +1,8 @@
 """Physics coefficients: a copy of ``rsoccer_tpu/physics/config.py``.
 
 Copied rather than imported for the reason given in ``core/field.py``;
-``tests/test_torch_port_basics.py`` holds ``VSS_PHYSICS`` equal to the JAX
-package's.  Only the VSS set is carried: the SSL tasks are not ported yet.
+``tests/test_torch_port_basics.py`` and ``tests/test_torch_env_ssl.py`` hold
+``VSS_PHYSICS`` and ``SSL_PHYSICS`` equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class PhysicsConfig:
     rest_dribbler: float = 0.1
     rest_robot_robot: float = 0.1
 
-    # SSL kicker/dribbler (carried so the dataclass matches the reference's)
+    # SSL kicker and dribbler
     kicker_depth_slack: float = 0.01
     kicker_height: float = 0.05
     dribbler_pull_accel: float = 300.0
@@ -52,4 +52,12 @@ VSS_PHYSICS = PhysicsConfig(
     ball_friction_decel=0.6,
     robot_mass=0.25,
     rbt_height=0.075,  # VSS robots are 75 mm cubes
+)
+
+SSL_PHYSICS = PhysicsConfig(
+    robot_accel=3.5,
+    robot_alpha=50.0,
+    ball_friction_decel=0.35,
+    robot_mass=2.5,
+    rbt_height=0.147,  # SSL rule-book max robot height
 )

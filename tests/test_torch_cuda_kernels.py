@@ -1,4 +1,4 @@
-"""The CUDA kernel vs its plain PyTorch version, on the card.
+"""The CUDA kernels vs their plain PyTorch versions, on the card.
 
 Every test needs an NVIDIA card and nvcc: it is marked ``cuda`` and skips
 where ``torch.cuda.is_available()`` is false.  This file imports no JAX,
@@ -7,6 +7,7 @@ so it runs on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -15,6 +16,7 @@ import torch
 import rsoccer_tpu_torch
 from rsoccer_tpu_torch.batch import rollout as R
 from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+from rsoccer_tpu_torch.ops import ssl_full as sf
 from rsoccer_tpu_torch.ops import vss_full as vf
 from rsoccer_tpu_torch.ops.philox import make_key, philox_words
 
@@ -112,3 +114,74 @@ def test_bad_operands_raise(cuda):
         with pytest.raises(NotImplementedError):
             vf.vss_full_step(odd, torch.zeros((vf.state_size(odd.n_robots), B), device=cuda),
                              torch.zeros((2, B), device=cuda), key=key)
+
+
+SSL = {  # env id -> (wrapper, plain, draw)
+    "SSLStaticDefenders-v0": (sf.sd_full_step, sf.sd_full_step_plain, sf.sd_draw_step_rows),
+    "SSLContestedPossession-v0": (sf.cp_full_step, sf.cp_full_step_plain, sf.cp_draw_step_rows),
+}
+
+
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+@pytest.mark.parametrize("max_steps", [None, 3], ids=["limit_default", "limit3"])
+@pytest.mark.parametrize("env_id", list(SSL))
+def test_ssl_kernel_matches_plain(cuda, env_id, rng_mode, emit_final, max_steps):
+    wrapper, plain, draw = SSL[env_id]
+    env = rsoccer_tpu_torch.make(env_id)
+    if max_steps is not None:
+        env.max_episode_steps = max_steps
+    key = make_key(1, device=cuda)
+    st_k, _ = BatchedEnv(env, B, device=cuda, fused=True).reset(key)
+    st_p, key_p = st_k.clone(), key.clone()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    launches = wrapper.launches
+    dones = 0
+    for t in range(5):
+        act = torch.rand((5, B), generator=gen, device=cuda) * 2 - 1
+        if rng_mode == "kernel":
+            got = wrapper(env, st_k, act, key=key, emit_final=emit_final)
+            rows = draw(env, key_p, B)
+        else:
+            rows = draw(env, key, B)
+            got = wrapper(env, st_k, act, *rows, emit_final=emit_final)
+        want = plain(env, st_p, act, *rows, emit_final)
+        torch.cuda.synchronize()
+        assert_step_close(env, got, want, f"step {t}")
+        dones += int(got[2][1:3].sum())
+        st_k, st_p = got[0], want[0]
+    assert wrapper.launches == launches + 5
+    if rng_mode == "kernel":
+        assert torch.equal(key, key_p)
+    if max_steps is not None:  # auto-resets inside the window
+        assert dones > 0
+
+
+@pytest.mark.parametrize("env_id", list(SSL))
+def test_ssl_main_path_goes_through_the_kernel(cuda, env_id):
+    wrapper = SSL[env_id][0]
+    benv = BatchedEnv(rsoccer_tpu_torch.make(env_id), B, device=cuda, fused=True, fused_rng="kernel")
+    carry = R.init_carry(benv, seed=0)
+    launches = wrapper.launches
+    carry, ms = R.make_rollout_fn(benv, 20)(carry)
+    assert wrapper.launches == launches + 20
+    assert bool(torch.isfinite(carry.obs).all()) and bool(torch.isfinite(carry.state).all())
+    assert bool((carry.obs.abs() <= torch.tensor(1.2)).all())
+    assert int(ms.episodes) > 0
+
+
+@pytest.mark.parametrize("env_id", list(SSL))
+def test_ssl_bad_operands_raise(cuda, env_id):
+    wrapper = SSL[env_id][0]
+    env = rsoccer_tpu_torch.make(env_id)
+    st = BatchedEnv(env, B, device=cuda, fused=True).reset(make_key(0, device=cuda))[0]
+    key = make_key(0, device=cuda)
+    with pytest.raises(ValueError):
+        wrapper(env, st, torch.zeros((4, B), device=cuda), key=key)
+    with pytest.raises(ValueError):
+        wrapper(env, st[:, :-1], torch.zeros((5, B - 1), device=cuda), key=key)
+    with pytest.raises(ValueError):
+        wrapper(env, st, torch.zeros((5, B), device=cuda), key=key.cpu())
+    env.physics_cfg = dataclasses.replace(env.physics_cfg, n_substeps=3)
+    with pytest.raises(NotImplementedError):
+        wrapper(env, st, torch.zeros((5, B), device=cuda), key=key)

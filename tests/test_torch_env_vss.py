@@ -65,7 +65,7 @@ def test_reset_state_and_observe_match_jax():
     jenv, tenv = pair()
     noise = np_noise(np.random.default_rng(0), jenv.reset_noise_spec(), B)
     js = vm(jenv.reset_state)({k: jnp.asarray(v) for k, v in noise.items()})
-    ts = tenv.reset_state(convert.noise_from_numpy(noise))
+    ts = tenv.reset_state(convert.noise_from_numpy(noise, device="cpu"))
     assert_states_close(ts, js, atol=0)
     np.testing.assert_allclose(
         tenv.observe(ts).numpy(), np.asarray(vm(jenv.observe)(js)), atol=1e-6
@@ -79,7 +79,7 @@ def test_step_with_noise_matches_jax(final, max_steps):
     rng = np.random.default_rng(7 if max_steps else 8)
     r0 = np_noise(rng, jenv.reset_noise_spec(), B)
     js = vm(jenv.reset_state)({k: jnp.asarray(v) for k, v in r0.items()})
-    ts = tenv.reset_state(convert.noise_from_numpy(r0))
+    ts = tenv.reset_state(convert.noise_from_numpy(r0, device="cpu"))
     j_fn = vm(jenv.step_with_noise_final if final else jenv.step_with_noise)
     t_fn = tenv.step_with_noise_final if final else tenv.step_with_noise
     saw_done = False
@@ -88,7 +88,7 @@ def test_step_with_noise_matches_jax(final, max_steps):
         tn = np_noise(rng, jenv.transition_noise_spec(), B)
         rn = np_noise(rng, jenv.reset_noise_spec(), B)
         jo = j_fn(js, jnp.asarray(act), *({k: jnp.asarray(v) for k, v in d.items()} for d in (tn, rn)))
-        to = t_fn(ts, torch.from_numpy(act), convert.noise_from_numpy(tn), convert.noise_from_numpy(rn))
+        to = t_fn(ts, torch.from_numpy(act), convert.noise_from_numpy(tn, device="cpu"), convert.noise_from_numpy(rn, device="cpu"))
         js, ts = jo[0], to[0]
         tag = f"step {t}"
         assert_states_close(ts, js, tag=tag)
@@ -119,7 +119,7 @@ def test_golden_vss_trajectory():
     jenv, tenv = pair()
 
     def single(noise):  # unbatched JAX draw -> batch of one
-        return convert.noise_from_numpy({k: np.asarray(v)[..., None] for k, v in noise.items()})
+        return convert.noise_from_numpy({k: np.asarray(v)[..., None] for k, v in noise.items()}, device="cpu")
 
     state = tenv.reset_state(single(j_draw_noise(jax.random.PRNGKey(123), jenv.reset_noise_spec())))
     np.testing.assert_allclose(tenv.observe(state)[:, 0].numpy(), want_obs[0], atol=1e-5)

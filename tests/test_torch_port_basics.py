@@ -21,6 +21,7 @@ from rsoccer_tpu.ops import pallas_vss_full as jpvf
 from rsoccer_tpu.physics import config as jconfig
 from rsoccer_tpu_torch import convert
 from rsoccer_tpu_torch.core import field as tfield
+from rsoccer_tpu_torch.envs.vss import VSSState
 from rsoccer_tpu_torch.ops import vss_full as tvf
 from rsoccer_tpu_torch.physics import config as tconfig
 
@@ -39,7 +40,8 @@ def _jax_reset(b=16, seed=0):
 def test_port_imports_no_jax():
     code = (
         "import sys, rsoccer_tpu_torch, rsoccer_tpu_torch.batch.rollout, "
-        "rsoccer_tpu_torch.ops.vss_full, rsoccer_tpu_torch.convert; "
+        "rsoccer_tpu_torch.ops.vss_full, rsoccer_tpu_torch.ops.ssl_full, "
+        "rsoccer_tpu_torch.convert; "
         "assert 'jax' not in sys.modules, 'jax was imported'; print('ok')"
     )
     out = subprocess.run(
@@ -48,6 +50,18 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_port_and_chip_smoke_import_neither_jax_nor_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports jax or any
+    module of rsoccer_tpu (whose __init__ loads jax)."""
+    pat = re.compile(r"^\s*(import\s+(jax|rsoccer_tpu)\b(?!_)|from\s+(jax|rsoccer_tpu)\b(?!_))", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, files in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d != "_build"]
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offenders = [os.path.relpath(p, REPO) for p in paths if pat.search(open(p).read())]
+    assert len(paths) > 20 and not offenders, offenders
 
 
 def test_no_jax_import_in_port_sources():
@@ -87,20 +101,20 @@ def test_derived_field_values_equal_jax(ft):
 def test_convert_round_trips():
     _, state, _ = _jax_reset()
     np_state = jax.tree.map(np.asarray, state)
-    port = convert.state_from_numpy(np_state)
+    port = convert.state_from_numpy(np_state, VSSState, device="cpu")
     assert port.steps.dtype == torch.int32
     assert port.has_potential.dtype == torch.bool
     back = convert.state_to_numpy(port)
     for a, b in zip(jax.tree.leaves(np_state), jax.tree.leaves(back)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    again = convert.state_from_numpy(back)
+    again = convert.state_from_numpy(back, VSSState, device="cpu")
     for a, b in zip(jax.tree.leaves(port), jax.tree.leaves(again)):
         assert torch.equal(a, b)
 
     rng = np.random.default_rng(0)
     noise = {"ou": rng.normal(size=(6, 2, 4)).astype(np.float32)}
-    got = convert.noise_to_numpy(convert.noise_from_numpy(noise))
+    got = convert.noise_to_numpy(convert.noise_from_numpy(noise, device="cpu"))
     np.testing.assert_array_equal(got["ou"], noise["ou"])
 
 
@@ -113,7 +127,7 @@ def test_pack_unpack_equal_jax():
     np_state = jax.tree.map(np.asarray, state)
 
     packed_j = np.asarray(jpvf.pack_vss_state(state))
-    packed_t = tvf.pack_vss_state(convert.state_from_numpy(np_state))
+    packed_t = tvf.pack_vss_state(convert.state_from_numpy(np_state, VSSState, device="cpu"))
     assert packed_t.shape == (tvf.state_size(6), 16)
     np.testing.assert_array_equal(packed_t.numpy(), packed_j)
 
@@ -131,13 +145,14 @@ def test_pack_unpack_equal_jax():
 def test_registry_and_make_vec():
     env = rsoccer_tpu_torch.make("VSS-v0")
     assert (env.obs_size, env.action_size, env.max_episode_steps) == (40, 2, 1200)
-    assert rsoccer_tpu_torch.registered_ids() == ["VSS-v0"]
-    for env_id in ("SSLStaticDefenders-v0", "VSSSelfPlay-v0"):
+    assert rsoccer_tpu_torch.registered_ids() == [
+        "SSLContestedPossession-v0", "SSLStaticDefenders-v0", "VSS-v0"]
+    for env_id in ("SSLDribbling-v0", "VSSSelfPlay-v0"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rsoccer_tpu_torch.make(env_id)
     with pytest.raises(KeyError):
         rsoccer_tpu_torch.make("nope-v0")
-    benv = rsoccer_tpu_torch.make_vec("VSS-v0", 8, fused=True, field_type=1)
+    benv = rsoccer_tpu_torch.make_vec("VSS-v0", 8, device="cpu", fused=True, field_type=1)
     assert benv.env.field == tfield.vss_field(1) and benv.fused
 
 
@@ -146,9 +161,9 @@ def test_batched_env_refuses_unported_paths():
 
     env = rsoccer_tpu_torch.make("VSS-v0")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedEnv(env, 8, pallas_physics=True)
+        BatchedEnv(env, 8, device="cpu", pallas_physics=True)
     with pytest.raises(ValueError):
-        BatchedEnv(env, 8, fused=True, fused_rng="hardware")
+        BatchedEnv(env, 8, device="cpu", fused=True, fused_rng="hardware")
 
 
 def test_kernel_param_struct_matches_cuda_source():

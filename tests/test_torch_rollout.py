@@ -52,10 +52,10 @@ def test_fused_twin_and_jax_fused_agree(interp_full, final):
     jenv.max_episode_steps = tenv.max_episode_steps = 4  # auto-resets in the window
     jful = JaxBatchedEnv(jenv, B, pallas_full=True, pallas_tile=B)
     kern = jful._full_final if final else jful._full
-    fused = BatchedEnv(tenv, B, fused=True)
-    twin = BatchedEnv(tenv, B)
+    fused = BatchedEnv(tenv, B, device="cpu", fused=True)
+    twin = BatchedEnv(tenv, B, device="cpu")
 
-    key = make_key(0)
+    key = make_key(0, device="cpu")
     s_twin, o_twin = twin.reset(key.clone())
     s_fused, o_fused = fused.reset(key.clone())
     torch.testing.assert_close(o_twin, o_fused, rtol=0, atol=0)
@@ -72,7 +72,7 @@ def test_fused_twin_and_jax_fused_agree(interp_full, final):
             *jful._pack_noise({k: jnp.asarray(v) for k, v in tn.items()},
                               {k: jnp.asarray(v) for k, v in rn.items()}),
         )
-        args = (torch.from_numpy(act), convert.noise_from_numpy(tn), convert.noise_from_numpy(rn))
+        args = (torch.from_numpy(act), convert.noise_from_numpy(tn, device="cpu"), convert.noise_from_numpy(rn, device="cpu"))
         step = "step_final_with_noise" if final else "step_with_noise"
         f_out = getattr(fused, step)(s_fused, *args)
         t_out = getattr(twin, step)(s_twin, *args)
@@ -106,7 +106,7 @@ def test_fused_twin_and_jax_fused_agree(interp_full, final):
 
 @pytest.mark.parametrize("fused_rng", ["input", "kernel"])
 def test_rollout_is_deterministic(fused_rng):
-    benv = rsoccer_tpu_torch.make_vec("VSS-v0", B, fused=True, fused_rng=fused_rng)
+    benv = rsoccer_tpu_torch.make_vec("VSS-v0", B, device="cpu", fused=True, fused_rng=fused_rng)
     roll = R.make_rollout_fn(benv, 12)
     c1, m1 = roll(R.init_carry(benv, seed=3))
     c2, m2 = roll(R.init_carry(benv, seed=3))
@@ -123,7 +123,7 @@ def test_kernel_and_input_rng_modes_draw_one_stream():
     the same seed gives the same trajectory (unlike the TPU)."""
     outs = []
     for mode in ("input", "kernel"):
-        benv = rsoccer_tpu_torch.make_vec("VSS-v0", B, fused=True, fused_rng=mode)
+        benv = rsoccer_tpu_torch.make_vec("VSS-v0", B, device="cpu", fused=True, fused_rng=mode)
         outs.append(R.make_rollout_fn(benv, 8)(R.init_carry(benv, seed=6)))
     (c_in, m_in), (c_k, m_k) = outs
     assert torch.equal(c_in.state, c_k.state) and torch.equal(c_in.obs, c_k.obs)
@@ -134,7 +134,7 @@ def test_kernel_and_input_rng_modes_draw_one_stream():
 def test_rollout_metrics_equal_per_step_sums():
     env = rsoccer_tpu_torch.make("VSS-v0")
     env.max_episode_steps = 5  # episodes end inside the window
-    benv = BatchedEnv(env, B, fused=True, fused_rng="kernel")
+    benv = BatchedEnv(env, B, device="cpu", fused=True, fused_rng="kernel")
     n_steps = 12
     _, got = R.make_rollout_fn(benv, n_steps)(R.init_carry(benv, seed=8))
 
@@ -163,7 +163,7 @@ def test_rollout_metrics_equal_per_step_sums():
 
 
 def test_twin_rollout_runs_and_stays_in_bounds():
-    benv = rsoccer_tpu_torch.make_vec("VSS-v0", B)
+    benv = rsoccer_tpu_torch.make_vec("VSS-v0", B, device="cpu")
     carry, ms = R.make_rollout_fn(benv, 10)(R.init_carry(benv, seed=1))
     assert carry.obs.shape == (40, B)
     assert bool(torch.isfinite(carry.obs).all())

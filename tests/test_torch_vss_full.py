@@ -32,7 +32,7 @@ def pair(max_steps=None):
 
 
 def reset_packed(tenv, seed):
-    return BatchedEnv(tenv, B, fused=True).reset(philox.make_key(seed))[0]
+    return BatchedEnv(tenv, B, device="cpu", fused=True).reset(philox.make_key(seed, device="cpu"))[0]
 
 
 def assert_step_close(got, want, tag):
@@ -83,7 +83,7 @@ def test_kernel_rng_mode_matches_jax_kernel():
     reference (which the TPU's hardware PRNG never allowed)."""
     jenv, tenv = pair(max_steps=4)
     jstep = make_pallas_vss_full_step(jenv, B, tile=B, interpret=True)
-    key = philox.make_key(77)
+    key = philox.make_key(77, device="cpu")
     st_t = reset_packed(tenv, seed=5)
     st_j = jnp.asarray(st_t.numpy())
     rng = np.random.default_rng(3)
@@ -124,7 +124,7 @@ def test_draw_noise_slot_layout():
     tenv = rsoccer_tpu_torch.make("VSS-v0")
     assert list(step_noise_spec(tenv)) == ["spawn", "theta", "ou"]
     n_slots = 112 + 6 + 2 * 12  # spawn, theta, two uniforms per OU normal
-    key = philox.make_key(9)
+    key = philox.make_key(9, device="cpu")
     key[2] = (1 << 32) + 5  # both counter words in play
     words = philox.philox_words(key, n_slots, B)
     u = philox.uniforms_from_words(words)
@@ -148,7 +148,7 @@ def test_philox_moments():
     """64 envs x 142 slots: uniform and normal moments within 4 sigma,
     and distinct streams for distinct steps, envs and keys."""
     spec = {"u": ((142,), "uniform"), "n": ((71,), "normal")}
-    key = philox.make_key(2024)
+    key = philox.make_key(2024, device="cpu")
     noise = draw_noise(key, spec, 64)
     u = noise["u"].double().flatten()
     n = noise["n"].double().flatten()
@@ -162,7 +162,7 @@ def test_philox_moments():
     again = draw_noise(key, spec, 64)["u"]
     assert not torch.equal(again, noise["u"])  # next step, new words
     assert not torch.equal(noise["u"][:, 0], noise["u"][:, 1])  # envs differ
-    other = draw_noise(philox.make_key(2024, stream=1), spec, 64)["u"]
+    other = draw_noise(philox.make_key(2024, stream=1, device="cpu"), spec, 64)["u"]
     assert not torch.equal(other, noise["u"])
 
 
@@ -172,7 +172,7 @@ def test_wrapper_dispatch_on_cpu():
     tenv = rsoccer_tpu_torch.make("VSS-v0")
     st = reset_packed(tenv, seed=1)
     act = torch.zeros((2, B))
-    key = philox.make_key(5)
+    key = philox.make_key(5, device="cpu")
     launches = vf.vss_full_step.launches
     got = vf.vss_full_step(tenv, st, act, key=key.clone())
     want = vf.vss_full_step_plain(tenv, st, act, *vf.draw_step_rows(tenv, key.clone(), B))
