@@ -4,15 +4,22 @@
 
 Builds the port's CUDA kernels from ``rsoccer_tpu_torch/csrc`` (one nvcc per
 source, in parallel, at first use) and, for each fused env step —
-VSS-v0 (``vss_full_step``), SSLStaticDefenders-v0 (``ssl_sd_full_step``)
-and SSLContestedPossession-v0 (``ssl_cp_full_step``) — holds the kernel
-against its plain PyTorch version at the main path's shapes (8192 envs),
-in both RNG modes and both obs variants, through auto-resets.  Then it
-drives each main path — ``BatchedEnv(<id>, 8192, device="cuda", fused=True,
-fused_rng="kernel")`` through ``make_rollout_fn`` — with every launch count
-set to 0 just before and read just after, and times it.  Each phase prints
-one line; any failure exits non-zero.  The
-last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
+VSS-v0 (``vss_full_step``), SSLStaticDefenders-v0 (``ssl_sd_full_step``),
+SSLContestedPossession-v0 (``ssl_cp_full_step``), SSLDribbling-v0
+(``ssl_dr_full_step``) and SSLPassEndurance-v0 (``ssl_pe_full_step``) —
+holds the kernel against its plain PyTorch version at the main path's
+shapes (8192 envs), in both RNG modes and both obs variants, through
+auto-resets; the Dribbling and PassEndurance checks start from lanes built
+next to each gate and on pass lines, and print the crossings, completions
+and receptions they saw.  The VSS physics kernel (``vss_physics``) is held
+to its plain version on every step of a ``fused_physics`` rollout, and that
+rollout to the unfused one.  Then it drives each main path —
+``BatchedEnv(<id>, 8192, device="cuda", fused=True, fused_rng="kernel")``,
+and ``BatchedEnv(VSS-v0, 8192, device="cuda", fused_physics=True)`` —
+through ``make_rollout_fn`` with every launch count set to 0 just before and
+read just after, and times it.  Each phase prints one line; any failure
+exits non-zero.  The last two lines are the kernels' JSON record and
+``{"ok": true, ...}``.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -57,10 +64,20 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
 
+def worst_entry(d: torch.Tensor) -> tuple[float, int, int]:
+    """(largest value, its row, its lane) of a (rows, B) error table; zeros
+    for a table with no rows (DR has no info rows)."""
+    if not d.numel():
+        return 0.0, 0, 0
+    i = int(d.argmax())
+    return float(d.flatten()[i]), i // d.shape[-1], i % d.shape[-1]
+
+
 def compare_step(n, got, want, tag):
     """Kernel outputs vs plain outputs of one step.  Floats to ATOL;
     headings on the circle (a wrap at +-pi is the same angle); steps,
-    terminated, truncated exactly.  Returns the largest float error."""
+    terminated, truncated exactly.  Returns the largest float error and
+    where it is (part, row, lane, tag)."""
     st_k, obs_k, aux_k = got
     st_p, obs_p, aux_p = want
     steps_row = 6 + 6 * n
@@ -68,22 +85,23 @@ def compare_step(n, got, want, tag):
     d = (st_k - st_p).abs()
     dth = torch.remainder(st_k[th] - st_p[th] + math.pi, 2 * math.pi) - math.pi
     d[th] = dth.abs()
-    float_rows = [r for r in range(st_k.shape[0]) if r != steps_row]
+    d[steps_row] = 0.0  # held exactly below
     errs = {
-        "state": float(d[float_rows].max()),
-        "obs": max_err(obs_k, obs_p),
-        "reward": max_err(aux_k[0], aux_p[0]),
-        "shaping": max_err(aux_k[3:], aux_p[3:]),
+        "state": worst_entry(d),
+        "obs": worst_entry((obs_k - obs_p).abs()),
+        "reward": worst_entry((aux_k[:1] - aux_p[:1]).abs()),
+        "shaping": worst_entry((aux_k[3:] - aux_p[3:]).abs()),
     }
-    bad = {k: v for k, v in errs.items() if not v <= ATOL}
+    bad = {k: v for k, v in errs.items() if not v[0] <= ATOL}
     if bad:
-        raise AssertionError(f"{tag}: kernel vs plain beyond {ATOL}: {bad}")
+        raise AssertionError(f"{tag}: kernel vs plain beyond {ATOL} (error, row, lane): {bad}")
     if not torch.equal(st_k[steps_row], st_p[steps_row]):
         raise AssertionError(f"{tag}: steps differ")
     for name, row in (("terminated", 1), ("truncated", 2)):
         if not torch.equal(aux_k[row], aux_p[row]):
             raise AssertionError(f"{tag}: {name} differ")
-    return max(errs.values())
+    part, (err, row, lane) = max(errs.items(), key=lambda kv: kv[1][0])
+    return err, {"part": part, "row": row, "lane": lane, "at": tag}
 
 
 def chase_actions(obs, gen):
@@ -99,18 +117,131 @@ def chase_actions(obs, gen):
     return u
 
 
+def dribble_actions(obs, gen):
+    """SSLDribbling-v0 actions (vx, vy, vtheta, dribbler): even envs drive
+    at the ball (obs 1-2; the robot at obs 5-6) with the dribbler on, odd
+    envs act at random."""
+    u = torch.rand((4, obs.shape[-1]), generator=gen, device=obs.device) * 2 - 1
+    dx, dy = obs[1] - obs[5], obs[2] - obs[6]
+    norm = torch.sqrt(dx * dx + dy * dy) + 1e-6
+    chase = torch.arange(obs.shape[-1], device=obs.device) % 2 == 0
+    u[0] = torch.where(chase, dx / norm, u[0])
+    u[1] = torch.where(chase, dy / norm, u[1])
+    u[3] = torch.where(chase, 1.0, u[3])
+    return u
+
+
+def pass_actions(obs, gen):
+    """SSLPassEndurance-v0 actions (vtheta, kick, dribbler): even envs turn
+    the shooter (obs 4-7) toward the receiver (obs 10-11), dribbler on, and
+    kick when aligned with the ball on the kicker; odd envs act at random."""
+    u = torch.rand((3, obs.shape[-1]), generator=gen, device=obs.device) * 2 - 1
+    dx, dy = obs[10] - obs[4], obs[11] - obs[5]
+    sn, cs = obs[6], obs[7]
+    err = torch.atan2(cs * dy - sn * dx, cs * dx + sn * dy)
+    aim = torch.arange(obs.shape[-1], device=obs.device) % 2 == 0
+    u[0] = torch.where(aim, torch.clamp(err, -1.0, 1.0), u[0])
+    u[1] = torch.where(aim, ((err.abs() < 0.02) & (obs[9] > 0.5)).to(u.dtype), u[1])
+    u[2] = torch.where(aim, 1.0, u[2])
+    return u
+
+
+DR_KINDS = ("cross0", "cross1", "cross_even", "reverse_even", "cross_odd", "completed",
+            "rbt_out", "collision")
+
+
+def dr_gate_states(st, share: float = 0.5):
+    """Overwrite the first ``share`` of packed SSLDribbling-v0 lanes with
+    worlds built on each branch of the gate automaton, cycling through
+    ``DR_KINDS``: the ball just across y = 0 inside the gate's x-window and
+    moving across it (checkpoint counts 0..6 as the branch needs), the
+    robot behind it, the yellows at rest on the nodes; ``rbt_out`` puts the
+    robot outside the course box, ``collision`` sets a yellow moving.
+    Returns (state, kind per lane; -1 where not built)."""
+    st = st.clone()
+    n, b = 5, st.shape[-1]
+    lane = torch.arange(b, device=st.device)
+    kind = torch.where(lane < int(share * b), lane % len(DR_KINDS), -1)
+    cyc = (lane // len(DR_KINDS)) % 3  # which even/odd count a branch takes
+    count = torch.stack([
+        torch.zeros_like(lane), torch.ones_like(lane), 2 + 2 * (cyc % 2), 2 + 2 * cyc,
+        3 + 2 * (cyc % 2), torch.full_like(lane, 6), lane % 7, lane % 7,
+    ])[kind.clamp(min=0), lane]
+    gate_x = torch.tensor([-0.75, -1.25, -1.75, -1.75, -2.5, -1.75, -0.75, -0.75],
+                          device=st.device)[kind.clamp(min=0)]
+    up = (kind == 1) | (kind == 3) | (kind == 4)
+    jitter = ((lane * 37) % 101).to(st.dtype) / 100.0 - 0.5
+    bx = gate_x + 0.2 * jitter
+    ball = torch.stack([bx, torch.where(up, -0.01, 0.01), torch.full_like(bx, 0.0215),
+                        torch.zeros_like(bx), torch.where(up, 0.8, -0.8), torch.zeros_like(bx)])
+    rx = torch.stack([torch.where(kind == 6, 1.2, bx + 0.3)]
+                     + [torch.full_like(bx, x) for x in (-0.5, -1.0, -1.5, -2.0)])
+    zeros = torch.zeros((n, b), device=st.device)
+    yvx = zeros.clone()
+    yvx[1] = torch.where(kind == 7, 1.0, 0.0)
+    ry = zeros.clone()
+    ry[0] = 0.3
+    rows = torch.cat([ball, rx, ry, torch.full_like(zeros, math.pi), yvx, zeros, zeros,
+                      st[6 + 6 * n:7 + 6 * n], count[None].to(st.dtype)])
+    built = kind >= 0
+    st[:, built] = rows[:, built]
+    return st, kind
+
+
+PE_KINDS = ("pass", "stopped", "out", "edge")
+
+
+def pe_pass_states(st, share: float = 0.5):
+    """Overwrite the first ``share`` of packed SSLPassEndurance-v0 lanes,
+    cycling through ``PE_KINDS``: ``pass`` puts the ball in flight along
+    the receiver's heading, 0.02-0.15 m short of its kicker face with a
+    lateral offset up to 0.05 m, at 1.5 m/s; ``stopped`` rests the ball
+    between the robots with the stopped counter at 20; ``out`` sends the
+    ball out of the shooter-receiver box; ``edge`` rolls the ball at 2.5 m/s
+    (above the capture speed) onto the lateral edge of the receiver's kicker
+    face, 0.0372-0.0398 m off its axis, where testing the face before or after
+    the positional push decides the restitution.  Returns (state, kind per
+    lane; -1 where not built)."""
+    st = st.clone()
+    n, b = 2, st.shape[-1]
+    lane = torch.arange(b, device=st.device)
+    kind = torch.where(lane < int(share * b), lane % len(PE_KINDS), -1)
+    # in (0, 1), spread over lanes, never a round value: no ball starts on a
+    # face-zone edge (|side| = 0.04), where an ulp decides
+    frac = (((lane * 37) % 101).to(st.dtype) + 0.5) / 101.0
+    sx, sy, rx, ry = st[6], st[6 + n], st[6 + 1], st[6 + n + 1]
+    c, s = torch.cos(st[6 + 2 * n + 1]), torch.sin(st[6 + 2 * n + 1])  # the receiver's heading
+    ahead = 0.1115 + 0.02 + 0.13 * frac
+    side = 0.1 * (frac - 0.5)
+    pass_xy = (rx + ahead * c - side * s, ry + ahead * s + side * c, -1.5 * c, -1.5 * s)
+    stop_xy = (0.5 * (sx + rx), 0.5 * (sy + ry), torch.zeros_like(sx), torch.zeros_like(sx))
+    out_x = torch.maximum(sx, rx) + 0.05
+    out_xy = (out_x, 0.5 * (sy + ry), torch.ones_like(sx), torch.zeros_like(sx))
+    lat = 0.0372 + 0.0026 * frac  # inside the face's 0.04 half-width, never on it
+    edge_xy = (rx + 0.1135 * c - lat * s, ry + 0.1135 * s + lat * c, -2.5 * c, -2.5 * s)
+    for k, (bx, by, bvx, bvy) in enumerate((pass_xy, stop_xy, out_xy, edge_xy)):
+        m = kind == k
+        for row, v in zip((0, 1, 2, 3, 4, 5), (bx, by, torch.full_like(bx, 0.0215), bvx, bvy,
+                                              torch.zeros_like(bx))):
+            st[row] = torch.where(m, v, st[row])
+    stopped_row = 7 + 6 * n
+    st[stopped_row] = torch.where(kind == 1, 20.0, torch.where(kind >= 0, 0.0, st[stopped_row]))
+    return st, kind
+
+
 def check_kernel_vs_plain(task, rng_mode: str):
     """A few steps, kernel and plain each on their own trajectory, for
     both step-limit settings and both obs variants.  VSS-v0 starts from a
     reset state with random actions; the SSL tasks start after WARM_STEPS
-    kernel steps of the chase policy (the actions of the checked steps
-    come from the kernel's obs and go to both).  Returns (max error, dones
-    seen)."""
+    kernel steps of their policy (the actions of the checked steps come
+    from the kernel's obs and go to both), DR and PE from lanes rebuilt by
+    ``task.prepare``.  Returns (max error, where it is, dones seen,
+    ``task.events`` summed over the checked steps)."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops.philox import make_key
 
-    worst, dones = 0.0, 0
+    worst, where, dones, events = 0.0, {}, 0, {}
     for max_steps in (None, 3):
         for emit_final in (False, True):
             env = rt.make(task.env_id)
@@ -122,6 +253,9 @@ def check_kernel_vs_plain(task, rng_mode: str):
             gen = torch.Generator(device="cuda").manual_seed(5)
             for _ in range(task.warm_steps):
                 st_k, obs, *_ = benv.step(st_k, task.actions(obs, gen), key)
+            kinds = None
+            if task.prepare is not None:
+                st_k, kinds = task.prepare(st_k)
             st_p = st_k.clone()
             key_p = key.clone()
             for t in range(N_CHECK_STEPS):
@@ -135,8 +269,13 @@ def check_kernel_vs_plain(task, rng_mode: str):
                 want = task.plain(env, st_p, act, *rows, emit_final)
                 tag = (f"{task.name} rng={rng_mode} max_steps={max_steps} "
                        f"final={emit_final} step={t}")
-                worst = max(worst, compare_step(env.n_robots, got, want, tag))
+                err, at = compare_step(env.n_robots, got, want, tag)
+                if err >= worst:
+                    worst, where = err, at
                 dones += int(((got[2][1] > 0.5) | (got[2][2] > 0.5)).sum())
+                if task.events is not None:
+                    for k, v in task.events(kinds, st_k, got, t).items():
+                        events[k] = events.get(k, 0) + v
                 st_k, st_p = got[0], want[0]
                 obs = got[1][:env.obs_size]
             if rng_mode == "kernel" and not torch.equal(key, key_p):
@@ -144,6 +283,94 @@ def check_kernel_vs_plain(task, rng_mode: str):
     torch.cuda.synchronize()
     if dones == 0:
         raise AssertionError(f"{task.name} rng={rng_mode}: no auto-reset inside the checked window")
+    missing = [k for k in task.need_events if not events.get(k)]
+    if missing:
+        raise AssertionError(f"{task.name} rng={rng_mode}: no {missing} inside the checked window: {events}")
+    return worst, where, dones, events
+
+
+def dr_events(kinds, st_before, got, t):
+    """Gate crossings and completions (count 6 -> 7) of a DR step; on the
+    first checked step, how many built lanes of each branch went its way."""
+    aux = got[2]
+    crossed, term = aux[0] > 0.5, aux[1] > 0.5
+    ev = {"crossings": int(crossed.sum()),
+          "completions": int((crossed & term & (st_before[6 + 6 * 5 + 1] == 6.0)).sum())}
+    if t == 0:
+        went = (crossed, crossed, crossed, term & ~crossed, crossed, term & crossed, term, term)
+        ev.update({f"built_{name}": int(((kinds == k) & w).sum())
+                   for k, (name, w) in enumerate(zip(DR_KINDS, went))})
+    return ev
+
+
+def pe_events(kinds, st_before, got, t):
+    """Passes received (reward 1) and wrong balls (-1 + ball_grad) of a PE
+    step; on the first checked step, the built stopped and out lanes that
+    ended as wrong balls."""
+    aux = got[2]
+    term = aux[1] > 0.5
+    wrong = term & (aux[0] < -0.2)
+    ev = {"received": int((term & (aux[0] > 0.9)).sum()), "wrong_ball": int(wrong.sum())}
+    if t == 0:
+        ev.update({"built_stopped_wrong": int(((kinds == 1) & wrong).sum()),
+                   "built_out_wrong": int(((kinds == 2) & wrong).sum())})
+    return ev
+
+
+def check_physics_vs_plain():
+    """The VSS physics kernel on a ``fused_physics`` rollout: at every step
+    the kernel vs its plain version on that step's arrays, and the whole
+    step (state, obs, reward, flags, info) vs the unfused env step fed the
+    same noise, for both step-limit settings and both obs variants.
+    Returns (max error, dones seen)."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    worst, dones = 0.0, 0
+    for max_steps in (None, 3):
+        for final in (False, True):
+            env = rt.make("VSS-v0")
+            if max_steps is not None:
+                env.max_episode_steps = max_steps
+            fused = BatchedEnv(env, B, device="cuda", fused_physics=True)
+            twin = BatchedEnv(env, B, device="cuda")
+            key = make_key(11, device="cuda")
+            st_k, _ = fused.reset(key)
+            st_p = st_k
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            for t in range(N_CHECK_STEPS):
+                act = torch.rand((2, B), generator=gen, device="cuda") * 2 - 1
+                t_noise, r_noise = fused._draw(key)
+                cmd, _ = env.pre_physics(st_k, act, t_noise)
+                rb, bl = vp._stack(st_k.world)
+                cmd = torch.stack([cmd.v_wheel0, cmd.v_wheel1])
+                k_rb, k_bl = vp.vss_physics(env, rb, bl, cmd)
+                p_rb, p_bl = vp.vss_physics_plain(env, rb, bl, cmd)
+                tag = f"vss_physics max_steps={max_steps} final={final} step={t}"
+                d_th = (torch.remainder(k_rb[2] - p_rb[2] + math.pi, 2 * math.pi) - math.pi).abs()
+                errs = [max_err(k_rb[[0, 1, 3, 4, 5]], p_rb[[0, 1, 3, 4, 5]]), float(d_th.max()),
+                        max_err(k_bl, p_bl)]
+                if not max(errs) <= ATOL:
+                    raise AssertionError(f"{tag}: kernel vs plain beyond {ATOL}: {errs}")
+                step = fused.step_final_with_noise if final else fused.step_with_noise
+                plain = twin.step_final_with_noise if final else twin.step_with_noise
+                got, want = step(st_k, act, t_noise, r_noise), plain(st_p, act, t_noise, r_noise)
+                n_obs = 2 if final else 1
+
+                def as_step(out):
+                    rew, term, trunc, info = out[1 + n_obs:]
+                    aux = torch.stack([rew, term.float(), trunc.float()] + list(info.values()))
+                    return vf.pack_vss_state(out[0]), torch.cat(out[1:1 + n_obs]), aux
+
+                worst = max(worst, *errs, compare_step(6, as_step(got), as_step(want), tag)[0])
+                dones += int((got[-3] | got[-2]).sum())
+                st_k, st_p = got[0], want[0]
+    torch.cuda.synchronize()
+    if dones == 0:
+        raise AssertionError("vss_physics: no auto-reset inside the checked window")
     return worst, dones
 
 
@@ -213,7 +440,7 @@ def device_us(fn, n: int, match: str = "", table: str = "") -> tuple[float, dict
     return total, {k[:80]: v for k, v in top.items()}
 
 
-def bound_ms(task, ins, outs) -> tuple[float, str, float, float]:
+def bound_ms(task, ins, outs, n_done: int) -> tuple[float, str, float, float]:
     """The least time for one step on these inputs: each input read once
     and each output written once over the HBM rate, against the f32
     operations over the f32 rate.  Returns (bound, "bytes" or
@@ -222,12 +449,61 @@ def bound_ms(task, ins, outs) -> tuple[float, str, float, float]:
     kernel source: one per f32 add, multiply, divide, compare, min/max,
     square root or transcendental; each Philox block as 40)."""
     n_bytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
-    aux = outs[-1]
-    n_done = int(((aux[1] > 0.5) | (aux[2] > 0.5)).sum())
     n_ops = task.ops_env * ins[0].shape[-1] + task.ops_reset * n_done
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops
+
+
+def fused_calls(task, env, carry):
+    """A fused step's kernel (kernel RNG and input rows) and plain calls on
+    the main path's last state, with each call's operands for the bound."""
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    st = carry.state
+    act = task.actions(carry.obs, torch.Generator(device="cuda").manual_seed(7))
+    key = make_key(3, device="cuda")
+    rows = task.draw(env, key, B)
+
+    def kernel_call():
+        return task.wrapper(env, st, act, key=key)
+
+    def kernel_input_call():
+        return task.wrapper(env, st, act, *rows)
+
+    def plain_call():
+        return task.plain(env, st, act, *task.draw(env, key, B))
+
+    def n_done(outs):
+        return int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum())
+
+    return dict(kernel=kernel_call, kernel_input=kernel_input_call, plain=plain_call,
+                ins=(st, act, key), ins_input=(st, act, *rows), n_done=n_done)
+
+
+def physics_calls(task, env, carry):
+    """The VSS physics kernel and its plain version on the main path's last
+    world, with the commands of one more step."""
+    from rsoccer_tpu_torch.envs.base import draw_noise
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    act = torch.rand((2, B), generator=torch.Generator(device="cuda").manual_seed(7),
+                     device="cuda") * 2 - 1
+    t_noise = draw_noise(make_key(3, device="cuda"), env.transition_noise_spec(), B)
+    cmd, _ = env.pre_physics(carry.state, act, t_noise)
+    cmd = torch.stack([cmd.v_wheel0, cmd.v_wheel1])
+    rb, bl = vp._stack(carry.state.world)
+    return dict(kernel=lambda: vp.vss_physics(env, rb, bl, cmd),
+                plain=lambda: vp.vss_physics_plain(env, rb, bl, cmd),
+                ins=(rb, bl, cmd), n_done=lambda outs: 0)
+
+
+def tensor_leaves(tree):
+    """Leaves of a tensor or of (nested) NamedTuples of tensors."""
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in tensor_leaves(sub)]
+    return [tree]
 
 
 def main_path(task, tasks, card):
@@ -237,11 +513,9 @@ def main_path(task, tasks, card):
     max_abs_err)."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch import rollout as R
-    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
-    from rsoccer_tpu_torch.ops.philox import make_key
 
     env = rt.make(task.env_id)
-    benv = BatchedEnv(env, B, device="cuda", fused=True, fused_rng="kernel")
+    benv = task.make_benv(env)
     carry = R.init_carry(benv, seed=0)
     rollout = R.make_rollout_fn(benv, ROLLOUT_STEPS)
     for _ in range(2):  # warm-up
@@ -271,7 +545,8 @@ def main_path(task, tasks, card):
         raise AssertionError(f"{task.name}: main-path obs not finite or of the wrong shape")
     if bool((obs.abs() > torch.tensor(1.2, dtype=torch.float32)).any()):
         raise AssertionError(f"{task.name}: main-path obs outside +-1.2 (f32)")
-    if not bool(torch.isfinite(carry.state).all()):
+    if not all(bool(torch.isfinite(t).all()) for t in tensor_leaves(carry.state)
+               if t.is_floating_point()):
         raise AssertionError(f"{task.name}: main-path state not finite")
     episodes = int(episodes)
     if episodes <= 0:
@@ -281,44 +556,35 @@ def main_path(task, tasks, card):
     # kernel alone vs its plain version, same shapes, same stream: the
     # time per call seen from the host (CUDA events over back-to-back
     # calls) and the device time per call (profiler)
-    st = carry.state
-    act = task.actions(carry.obs, torch.Generator(device="cuda").manual_seed(7))
-    key = make_key(3, device="cuda")
-    rows = task.draw(env, key, B)
-
-    def kernel_call():
-        return task.wrapper(env, st, act, key=key)
-
-    def kernel_input_call():
-        return task.wrapper(env, st, act, *rows)
-
-    def plain_call():
-        return task.plain(env, st, act, *task.draw(env, key, B))
-
-    call_us = {
-        "kernel_rng": time_cuda(kernel_call, TIMED_LAUNCHES) * 1e3,
-        "kernel_input": time_cuda(kernel_input_call, TIMED_LAUNCHES) * 1e3,
-        "plain": time_cuda(plain_call, 20) * 1e3,
-        "kernel_rng_again": time_cuda(kernel_call, TIMED_LAUNCHES) * 1e3,
-    }
-    kern_dev_us, _ = device_us(kernel_call, TIMED_LAUNCHES, task.kernel_match)
-    kern_in_dev_us, _ = device_us(kernel_input_call, TIMED_LAUNCHES, task.kernel_match)
-    plain_dev_us, plain_top = device_us(plain_call, 10)
+    calls = task.calls(task, env, carry)
+    call_us = {"kernel_rng" if "kernel_input" in calls else "kernel":
+               time_cuda(calls["kernel"], TIMED_LAUNCHES) * 1e3}
+    dev_us = {}
+    if "kernel_input" in calls:
+        call_us["kernel_input"] = time_cuda(calls["kernel_input"], TIMED_LAUNCHES) * 1e3
+    call_us["plain"] = time_cuda(calls["plain"], 20) * 1e3
+    call_us["kernel_again"] = time_cuda(calls["kernel"], TIMED_LAUNCHES) * 1e3
+    kern_dev_us, _ = device_us(calls["kernel"], TIMED_LAUNCHES, task.kernel_match)
+    dev_us["kernel_rng" if "kernel_input" in calls else "kernel"] = kern_dev_us
+    if "kernel_input" in calls:
+        dev_us["kernel_input"], _ = device_us(calls["kernel_input"], TIMED_LAUNCHES, task.kernel_match)
+    plain_dev_us, plain_top = device_us(calls["plain"], 10)
+    dev_us["plain"] = plain_dev_us
     roll_dev_us, roll_top = device_us(lambda: rollout(carry), 1,
                                       table=f"profile_rollout_{task.name}.txt")
     rollout_us_per_step = roll_ms * 1e3 / n_steps
-    outs = kernel_call()
-    bound, bound_by, bytes_ms, ops_ms = bound_ms(task, (st, act, key), outs)
-    bound_in = bound_ms(task, (st, act, *rows), outs)
+    outs = calls["kernel"]()
+    bound, bound_by, bytes_ms, ops_ms = bound_ms(task, calls["ins"], outs, calls["n_done"](outs))
+    extra = {}
+    if "ins_input" in calls:
+        b_in = bound_ms(task, calls["ins_input"], outs, calls["n_done"](outs))
+        extra = {"bound_input_rows_us": b_in[0] * 1e3, "bound_input_rows_by": b_in[1]}
     phase(f"main_path_{task.name}", card=card, env=task.env_id, B=B, steps=n_steps,
           launches=launches[task.name], episodes=episodes, rollout_ms=roll_ms, host_s=host_s,
           env_steps_per_s=env_steps_per_s, rollout_us_per_step=rollout_us_per_step)
     phase(f"kernel_vs_plain_time_{task.name}", card=card, B=B, call_us=call_us,
-          device_us={"kernel_rng": kern_dev_us, "kernel_input": kern_in_dev_us,
-                     "plain": plain_dev_us},
-          bound_us=bound * 1e3, bound_by=bound_by, bound_bytes_us=bytes_ms * 1e3,
-          bound_ops_us=ops_ms * 1e3, bound_input_rows_us=bound_in[0] * 1e3,
-          bound_input_rows_by=bound_in[1], plain_top_kernels_us=plain_top)
+          device_us=dev_us, bound_us=bound * 1e3, bound_by=bound_by, bound_bytes_us=bytes_ms * 1e3,
+          bound_ops_us=ops_ms * 1e3, **extra, plain_top_kernels_us=plain_top)
     phase(f"rollout_device_{task.name}", card=card, steps=ROLLOUT_STEPS,
           device_us_per_step=roll_dev_us / ROLLOUT_STEPS,
           device_busy_share=roll_dev_us / ROLLOUT_STEPS / rollout_us_per_step,
@@ -333,7 +599,7 @@ def main_path(task, tasks, card):
         "plain_ms": plain_dev_us / 1e3,
         "bound_ms": bound,
         "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes an env step
+        "library_ms": None,  # no single PyTorch call computes an env step or its physics
     }
 
 
@@ -345,9 +611,11 @@ def main() -> int:
         return 1
     # the port is imported before anything is printed: without the repo
     # beside this script the run fails here and prints no result
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops import _build
     from rsoccer_tpu_torch.ops import ssl_full as sf
     from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
 
     card = card_line()
     print(card, flush=True)
@@ -359,6 +627,11 @@ def main() -> int:
     def random_actions(n):
         return lambda obs, gen: torch.rand((n, obs.shape[-1]), generator=gen, device=obs.device) * 2 - 1
 
+    def fused_benv(env):
+        return BatchedEnv(env, B, device="cuda", fused=True, fused_rng="kernel")
+
+    fused = dict(make_benv=fused_benv, calls=fused_calls, prepare=None, events=None,
+                 need_events=())
     tasks = [
         SimpleNamespace(
             name="vss_full_step", env_id="VSS-v0", wrapper=vf.vss_full_step,
@@ -370,6 +643,7 @@ def main() -> int:
             # + walls 48 + ball 60 + 6 contacts x 20), spawn ~900 and 36
             # Philox blocks on every lane, obs ~60
             ops_env=100 + 5 * (180 + 375 + 48 + 60 + 120) + 900 + 36 * 40 + 60, ops_reset=0,
+            **fused,
         ),
         SimpleNamespace(
             name="ssl_sd_full_step", env_id="SSLStaticDefenders-v0", wrapper=sf.sd_full_step,
@@ -383,6 +657,7 @@ def main() -> int:
             # 30 Philox blocks
             ops_env=40 + 5 * (140 + 525 + 45 + 140 + 24) + 120,
             ops_reset=48 + 6 * 8 * 27 + 30 * 40,
+            **fused,
         ),
         SimpleNamespace(
             name="ssl_cp_full_step", env_id="SSLContestedPossession-v0", wrapper=sf.cp_full_step,
@@ -394,6 +669,47 @@ def main() -> int:
             # + ball 45 + 2 contacts x 20 + 2 face zones x 12), epilogue ~110;
             # a reset: ~10 and one Philox block
             ops_env=25 + 5 * (40 + 25 + 45 + 40 + 24) + 110, ops_reset=10 + 40,
+            **fused,
+        ),
+        SimpleNamespace(
+            name="ssl_dr_full_step", env_id="SSLDribbling-v0", wrapper=sf.dr_full_step,
+            plain=sf.dr_full_step_plain, draw=sf.dr_draw_step_rows,
+            actions=dribble_actions, warm_steps=WARM_STEPS, kernel_match="dr_full_kernel",
+            source="rsoccer_tpu_torch/csrc/ssl_full.cu",
+            replaces="rsoccer_tpu/ops/pallas_ssl_full.py:1086",
+            # trig 10 + actions ~20, 5 substeps x (5 robots x 20 + 10 pairs
+            # x 25 + ball 45 + 5 contacts x 20 + 3 face zones x 12), epilogue
+            # (collision 8, box 5, automaton ~30, obs 21 x 4) ~130; a reset:
+            # ~20 stores, 2 transcendentals
+            ops_env=30 + 5 * (100 + 250 + 45 + 100 + 36) + 130, ops_reset=22,
+            make_benv=fused_benv, calls=fused_calls, prepare=dr_gate_states, events=dr_events,
+            need_events=("crossings", "completions", "built_reverse_even"),
+        ),
+        SimpleNamespace(
+            name="ssl_pe_full_step", env_id="SSLPassEndurance-v0", wrapper=sf.pe_full_step,
+            plain=sf.pe_full_step_plain, draw=sf.pe_draw_step_rows,
+            actions=pass_actions, warm_steps=WARM_STEPS, kernel_match="pe_full_kernel",
+            source="rsoccer_tpu_torch/csrc/ssl_full.cu",
+            replaces="rsoccer_tpu/ops/pallas_ssl_full.py:1327",
+            # trig 4 + actions ~5, 5 substeps x (2 robots x 20 + 1 pair x 25
+            # + ball 45 + 2 contacts x 20 + 2 pull zones x 30 + 4 face zones
+            # x 12), epilogue (distances, bbox, counters, shaping ~55, obs
+            # 16 x 4) ~120; a reset: 5 Philox blocks, 16 candidates x 5,
+            # atan2, sin/cos, rsqrt ~35
+            ops_env=9 + 5 * (40 + 25 + 45 + 40 + 60 + 48) + 120, ops_reset=5 * 40 + 16 * 5 + 35,
+            make_benv=fused_benv, calls=fused_calls, prepare=pe_pass_states, events=pe_events,
+            need_events=("received", "built_stopped_wrong", "built_out_wrong"),
+        ),
+        SimpleNamespace(
+            name="vss_physics", env_id="VSS-v0", wrapper=vp.vss_physics,
+            kernel_match="vss_physics_kernel", source="rsoccer_tpu_torch/csrc/vss_physics.cu",
+            replaces="rsoccer_tpu/ops/pallas_vss.py:37",
+            # commands and trig 6 x 12, 5 substeps x (6 robots x 35 + 15 pairs
+            # x 35 + apply 24 + walls 6 x 16 + ball 24 + 6 contacts x 28 +
+            # 4 + ball walls 20)
+            ops_env=72 + 5 * (210 + 525 + 24 + 96 + 24 + 168 + 4 + 20), ops_reset=0,
+            make_benv=lambda env: BatchedEnv(env, B, device="cuda", fused_physics=True),
+            calls=physics_calls,
         ),
     ]
 
@@ -402,6 +718,7 @@ def main() -> int:
     lib_path, log, nvcc_s = _build.build()
     vf._library()
     sf._library()
+    vp._library()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
@@ -412,13 +729,21 @@ def main() -> int:
     # ---- 3. each kernel vs its plain version, both RNG modes
     errs = {}
     for task in tasks:
-        err_in, dones_in = check_kernel_vs_plain(task, "input")
+        if task.name == "vss_physics":
+            errs[task.name], dones = check_physics_vs_plain()
+            phase(f"kernel_vs_plain_{task.name}", B=B, steps=N_CHECK_STEPS,
+                  max_abs_err=errs[task.name], atol=ATOL, dones=dones)
+            continue
+        err_in, at_in, dones_in, ev_in = check_kernel_vs_plain(task, "input")
         phase(f"kernel_vs_plain_input_{task.name}", B=B, steps=N_CHECK_STEPS,
-              max_abs_err=err_in, atol=ATOL, dones=dones_in)
-        err_k, dones_k = check_kernel_vs_plain(task, "kernel")
+              max_abs_err=err_in, worst_at=at_in, atol=ATOL, dones=dones_in,
+              **({"events": ev_in} if ev_in else {}))
+        err_k, at_k, dones_k, ev_k = check_kernel_vs_plain(task, "kernel")
         extra = {"philox_words_equal": check_philox_words()} if task is tasks[0] else {}
+        if ev_k:
+            extra["events"] = ev_k
         phase(f"kernel_vs_plain_kernel_rng_{task.name}", B=B, steps=N_CHECK_STEPS,
-              max_abs_err=err_k, atol=ATOL, dones=dones_k, **extra)
+              max_abs_err=err_k, worst_at=at_k, atol=ATOL, dones=dones_k, **extra)
         errs[task.name] = max(err_in, err_k)
 
     # ---- 4. each main path, through its kernel, timed

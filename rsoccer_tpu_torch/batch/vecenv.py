@@ -12,14 +12,19 @@ The envs live on ``device``, the card unless the caller asks for the CPU.
 
 ``fused=True`` is the counterpart of the JAX package's ``pallas_full``:
 the whole step is one kernel launch (``ops/vss_full.py`` for VSS-v0,
-``ops/ssl_full.py`` for SSLStaticDefenders-v0 and
-SSLContestedPossession-v0, chosen by the env's exact type) on a CUDA
-device — or its plain version on the CPU — and the state flows through
-the rollout packed as one ``(S, B)`` tensor; :meth:`unpack_state` gives a
-structured view.  ``fused_rng`` is the counterpart of ``pallas_rng``:
-``"input"`` draws the noise with torch ops and passes it in as rows,
-``"kernel"`` draws it inside the kernel.  Unlike on the TPU, both read
-the same Philox stream, so the two modes give the same trajectory.
+``ops/ssl_full.py`` for the four SSL tasks, chosen by the env's exact
+type) on a CUDA device — or its plain version on the CPU — and the state
+flows through the rollout packed as one ``(S, B)`` tensor;
+:meth:`unpack_state` gives a structured view.  ``fused_rng`` is the
+counterpart of ``pallas_rng``: ``"input"`` draws the noise with torch ops
+and passes it in as rows, ``"kernel"`` draws it inside the kernel.  Unlike
+on the TPU, both read the same Philox stream, so the two modes give the
+same trajectory.
+
+``fused_physics=True`` (VSS only) is the counterpart of
+``pallas_physics``: the task logic stays in torch ops and the physics is
+one kernel launch per step (``ops/vss_physics.py``); the state stays
+structured.
 """
 
 from __future__ import annotations
@@ -28,11 +33,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from rsoccer_tpu_torch.envs.base import Env, draw_noise, step_noise_spec
+from rsoccer_tpu_torch.envs.base import Env, draw_noise, select, step_noise_spec
 from rsoccer_tpu_torch.envs.ssl_contested_possession import SSLContestedPossessionEnv
+from rsoccer_tpu_torch.envs.ssl_dribbling import SSLDribblingEnv
+from rsoccer_tpu_torch.envs.ssl_pass_endurance import SSLPassEnduranceEnv
 from rsoccer_tpu_torch.envs.ssl_static_defenders import SSLStaticDefendersEnv
 from rsoccer_tpu_torch.envs.vss import VSSEnv
-from rsoccer_tpu_torch.ops import ssl_full, vss_full
+from rsoccer_tpu_torch.ops import ssl_full, vss_full, vss_physics
 
 
 class FusedOps(NamedTuple):
@@ -59,7 +66,22 @@ _FUSED = {
         ssl_full.cp_full_step, lambda env, t, r: ssl_full.cp_noise_rows(env, r),
         ssl_full.pack_cp_state, ssl_full.unpack_cp_state, ssl_full.CP_KEYS,
     ),
+    SSLDribblingEnv: FusedOps(
+        ssl_full.dr_full_step, lambda env, t, r: ssl_full.dr_noise_rows(env, r),
+        ssl_full.pack_dr_state, ssl_full.unpack_dr_state, ssl_full.DR_KEYS,
+    ),
+    SSLPassEnduranceEnv: FusedOps(
+        ssl_full.pe_full_step, lambda env, t, r: ssl_full.pe_noise_rows(env, r),
+        ssl_full.pack_pe_state, ssl_full.unpack_pe_state, ssl_full.PE_KEYS,
+    ),
 }
+
+
+def _training_extensions(env) -> bool:
+    """Whether ``env`` runs a training-time extension of the JAX package
+    (a reset or reward that is not the reference's)."""
+    return bool(getattr(env, "curriculum", False) or getattr(env, "terminal_penalty", 0.0)
+                or getattr(env, "catch_scale", 1.0) != 1.0 or getattr(env, "aim_shaping", 0.0))
 
 
 class BatchedEnv:
@@ -72,33 +94,32 @@ class BatchedEnv:
         device="cuda",
         fused: bool = False,
         fused_rng: str = "input",
-        pallas_physics: bool = False,
+        fused_physics: bool = False,
     ):
-        if pallas_physics:
-            raise NotImplementedError(
-                "pallas_physics (the physics-only kernel, "
-                "rsoccer_tpu/ops/pallas_vss.py) is not ported yet: "
-                "ROADMAP.md, TPU kernel queue item K2"
-            )
         if fused_rng not in ("input", "kernel"):
             raise ValueError(f"fused_rng must be 'input' or 'kernel', got {fused_rng!r}")
+        if fused and fused_physics:
+            raise ValueError("fused subsumes fused_physics; pick one")
+        if fused_physics and getattr(env, "league", None) != "vss":
+            raise NotImplementedError("fused_physics is the VSS physics kernel; VSS envs only")
         if fused and type(env) not in _FUSED:
             raise NotImplementedError(
                 f"fused=True is ported for {', '.join(t.__name__ for t in _FUSED)} "
-                f"(exact types), not {type(env).__name__}: ROADMAP.md, TPU kernel "
-                "queue items K6-K7 (Dribbling, PassEndurance)"
+                f"(exact types), not {type(env).__name__}: ROADMAP.md, module queue"
             )
-        if fused and (getattr(env, "curriculum", False) or getattr(env, "terminal_penalty", 0.0)):
+        if fused and _training_extensions(env):
             raise ValueError(
                 "the fused kernels implement the reference's exact reset and "
                 "reward; the training-time extensions (curriculum, "
-                "terminal_penalty) run on the unfused path (fused=False)"
+                "terminal_penalty, catch_scale, aim_shaping) run on the "
+                "unfused path (fused=False)"
             )
         self.env = env
         self.n_envs = n_envs
         self.device = torch.device(device)
         self.fused = fused
         self.fused_rng = fused_rng
+        self.fused_physics = fused_physics
         self._ops = _FUSED[type(env)] if fused else None
         self.obs_size = env.obs_size
         self.action_size = env.action_size
@@ -126,11 +147,14 @@ class BatchedEnv:
         return state, obs
 
     def _draw(self, key):
+        """The step's (transition, reset) noise: one draw, split by spec.  A
+        reset that draws nothing (Dribbling's) gets the pad block an empty
+        spec draws, from which it takes its batch."""
         noise = draw_noise(key, step_noise_spec(self.env), self.n_envs)
-        return (
-            {k: noise[k] for k in self._t_spec},
-            {k: noise[k] for k in self._r_spec},
-        )
+        t_noise = {k: noise[k] for k in self._t_spec}
+        if not self._r_spec:
+            return t_noise, {"_pad": torch.zeros((1, self.n_envs), device=key.device)}
+        return t_noise, {k: noise[k] for k in self._r_spec}
 
     def _fused_out(self, st, obs, aux, final: bool):
         reward = aux[0]
@@ -158,9 +182,24 @@ class BatchedEnv:
                 emit_final=final,
             )
             return self._fused_out(st, obs, aux, final)
+        if self.fused_physics:
+            return self._physics_step(state, actions, t_noise, r_noise, final)
         if final:
             return self.env.step_with_noise_final(state, actions, t_noise, r_noise)
         return self.env.step_with_noise(state, actions, t_noise, r_noise)
+
+    def _physics_step(self, state, actions, t_noise, r_noise, final: bool):
+        """pre-physics (torch) -> the physics kernel -> post-physics (torch)
+        -> truncation and auto-reset select: the env's step_with_noise[_final]
+        with its physics through ``ops/vss_physics``."""
+        env = self.env
+        commands, aux = env.pre_physics(state, actions, t_noise)
+        world = vss_physics.world_step(env, state.world, commands)
+        ns, reward, term, info = env.post_physics(state, world, aux)
+        trunc = ns.steps >= env.max_episode_steps
+        out = select(term | trunc, env.reset_state(r_noise), ns)
+        final_obs = (env.observe(ns),) if final else ()
+        return (out, env.observe(out), *final_obs, reward, term, trunc, info)
 
     def step(self, state, actions, key):
         """Auto-resetting step; actions (A, B), one key (advanced).

@@ -4,17 +4,20 @@
 //
 // Per substep: omni drive toward the local-frame target under accel clamps
 // -> heading wrap -> integrate -> pair-list robot contacts -> ball rolling
-// friction (grounded) -> dribbler pull toward robot 0's kicker face ->
-// vertical ball axis -> integrate -> ball-robot contacts, with robot 0's
-// dribbler face absorbing (rest_dribbler) on the PRE-resolve ball position
-// as physics/ssl.py does (the TPU body tests the face after the push) ->
-// kick.
+// friction (grounded) -> dribbler pull toward each dribbling robot's
+// kicker face, summed in robot order -> vertical ball axis -> integrate ->
+// ball-robot contacts, a dribbling robot's face absorbing (rest_dribbler)
+// on the PRE-resolve ball position as physics/ssl.py does (the TPU body
+// tests the face after the push) -> kick -> infrared of every robot.
 //
 // Contract (every SSL task drives blue robot 0 only): robots 1..N-1 get
-// zero targets, no kick and no dribbler, and enter with w = 0, so their w
-// stays exactly 0 and their heading never turns.  Robot 0 gets exact
-// sinf/cosf each substep; the others ride the trig carried in from the
-// step's start (the plain version recomputes it: a few ulp).
+// zero targets and no kick, and enter with w = 0, so their w stays exactly
+// 0 and their heading never turns.  Robot 0 gets exact sinf/cosf each
+// substep; the others ride the trig carried in from the step's start (the
+// plain version recomputes it: a few ulp).  Robot 0 dribbles when `drib0`
+// says so; DRIB_ON is the compile-time mask of robots whose dribbler is
+// always on (PassEndurance's receiver: bit 1).  SD, CP and Dribbling pass
+// 0, and for them the body compiles to what it was before the mask.
 #pragma once
 #include "pair_collide.cuh"
 
@@ -50,13 +53,16 @@ __device__ __forceinline__ bool ssl_face_zone(const P& p, float rx, float ry, fl
 // One control step (kSslSubsteps substeps).  (c, s): the heading trig at
 // the step's start in, the final trig out.  (tu0, tv0, tw0): robot 0's
 // local velocity target; kick_vx0 / kick_vz0 / drib0 its kicker and
-// dribbler.  Returns robot 0's infrared from the last substep.
-template <int N, class P>
-__device__ __forceinline__ bool ssl_world_step(const P& p, float (&x)[N], float (&y)[N], float (&th)[N],
+// dribbler.  ir: every robot's infrared from the last substep.
+template <int N, unsigned DRIB_ON, class P>
+__device__ __forceinline__ void ssl_world_step(const P& p, float (&x)[N], float (&y)[N], float (&th)[N],
                                                float (&vx)[N], float (&vy)[N], float (&w)[N], float (&c)[N],
                                                float (&s)[N], SslBall& bl, float tu0, float tv0, float tw0,
-                                               float kick_vx0, float kick_vz0, bool drib0) {
-  bool ir0 = false;
+                                               float kick_vx0, float kick_vz0, bool drib0, bool (&ir)[N]) {
+  static_assert(N <= 32 && (DRIB_ON >> N) == 0u, "DRIB_ON names robots 0..N-1");
+  bool drib[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) drib[r] = ((DRIB_ON >> r) & 1u) != 0u || (r == 0 && drib0);
 #pragma unroll 1  // kept rolled: the unrolled body would be 5x the code
   for (int sub = 0; sub < kSslSubsteps; ++sub) {
     // ---- omni drive
@@ -91,16 +97,18 @@ __device__ __forceinline__ bool ssl_world_step(const P& p, float (&x)[N], float 
       bl.vy = bl.vy * scale;
     }
 
-    // ---- dribbler: spring-damper toward robot 0's face point, damped
-    // against the face point's velocity (incl. omega x r)
+    // ---- dribbler: spring-damper toward each dribbling robot's face
+    // point, damped against the face point's velocity (incl. omega x r)
     float pull_x = 0.0f, pull_y = 0.0f;
-    if (drib0) {
-      const float rel_vx = bl.vx - (vx[0] - w[0] * p.face_dist * s[0]);
-      const float rel_vy = bl.vy - (vy[0] + w[0] * p.face_dist * c[0]);
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      if (!drib[r]) continue;
+      const float rel_vx = bl.vx - (vx[r] - w[r] * p.face_dist * s[r]);
+      const float rel_vy = bl.vy - (vy[r] + w[r] * p.face_dist * c[r]);
       const float rel_speed = sqrtf(rel_vx * rel_vx + rel_vy * rel_vy);
-      if (ssl_face_zone(p, x[0], y[0], c[0], s[0], bl, p.reach_hi) && rel_speed < p.capture_speed) {
-        pull_x = p.pull_accel * ((x[0] + p.face_dist * c[0]) - bl.x) - p.damping * rel_vx;
-        pull_y = p.pull_accel * ((y[0] + p.face_dist * s[0]) - bl.y) - p.damping * rel_vy;
+      if (ssl_face_zone(p, x[r], y[r], c[r], s[r], bl, p.reach_hi) && rel_speed < p.capture_speed) {
+        pull_x = pull_x + (p.pull_accel * ((x[r] + p.face_dist * c[r]) - bl.x) - p.damping * rel_vx);
+        pull_y = pull_y + (p.pull_accel * ((y[r] + p.face_dist * s[r]) - bl.y) - p.damping * rel_vy);
       }
     }
     bl.vx = bl.vx + pull_x * p.dts;
@@ -118,7 +126,9 @@ __device__ __forceinline__ bool ssl_world_step(const P& p, float (&x)[N], float 
 
     // ---- ball vs robots (the ball passes over above rbt_height)
     const bool below_top = (bl.z - p.r_ball) < p.rbt_height;
-    const bool absorb0 = drib0 && ssl_face_zone(p, x[0], y[0], c[0], s[0], bl, p.contact_hi);
+    bool absorb[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) absorb[r] = drib[r] && ssl_face_zone(p, x[r], y[r], c[r], s[r], bl, p.contact_hi);
     float push_x = 0.0f, push_y = 0.0f, imp_x = 0.0f, imp_y = 0.0f;
 #pragma unroll
     for (int r = 0; r < N; ++r) {
@@ -132,7 +142,7 @@ __device__ __forceinline__ bool ssl_world_step(const P& p, float (&x)[N], float 
       push_x += (col ? overlap : 0.0f) * nx;
       push_y += (col ? overlap : 0.0f) * ny;
       const float vn = (bl.vx - vx[r]) * nx + (bl.vy - vy[r]) * ny;
-      const float gain = (r == 0 && absorb0) ? p.drib_gain : p.ball_gain;
+      const float gain = absorb[r] ? p.drib_gain : p.ball_gain;
       const float j = (col && vn < 0.0f) ? gain * vn : 0.0f;
       imp_x += j * nx;
       imp_y += j * ny;
@@ -142,13 +152,13 @@ __device__ __forceinline__ bool ssl_world_step(const P& p, float (&x)[N], float 
     bl.vx = bl.vx + imp_x;
     bl.vy = bl.vy + imp_y;
 
-    // ---- kick (and chip) along robot 0's heading; infrared
-    ir0 = ssl_face_zone(p, x[0], y[0], c[0], s[0], bl, p.contact_hi);
-    if (ir0 && kick_vx0 > 0.0f) {
+    // ---- infrared; kick (and chip) along robot 0's heading
+#pragma unroll
+    for (int r = 0; r < N; ++r) ir[r] = ssl_face_zone(p, x[r], y[r], c[r], s[r], bl, p.contact_hi);
+    if (ir[0] && kick_vx0 > 0.0f) {
       bl.vx = kick_vx0 * c[0];
       bl.vy = kick_vx0 * s[0];
       if (kick_vz0 > 0.0f) bl.vz = kick_vz0;
     }
   }
-  return ir0;
 }

@@ -53,7 +53,14 @@ def step_noise_spec(env) -> NoiseSpec:
 
 def draw_noise(key: torch.Tensor, spec: NoiseSpec, batch: int):
     """Draw every block of ``spec`` for ``batch`` envs at ``key``'s step,
-    each block with a trailing batch axis, then advance ``key``'s step."""
+    each block with a trailing batch axis, then advance ``key``'s step.
+
+    An empty spec still advances the key (one key schedule whatever a task
+    draws) and returns the JAX package's pad block ``{"_pad": (1, B)}``
+    zeros, from which a deterministic reset takes its batch."""
+    if not spec:
+        key[2:].add_(1)
+        return {"_pad": torch.zeros((1, batch), device=key.device)}
     uni = _flat_sizes(spec, "uniform")
     nrm = _flat_sizes(spec, "normal")
     n_u = sum(s for _, _, s in uni)

@@ -110,14 +110,16 @@ def build() -> tuple[Path, str, float]:
     return lib, log, seconds
 
 
-def check_operand(t, name: str, rows: int, batch: int, device, dtype=None):
-    """Raise unless ``t`` is a contiguous ``(rows, batch)`` tensor of
-    ``dtype`` (default float32) on ``device`` — what a kernel takes."""
+def check_operand(t, name: str, rows, batch: int, device, dtype=None):
+    """Raise unless ``t`` is a contiguous ``(rows, batch)`` tensor (``rows``
+    an int, or a tuple of leading dims) of ``dtype`` (default float32) on
+    ``device`` — what a kernel takes."""
     dtype = dtype or torch.float32
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != (rows, batch) \
+    want = (*rows, batch) if isinstance(rows, tuple) else (rows, batch)
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != want \
             or not t.is_contiguous():
         raise ValueError(
-            f"{name}: want contiguous {dtype} ({rows}, {batch}) on {device}, got "
+            f"{name}: want contiguous {dtype} {want} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}"
             + ("" if t.is_contiguous() else " (not contiguous)")
         )
@@ -157,4 +159,17 @@ def load() -> ctypes.CDLL:
     # obs_out, aux_out, B, stream
     lib.ssl_cp_full_step.argtypes = [i, i] + [p] * 8 + [i, p]
     lib.ssl_cp_full_step.restype = i
+    # emit_final, rng_kernel, params*, st, act, st_out, obs_out, aux_out,
+    # B, stream
+    lib.ssl_dr_full_step.argtypes = [i, i] + [p] * 6 + [i, p]
+    lib.ssl_dr_full_step.restype = i
+    # emit_final, rng_kernel, params*, st, act, ball_u, recv_u, key, st_out,
+    # obs_out, aux_out, B, stream
+    lib.ssl_pe_full_step.argtypes = [i, i] + [p] * 9 + [i, p]
+    lib.ssl_pe_full_step.restype = i
+    lib.vss_physics_params_fields.argtypes = []
+    lib.vss_physics_params_fields.restype = ctypes.c_char_p
+    # params*, robots, ball, cmd, robots_out, ball_out, n_robots, B, stream
+    lib.vss_physics_step.argtypes = [p] * 6 + [i, i, p]
+    lib.vss_physics_step.restype = i
     return lib

@@ -1,36 +1,40 @@
-"""Fused SSL steps: SSLStaticDefenders-v0 and SSLContestedPossession-v0,
-each as ONE CUDA kernel launch.
+"""Fused SSL steps: SSLStaticDefenders-v0, SSLContestedPossession-v0,
+SSLDribbling-v0 and SSLPassEndurance-v0, each as ONE CUDA kernel launch.
 
 Replaces the TPU kernels ``rsoccer_tpu/ops/pallas_ssl_full.py:456``
-(``make_pallas_sd_full_step``) and ``:824`` (``make_pallas_cp_full_step``),
-with their shared launch ``_build_call`` (``:289``) and SSL world body
-``make_ssl_physics_body`` (``:90``).  The kernels are ``csrc/ssl_full.cu``
-with the world step ``csrc/ssl_body.cuh`` (and ``pair_collide.cuh``,
-``philox.cuh``), one thread per env: action conversion -> 5 SSL substeps
-(omni drive, robot contacts, dribbler, vertical ball, ball-robot with the
-dribbler face, kick, infrared) -> termination chain and shaping ->
-on done lanes only, the reset spawn -> auto-reset select -> obs.
+(``make_pallas_sd_full_step``), ``:824`` (``make_pallas_cp_full_step``),
+``:1086`` (``make_pallas_dr_full_step``) and ``:1327``
+(``make_pallas_pe_full_step``), with their shared launch ``_build_call``
+(``:289``) and SSL world body ``make_ssl_physics_body`` (``:90``).  The
+kernels are ``csrc/ssl_full.cu`` with the world step ``csrc/ssl_body.cuh``
+(and ``pair_collide.cuh``, ``philox.cuh``), one thread per env: action
+conversion -> 5 SSL substeps (omni drive, robot contacts, dribbler,
+vertical ball, ball-robot with the dribbler face, kick, infrared) -> the
+task's termination and reward -> on done lanes only, the reset -> auto-reset
+select -> obs.
 
 State row layout (N robots), identical to the TPU kernels':
     0:6          ball x, y, z, v_x, v_y, v_z
     6+0N:6+6N    robot x, y, theta, v_x, v_y, v_theta (N rows each)
     6+6N         steps (f32; exact integers)
-    7+6N:        shaping accumulators (the env's _SHAPING_KEYS order)
-Aux rows: [reward, terminated, truncated, shaping...] with the PRE-reset
-accumulators (the step's info).  Infrared and the wheel speeds are not
-stored; :func:`unpack_sd_state` / :func:`unpack_cp_state` recompute them.
+    7+6N:        the task's rows: SD/CP the shaping accumulators (the env's
+                 _SHAPING_KEYS order); DR the checkpoint count; PE the
+                 stopped counter, then reversed_dist and ball_grad
+Aux rows: [reward, terminated, truncated, info...] with the PRE-reset
+values (the step's info; DR has none).  Infrared and the wheel speeds are
+not stored; the ``unpack_*_state`` functions recompute them.
 
 RNG, as ``ops/vss_full.py``: ``key=...`` draws the step's reset noise from
 the port's one Philox stream — in the kernel on the card (only on done
 lanes; the counter scheme has no state, so the words are the same), with
 ``envs/base.draw_noise`` on the CPU — at the slots of ``draw_noise``'s spec
 order (SD: ball 0-15, yellow i's candidates 16+16i, theta 112-117; CP:
-enemy 0-1), and advances ``key[2]`` by one.
+enemy 0-1; PE: ball 0-1, recv_x 2-17; DR draws nothing), and advances
+``key[2]`` by one (DR too, so every task keeps one key schedule).
 
-:func:`sd_full_step` / :func:`cp_full_step` run the plain versions
-:func:`sd_full_step_plain` / :func:`cp_full_step_plain` only for tensors on
-the CPU; for CUDA tensors they launch the kernel or raise.  Each counts
-its launches in ``.launches``.
+The ``*_full_step`` wrappers run the plain versions ``*_full_step_plain``
+only for tensors on the CPU; for CUDA tensors they launch the kernel or
+raise.  Each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -44,7 +48,13 @@ import torch
 from rsoccer_tpu_torch.core.state import BallState, RobotsState, WorldState
 from rsoccer_tpu_torch.envs import spawn as spawn_mod
 from rsoccer_tpu_torch.envs.base import draw_noise, step_noise_spec
-from rsoccer_tpu_torch.envs.ssl_contested_possession import _SHAPING_KEYS as CP_KEYS, CPState
+from rsoccer_tpu_torch.envs.ssl_contested_possession import (
+    _SHAPING_KEYS as CP_KEYS, CPState, SSLContestedPossessionEnv,
+)
+from rsoccer_tpu_torch.envs.ssl_dribbling import DribblingState
+from rsoccer_tpu_torch.envs.ssl_pass_endurance import (
+    _SHAPING_KEYS as PE_KEYS, N_CAND, PEState, SSLPassEnduranceEnv,
+)
 from rsoccer_tpu_torch.envs.ssl_static_defenders import (
     _SHAPING_KEYS as SD_KEYS, SDState, SSLStaticDefendersEnv,
 )
@@ -55,12 +65,13 @@ from rsoccer_tpu_torch.physics.ssl import (
 )
 
 N_SUBSTEPS = 5  # compiled into the kernels
-SD_ROBOTS, CP_ROBOTS = 7, 2  # compiled into the kernels
+SD_ROBOTS, CP_ROBOTS, DR_ROBOTS, PE_ROBOTS = 7, 2, 5, 2  # compiled into the kernels
 K = spawn_mod.N_CANDIDATES
+DR_KEYS = ()  # the reference's Dribbling step has no info keys
 
 
-def state_size(n_robots: int, n_shaping: int) -> int:
-    return 7 + 6 * n_robots + n_shaping
+def state_size(n_robots: int, n_extra: int) -> int:
+    return 7 + 6 * n_robots + n_extra
 
 
 def sd_state_size(n_robots: int = SD_ROBOTS) -> int:
@@ -71,8 +82,17 @@ def cp_state_size() -> int:
     return state_size(CP_ROBOTS, len(CP_KEYS))
 
 
-def pack_ssl_state(state) -> torch.Tensor:
-    """Batched SDState or CPState (batch-last) -> (S, B) f32."""
+def dr_state_size() -> int:
+    return state_size(DR_ROBOTS, 1)  # 38: + the checkpoint count
+
+
+def pe_state_size() -> int:
+    return state_size(PE_ROBOTS, 1 + len(PE_KEYS))  # 22: + stopped_steps, shaping
+
+
+def _pack(state, *extra) -> torch.Tensor:
+    """Batched SSL task state (batch-last) -> (S, B) f32: ball, robots,
+    steps, then the task's ``extra`` rows."""
     w = state.world
     b = w.ball
     return torch.cat([
@@ -80,18 +100,31 @@ def pack_ssl_state(state) -> torch.Tensor:
         w.robots.x, w.robots.y, w.robots.theta,
         w.robots.v_x, w.robots.v_y, w.robots.v_theta,
         state.steps[None].to(torch.float32),
-        state.shaping,
+        *extra,
     ])
+
+
+def pack_ssl_state(state) -> torch.Tensor:
+    """Batched SDState or CPState -> (S, B) f32."""
+    return _pack(state, state.shaping)
 
 
 pack_sd_state = pack_cp_state = pack_ssl_state
 
 
-def _unpack(arr: torch.Tensor, env, cls):
-    """(S, B) -> batched ``cls`` state.  Infrared comes from the kicker
-    face predicate with ``SSL_PHYSICS`` and the wheel speeds from the
-    forward jacobian, both of the packed state, as the JAX package's
-    ``_unpack_world`` recomputes them."""
+def pack_dr_state(state: DribblingState) -> torch.Tensor:
+    return _pack(state, state.checkpoints[None].to(torch.float32))
+
+
+def pack_pe_state(state: PEState) -> torch.Tensor:
+    return _pack(state, state.stopped_steps[None].to(torch.float32), state.shaping)
+
+
+def _unpack_world(arr: torch.Tensor, env):
+    """(S, B) -> (world, steps int32, the task's extra rows).  Infrared
+    comes from the kicker face predicate with ``SSL_PHYSICS`` and the wheel
+    speeds from the forward jacobian, both of the packed state, as the JAX
+    package's ``_unpack_world`` recomputes them."""
     n = env.n_robots
     f = env.field
     x, y, theta, vx, vy, vth = arr[6 : 6 + 6 * n].reshape(6, n, -1)
@@ -106,15 +139,28 @@ def _unpack(arr: torch.Tensor, env, cls):
         ),
     )
     o = 6 + 6 * n
-    return cls(world=world, steps=arr[o].to(torch.int32), shaping=arr[o + 1:])
+    return world, arr[o].to(torch.int32), arr[o + 1:]
 
 
 def unpack_sd_state(arr: torch.Tensor, env) -> SDState:
-    return _unpack(arr, env, SDState)
+    world, steps, rest = _unpack_world(arr, env)
+    return SDState(world=world, steps=steps, shaping=rest)
 
 
 def unpack_cp_state(arr: torch.Tensor, env) -> CPState:
-    return _unpack(arr, env, CPState)
+    world, steps, rest = _unpack_world(arr, env)
+    return CPState(world=world, steps=steps, shaping=rest)
+
+
+def unpack_dr_state(arr: torch.Tensor, env) -> DribblingState:
+    world, steps, rest = _unpack_world(arr, env)
+    return DribblingState(world=world, steps=steps, checkpoints=rest[0].to(torch.int32))
+
+
+def unpack_pe_state(arr: torch.Tensor, env) -> PEState:
+    world, steps, rest = _unpack_world(arr, env)
+    return PEState(world=world, steps=steps, stopped_steps=rest[0].to(torch.int32),
+                   shaping=rest[1:])
 
 
 # ------------------------------------------------------------ noise rows
@@ -141,8 +187,28 @@ def cp_draw_step_rows(env, key: torch.Tensor, batch: int):
     return cp_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
 
 
+def dr_noise_rows(env, r_noise: dict):
+    """DR draws no noise: no rows."""
+    return ()
+
+
+def dr_draw_step_rows(env, key: torch.Tensor, batch: int):
+    """No rows; advances key by one as every step's draw does."""
+    return dr_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
+
+
+def pe_noise_rows(env, r_noise: dict):
+    """Reset noise -> PE's input rows (ball_u (2, B), recv_u (16, B))."""
+    return r_noise["ball"], r_noise["recv_x"]
+
+
+def pe_draw_step_rows(env, key: torch.Tensor, batch: int):
+    """The step's PE noise rows from ``key``'s Philox stream; advances key."""
+    return pe_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
+
+
 # -------------------------------------------------------- plain versions
-def _plain(env, unpack, keys, state, action, r_noise, emit_final):
+def _plain(env, unpack, pack, keys, state, action, r_noise, emit_final):
     """unpack -> the env's step_with_noise[_final] -> pack."""
     s = unpack(state, env)
     if emit_final:
@@ -151,7 +217,7 @@ def _plain(env, unpack, keys, state, action, r_noise, emit_final):
     else:
         ns, obs, rew, term, trunc, info = env.step_with_noise(s, action, {}, r_noise)
     aux = torch.stack([rew, term.to(rew.dtype), trunc.to(rew.dtype)] + [info[k] for k in keys])
-    return pack_ssl_state(ns), obs, aux
+    return pack(ns), obs, aux
 
 
 def sd_full_step_plain(env, state, action, ball_u, spawn_u, theta_u, emit_final: bool = False):
@@ -161,13 +227,28 @@ def sd_full_step_plain(env, state, action, ball_u, spawn_u, theta_u, emit_final:
     r_noise = {"ball": ball_u.reshape(2, K, b),
                "spawn": spawn_u.reshape(env.n_yellow, 2, K, b),
                "theta": theta_u}
-    return _plain(env, unpack_sd_state, SD_KEYS, state, action, r_noise, emit_final)
+    return _plain(env, unpack_sd_state, pack_ssl_state, SD_KEYS, state, action, r_noise, emit_final)
 
 
 def cp_full_step_plain(env, state, action, enemy_u, emit_final: bool = False):
     """Plain PyTorch version of the fused CP step.  Returns
     ``(state (28,B), obs (14 or 28,B), aux (12,B))``."""
-    return _plain(env, unpack_cp_state, CP_KEYS, state, action, {"enemy": enemy_u}, emit_final)
+    return _plain(env, unpack_cp_state, pack_ssl_state, CP_KEYS, state, action,
+                  {"enemy": enemy_u}, emit_final)
+
+
+def dr_full_step_plain(env, state, action, emit_final: bool = False):
+    """Plain PyTorch version of the fused DR step.  Returns
+    ``(state (38,B), obs (21 or 42,B), aux (3,B))``."""
+    pad = {"_pad": torch.zeros((1, state.shape[-1]), device=state.device)}
+    return _plain(env, unpack_dr_state, pack_dr_state, DR_KEYS, state, action, pad, emit_final)
+
+
+def pe_full_step_plain(env, state, action, ball_u, recv_u, emit_final: bool = False):
+    """Plain PyTorch version of the fused PE step.  Returns
+    ``(state (22,B), obs (16 or 32,B), aux (5,B))``."""
+    return _plain(env, unpack_pe_state, pack_pe_state, PE_KEYS, state, action,
+                  {"ball": ball_u, "recv_x": recv_u}, emit_final)
 
 
 # ------------------------------------------------------------ the kernels
@@ -181,7 +262,7 @@ PARAM_FIELDS = (
     "ball_dist_scale ball_grad_scale energy_scale wheel_r "
     "j00 j01 j02 j10 j11 j12 j20 j21 j22 j30 j31 j32 max_steps "
     "sp_x_lo sp_x_span sp_y_lo sp_y_span yl_x_span yl_y_span min_d2 "
-    "en_x_lo en_x_span en_y_lo en_y_span"
+    "en_x_lo en_x_span en_y_lo en_y_span max_kick_x"
 ).split()
 
 
@@ -191,8 +272,9 @@ class _Params(ctypes.Structure):
 
 def kernel_params(env) -> dict:
     """The kernels' constants, folded in double precision where the TPU
-    kernels folded Python floats, then rounded to f32 once.  The spawn
-    fields of the task that ``env`` is not are zero."""
+    kernels folded Python floats, then rounded to f32 once.  The fields of
+    the tasks that ``env`` is not (spawn boxes, reward scales, the kick
+    speed of PE) are zero."""
     f, cfg = env.field, env.physics_cfg
     dts = env.time_step / cfg.n_substeps
     r_ball = f.ball_radius
@@ -200,6 +282,7 @@ def kernel_params(env) -> dict:
     J = wheel_jacobian(f)
     half_len, half_wid = f.half_length, f.half_width
     sd = type(env) is SSLStaticDefendersEnv
+    cp = type(env) is SSLContestedPossessionEnv
     return dict(
         dts=dts, a_lin=cfg.robot_accel * dts, a_ang=cfg.robot_alpha * dts,
         two_pi=2.0 * math.pi, pi=math.pi,
@@ -218,8 +301,9 @@ def kernel_params(env) -> dict:
         max_pos=env.max_pos, nbnd=env.norm_bounds, kick_speed=env.kick_speed_x,
         half_len=half_len, half_wid=half_wid, gk_x=half_len - f.penalty_length,
         half_pen_wid=f.penalty_width / 2, half_goal_wid=f.goal_width / 2,
-        ball_dist_scale=env.ball_dist_scale, ball_grad_scale=env.ball_grad_scale,
-        energy_scale=env.energy_scale, wheel_r=f.rbt_wheel_radius,
+        ball_dist_scale=getattr(env, "ball_dist_scale", 0.0),
+        ball_grad_scale=getattr(env, "ball_grad_scale", 0.0),
+        energy_scale=getattr(env, "energy_scale", 0.0), wheel_r=f.rbt_wheel_radius,
         **{f"j{k}{c}": float(J[k, c]) for k in range(4) for c in range(3)},
         max_steps=float(env.max_episode_steps),
         sp_x_lo=0.2 if sd else 0.0,
@@ -229,10 +313,11 @@ def kernel_params(env) -> dict:
         yl_x_span=((half_len - 0.1) - 0.2) if sd else 0.0,
         yl_y_span=((half_wid - 0.1) - (-half_wid + 0.1)) if sd else 0.0,
         min_d2=0.2 * 0.2 if sd else 0.0,
-        en_x_lo=0.0 if sd else f.penalty_length,
-        en_x_span=0.0 if sd else half_len - 2 * f.penalty_length,
-        en_y_lo=0.0 if sd else -f.penalty_width / 2,
-        en_y_span=0.0 if sd else f.penalty_width,
+        en_x_lo=f.penalty_length if cp else 0.0,
+        en_x_span=half_len - 2 * f.penalty_length if cp else 0.0,
+        en_y_lo=-f.penalty_width / 2 if cp else 0.0,
+        en_y_span=f.penalty_width if cp else 0.0,
+        max_kick_x=env.max_kick_x if type(env) is SSLPassEnduranceEnv else 0.0,
     )
 
 
@@ -259,8 +344,8 @@ def _library():
     return lib
 
 
-def _launch(entry: str, env, n_robots: int, state, action, noise, noise_rows,
-            key, emit_final, n_aux):
+def _launch(entry: str, env, n_robots: int, state_rows: int, n_aux: int, state, action,
+            noise, noise_rows, key, emit_final):
     """Check the operands, allocate the outputs and launch ``entry``."""
     if env.n_robots != n_robots or env.physics_cfg.n_substeps != N_SUBSTEPS:
         raise NotImplementedError(
@@ -270,7 +355,7 @@ def _launch(entry: str, env, n_robots: int, state, action, noise, noise_rows,
         )
     dev = state.device
     b = state.shape[-1]
-    _build.check_operand(state, "state", state_size(n_robots, n_aux - 3), b, dev)
+    _build.check_operand(state, "state", state_rows, b, dev)
     _build.check_operand(action, "action", env.action_size, b, dev)
     rng_kernel = key is not None
     if rng_kernel:
@@ -283,12 +368,14 @@ def _launch(entry: str, env, n_robots: int, state, action, noise, noise_rows,
     st_out = torch.empty_like(state)
     obs = torch.empty((env.obs_size * (2 if emit_final else 1), b), dtype=torch.float32, device=dev)
     aux = torch.empty((n_aux, b), dtype=torch.float32, device=dev)
+    # DR has no noise operands, and so no key pointer either
     ptrs = [None if rng_kernel else t.data_ptr() for t in noise]
+    if noise_rows:
+        ptrs.append(key.data_ptr() if rng_kernel else None)
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
             int(emit_final), int(rng_kernel), ctypes.byref(_params_struct(env)),
             state.data_ptr(), action.data_ptr(), *ptrs,
-            key.data_ptr() if rng_kernel else None,
             st_out.data_ptr(), obs.data_ptr(), aux.data_ptr(), b,
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -302,7 +389,7 @@ def _launch(entry: str, env, n_robots: int, state, action, noise, noise_rows,
 def _dispatch(name, env, state, noise, key):
     """Which way a fused step runs: True to launch the kernel (CUDA), False
     for the plain version (CPU); raises on anything else."""
-    if (key is None) == (noise[0] is None):
+    if noise and (key is None) == (noise[0] is None):
         raise ValueError("pass exactly one of: the noise rows, key")
     if state.device.type == "cuda":
         return True
@@ -323,9 +410,9 @@ def sd_full_step(env, state, action, ball_u=None, spawn_u=None, theta_u=None, *,
     """
     noise = (ball_u, spawn_u, theta_u)
     if _dispatch("sd_full_step", env, state, noise, key):
-        out = _launch("ssl_sd_full_step", env, SD_ROBOTS, state, action, noise,
-                      (2 * K, env.n_yellow * 2 * K, env.n_yellow), key, emit_final,
-                      3 + len(SD_KEYS))
+        out = _launch("ssl_sd_full_step", env, SD_ROBOTS, sd_state_size(), 3 + len(SD_KEYS),
+                      state, action, noise, (2 * K, env.n_yellow * 2 * K, env.n_yellow), key,
+                      emit_final)
         sd_full_step.launches += 1
         return out
     if key is not None:
@@ -341,8 +428,8 @@ def cp_full_step(env, state, action, enemy_u=None, *, key=None, emit_final: bool
     """
     noise = (enemy_u,)
     if _dispatch("cp_full_step", env, state, noise, key):
-        out = _launch("ssl_cp_full_step", env, CP_ROBOTS, state, action, noise, (2,),
-                      key, emit_final, 3 + len(CP_KEYS))
+        out = _launch("ssl_cp_full_step", env, CP_ROBOTS, cp_state_size(), 3 + len(CP_KEYS),
+                      state, action, noise, (2,), key, emit_final)
         cp_full_step.launches += 1
         return out
     if key is not None:
@@ -350,5 +437,39 @@ def cp_full_step(env, state, action, enemy_u=None, *, key=None, emit_final: bool
     return cp_full_step_plain(env, state, action, *noise, emit_final)
 
 
+def dr_full_step(env, state, action, *, key=None, emit_final: bool = False):
+    """One fused SSLDribbling-v0 step.  It draws no noise; ``key``, where
+    given (the kernel-RNG mode), is advanced by one all the same.  Returns
+    ``(state, obs, aux)``."""
+    if _dispatch("dr_full_step", env, state, (), key):
+        out = _launch("ssl_dr_full_step", env, DR_ROBOTS, dr_state_size(), 3, state, action,
+                      (), (), key, emit_final)
+        dr_full_step.launches += 1
+        return out
+    if key is not None:
+        dr_draw_step_rows(env, key, state.shape[-1])
+    return dr_full_step_plain(env, state, action, emit_final)
+
+
+def pe_full_step(env, state, action, ball_u=None, recv_u=None, *, key=None,
+                 emit_final: bool = False):
+    """One fused SSLPassEndurance-v0 step.
+
+    Noise either as input rows (``ball_u`` (2, B), ``recv_u`` (16, B)), or
+    drawn from ``key`` (advanced by one).  Returns ``(state, obs, aux)``.
+    """
+    noise = (ball_u, recv_u)
+    if _dispatch("pe_full_step", env, state, noise, key):
+        out = _launch("ssl_pe_full_step", env, PE_ROBOTS, pe_state_size(), 3 + len(PE_KEYS),
+                      state, action, noise, (2, N_CAND), key, emit_final)
+        pe_full_step.launches += 1
+        return out
+    if key is not None:
+        noise = pe_draw_step_rows(env, key, state.shape[-1])
+    return pe_full_step_plain(env, state, action, *noise, emit_final)
+
+
 sd_full_step.launches = 0
 cp_full_step.launches = 0
+dr_full_step.launches = 0
+pe_full_step.launches = 0

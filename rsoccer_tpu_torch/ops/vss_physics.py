@@ -1,0 +1,164 @@
+"""VSS physics only — one control step of B worlds as ONE CUDA kernel launch.
+
+Replaces the TPU kernel ``rsoccer_tpu/ops/pallas_vss.py:37``
+(``make_pallas_vss_physics``): 5 substeps of the differential-drive world
+(drive, dense robot contacts, wall clamp, ball friction and vertical axis,
+ball-robot contacts, goal-pocket walls) on stacked arrays.  The kernel is
+``csrc/vss_physics.cu``, one thread per env, with N = 6 compiled in (other
+team sizes raise on the card, as the fused VSS step does).
+
+Arrays, as the TPU kernel's: robots ``(6, N, B)`` rows [x, y, theta, v_x,
+v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands
+``(2, N, B)`` [left, right] in rad/s.
+
+:func:`vss_physics` runs the plain version :func:`vss_physics_plain`
+(``physics/vss.make_vss_step`` on the same arrays) only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.
+``vss_physics.launches`` counts kernel launches.  :func:`world_step` is the
+``physics/vss`` step's signature over it, which ``BatchedEnv(...,
+fused_physics=True)`` runs between the task's pre- and post-physics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from rsoccer_tpu_torch.core.state import BallState, RobotsState, VSSCommands, WorldState
+from rsoccer_tpu_torch.ops import _build
+from rsoccer_tpu_torch.physics.vss import HALF_AXLE, achieved_wheel_speeds, make_vss_step
+
+N_ROBOTS = 6  # compiled into the kernel
+N_SUBSTEPS = 5  # compiled into the kernel
+
+PARAM_FIELDS = (
+    "dts lat_keep a_lin a_ang max_wheel wheel_r two_half_axle half_len half_wid "
+    "goal_half hl_goal r_ball two_r r_sum xl yl ground_z fric gravity_dts "
+    "neg_rest_ground bounce_min_v rbt_height pair_gain ball_gain neg_rest_wall two_pi pi"
+).split()
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in PARAM_FIELDS]
+
+
+def kernel_params(env) -> dict:
+    """The kernel's constants, folded in double precision where
+    physics/vss.py folds Python floats, then rounded to f32 once."""
+    f, cfg = env.field, env.physics_cfg
+    dts = env.time_step / cfg.n_substeps
+    return dict(
+        dts=dts, lat_keep=math.exp(-cfg.lateral_decay * dts),
+        a_lin=cfg.robot_accel * dts, a_ang=cfg.robot_alpha * dts,
+        max_wheel=f.max_wheel_rad_s, wheel_r=f.rbt_wheel_radius, two_half_axle=2.0 * HALF_AXLE,
+        half_len=f.half_length, half_wid=f.half_width, goal_half=f.goal_width / 2,
+        hl_goal=f.half_length + f.goal_depth, r_ball=f.ball_radius, two_r=2.0 * f.rbt_radius,
+        r_sum=f.rbt_radius + f.ball_radius,
+        xl=f.half_length - f.rbt_radius, yl=f.half_width - f.rbt_radius,
+        ground_z=f.ball_radius + 1e-4, fric=cfg.ball_friction_decel * dts,
+        gravity_dts=cfg.gravity * dts, neg_rest_ground=-cfg.rest_ball_ground,
+        bounce_min_v=cfg.ball_bounce_min_v, rbt_height=cfg.rbt_height,
+        pair_gain=-(1.0 + cfg.rest_robot_robot) * 0.5, ball_gain=-(1.0 + cfg.rest_ball_robot),
+        neg_rest_wall=-cfg.rest_ball_wall, two_pi=2.0 * math.pi, pi=math.pi,
+    )
+
+
+_PARAMS_CACHE: dict = {}
+
+
+def _params_struct(env) -> _Params:
+    k = (env.field, env.physics_cfg, env.time_step)
+    if k not in _PARAMS_CACHE:
+        _PARAMS_CACHE[k] = _Params(**kernel_params(env))
+    return _PARAMS_CACHE[k]
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.load()
+    fields = lib.vss_physics_params_fields().decode().rstrip(",").split(",")
+    if fields != PARAM_FIELDS:
+        raise RuntimeError(
+            f"csrc/vss_physics.cu VssPhysParams {fields} != PARAM_FIELDS {PARAM_FIELDS}"
+        )
+    return lib
+
+
+def _world(robots, ball, wheel_r: float, infrared=None) -> WorldState:
+    """Stacked arrays -> WorldState; v_wheel from physics/vss's epilogue."""
+    x, y, theta, vx, vy, w = robots
+    return WorldState(
+        ball=BallState(*ball),
+        robots=RobotsState(
+            x=x, y=y, theta=theta, v_x=vx, v_y=vy, v_theta=w,
+            infrared=torch.zeros_like(x, dtype=torch.bool) if infrared is None else infrared,
+            v_wheel=achieved_wheel_speeds(vx, vy, theta, w, wheel_r),
+        ),
+    )
+
+
+def _stack(world: WorldState):
+    rb, b = world.robots, world.ball
+    return (torch.stack([rb.x, rb.y, rb.theta, rb.v_x, rb.v_y, rb.v_theta]),
+            torch.stack([b.x, b.y, b.z, b.v_x, b.v_y, b.v_z]))
+
+
+def vss_physics_plain(env, robots, ball, cmd):
+    """Plain PyTorch version: ``physics/vss.make_vss_step`` on the arrays."""
+    step = make_vss_step(env.field, env.physics_cfg, env.time_step)
+    world = step(_world(robots, ball, env.field.rbt_wheel_radius), VSSCommands(cmd[0], cmd[1]))
+    return _stack(world)
+
+
+def _launch(env, robots, ball, cmd):
+    n = robots.shape[1]
+    if n != N_ROBOTS or env.physics_cfg.n_substeps != N_SUBSTEPS:
+        raise NotImplementedError(
+            f"the CUDA kernel vss_physics is compiled for {N_ROBOTS} robots and "
+            f"{N_SUBSTEPS} substeps; got {n} robots, {env.physics_cfg.n_substeps} substeps"
+        )
+    dev = robots.device
+    b = robots.shape[-1]
+    _build.check_operand(robots, "robots", (6, n), b, dev)
+    _build.check_operand(ball, "ball", 6, b, dev)
+    _build.check_operand(cmd, "cmd", (2, n), b, dev)
+    lib = _library()
+    rb_out = torch.empty_like(robots)
+    ball_out = torch.empty_like(ball)
+    with torch.cuda.device(dev):
+        err = lib.vss_physics_step(
+            ctypes.byref(_params_struct(env)), robots.data_ptr(), ball.data_ptr(), cmd.data_ptr(),
+            rb_out.data_ptr(), ball_out.data_ptr(), n, b, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"vss_physics kernel launch failed: cudaError {err}")
+    return rb_out, ball_out
+
+
+def vss_physics(env, robots, ball, cmd):
+    """One physics step of B VSS worlds: ``robots (6,N,B), ball (6,B),
+    cmd (2,N,B) -> (robots, ball)``."""
+    if robots.device.type == "cuda":
+        out = _launch(env, robots, ball, cmd)
+        vss_physics.launches += 1
+        return out
+    if robots.device.type != "cpu":
+        raise NotImplementedError(
+            f"vss_physics runs on CUDA (kernel) or CPU (plain version), not {robots.device.type}"
+        )
+    return vss_physics_plain(env, robots, ball, cmd)
+
+
+vss_physics.launches = 0
+
+
+def world_step(env, world: WorldState, commands) -> WorldState:
+    """``physics/vss``'s ``step(world, commands)`` through
+    :func:`vss_physics`; the achieved wheel speeds are recomputed from the
+    result as physics/vss.py's epilogue does."""
+    robots, ball = _stack(world)
+    rb, bl = vss_physics(env, robots, ball, torch.stack([commands.v_wheel0, commands.v_wheel1]))
+    return _world(rb, bl, env.field.rbt_wheel_radius, world.robots.infrared)

@@ -10,19 +10,21 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from rsoccer_tpu_torch.envs.ssl_contested_possession import SSLContestedPossessionEnv
+from rsoccer_tpu_torch.envs.ssl_dribbling import SSLDribblingEnv
+from rsoccer_tpu_torch.envs.ssl_pass_endurance import SSLPassEnduranceEnv
 from rsoccer_tpu_torch.envs.ssl_static_defenders import SSLStaticDefendersEnv
 from rsoccer_tpu_torch.envs.vss import VSSEnv
 
 _REGISTRY: Dict[str, Callable] = {
     "VSS-v0": VSSEnv,
     "SSLStaticDefenders-v0": lambda **kw: SSLStaticDefendersEnv(**{"field_type": 2, **kw}),
+    "SSLDribbling-v0": SSLDribblingEnv,
     "SSLContestedPossession-v0": SSLContestedPossessionEnv,
+    "SSLPassEndurance-v0": SSLPassEnduranceEnv,
 }
 
 # ids of the JAX package still to port -> ROADMAP.md item
 _NOT_PORTED = {
-    "SSLDribbling-v0": "module queue item 8 (SSL tasks: Dribbling)",
-    "SSLPassEndurance-v0": "module queue item 8 (SSL tasks: PassEndurance)",
     "VSSMultiAgent-v0": "module queue item 12 (multi-agent and self-play)",
     "VSSSelfPlay-v0": "module queue item 12 (multi-agent and self-play)",
 }

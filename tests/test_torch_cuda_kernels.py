@@ -18,6 +18,7 @@ from rsoccer_tpu_torch.batch import rollout as R
 from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 from rsoccer_tpu_torch.ops import ssl_full as sf
 from rsoccer_tpu_torch.ops import vss_full as vf
+from rsoccer_tpu_torch.ops import vss_physics as vp
 from rsoccer_tpu_torch.ops.philox import make_key, philox_words
 
 pytestmark = pytest.mark.cuda
@@ -47,7 +48,8 @@ def assert_step_close(env, got, want, tag):
     assert float((obs - w_obs).abs().max()) <= ATOL, tag
     assert float((aux[0] - w_aux[0]).abs().max()) <= ATOL, tag
     assert torch.equal(aux[1:3], w_aux[1:3]), tag
-    assert float((aux[3:] - w_aux[3:]).abs().max()) <= ATOL, tag
+    if aux.shape[0] > 3:  # DR has no info rows
+        assert float((aux[3:] - w_aux[3:]).abs().max()) <= ATOL, tag
 
 
 @pytest.mark.parametrize("rng_mode", ["input", "kernel"])
@@ -119,7 +121,14 @@ def test_bad_operands_raise(cuda):
 SSL = {  # env id -> (wrapper, plain, draw)
     "SSLStaticDefenders-v0": (sf.sd_full_step, sf.sd_full_step_plain, sf.sd_draw_step_rows),
     "SSLContestedPossession-v0": (sf.cp_full_step, sf.cp_full_step_plain, sf.cp_draw_step_rows),
+    "SSLDribbling-v0": (sf.dr_full_step, sf.dr_full_step_plain, sf.dr_draw_step_rows),
+    "SSLPassEndurance-v0": (sf.pe_full_step, sf.pe_full_step_plain, sf.pe_draw_step_rows),
 }
+WRAPPERS = [vf.vss_full_step, vp.vss_physics] + [w for w, _, _ in SSL.values()]
+
+
+def launch_counts():
+    return [w.launches for w in WRAPPERS]
 
 
 @pytest.mark.parametrize("rng_mode", ["input", "kernel"])
@@ -138,7 +147,7 @@ def test_ssl_kernel_matches_plain(cuda, env_id, rng_mode, emit_final, max_steps)
     launches = wrapper.launches
     dones = 0
     for t in range(5):
-        act = torch.rand((5, B), generator=gen, device=cuda) * 2 - 1
+        act = torch.rand((env.action_size, B), generator=gen, device=cuda) * 2 - 1
         if rng_mode == "kernel":
             got = wrapper(env, st_k, act, key=key, emit_final=emit_final)
             rows = draw(env, key_p, B)
@@ -159,12 +168,16 @@ def test_ssl_kernel_matches_plain(cuda, env_id, rng_mode, emit_final, max_steps)
 
 @pytest.mark.parametrize("env_id", list(SSL))
 def test_ssl_main_path_goes_through_the_kernel(cuda, env_id):
+    """Its kernel launches once per step, no other kernel launches."""
     wrapper = SSL[env_id][0]
-    benv = BatchedEnv(rsoccer_tpu_torch.make(env_id), B, device=cuda, fused=True, fused_rng="kernel")
+    env = rsoccer_tpu_torch.make(env_id)
+    if env_id == "SSLDribbling-v0":
+        env.max_episode_steps = 10  # its episodes rarely end in 20 random steps
+    benv = BatchedEnv(env, B, device=cuda, fused=True, fused_rng="kernel")
     carry = R.init_carry(benv, seed=0)
-    launches = wrapper.launches
+    launches = launch_counts()
     carry, ms = R.make_rollout_fn(benv, 20)(carry)
-    assert wrapper.launches == launches + 20
+    assert launch_counts() == [n + 20 * (w is wrapper) for n, w in zip(launches, WRAPPERS)]
     assert bool(torch.isfinite(carry.obs).all()) and bool(torch.isfinite(carry.state).all())
     assert bool((carry.obs.abs() <= torch.tensor(1.2)).all())
     assert int(ms.episodes) > 0
@@ -176,12 +189,75 @@ def test_ssl_bad_operands_raise(cuda, env_id):
     env = rsoccer_tpu_torch.make(env_id)
     st = BatchedEnv(env, B, device=cuda, fused=True).reset(make_key(0, device=cuda))[0]
     key = make_key(0, device=cuda)
+    a = env.action_size
     with pytest.raises(ValueError):
-        wrapper(env, st, torch.zeros((4, B), device=cuda), key=key)
+        wrapper(env, st, torch.zeros((a - 1, B), device=cuda), key=key)
     with pytest.raises(ValueError):
-        wrapper(env, st[:, :-1], torch.zeros((5, B - 1), device=cuda), key=key)
+        wrapper(env, st[:, :-1], torch.zeros((a, B - 1), device=cuda), key=key)
     with pytest.raises(ValueError):
-        wrapper(env, st, torch.zeros((5, B), device=cuda), key=key.cpu())
+        wrapper(env, st, torch.zeros((a, B), device=cuda), key=key.cpu())
     env.physics_cfg = dataclasses.replace(env.physics_cfg, n_substeps=3)
     with pytest.raises(NotImplementedError):
-        wrapper(env, st, torch.zeros((5, B), device=cuda), key=key)
+        wrapper(env, st, torch.zeros((a, B), device=cuda), key=key)
+
+
+def random_vss_arrays(gen, dev, n=6):
+    """Random VSS worlds as the physics kernel takes them: robots (6, n, B)
+    crowded enough to touch, half the balls airborne, wheel commands past
+    the clamp."""
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    rb = torch.stack([u((n, B), -0.6, 0.6), u((n, B), -0.5, 0.5), u((n, B), -math.pi, math.pi),
+                      u((n, B), -0.5, 0.5), u((n, B), -0.5, 0.5), u((n, B), -5, 5)])
+    air = u((B,), 0, 1) < 0.5
+    ball = torch.stack([u((B,), -0.6, 0.6), u((B,), -0.5, 0.5),
+                        0.0215 + torch.where(air, u((B,), 0, 0.3), 0.0),
+                        u((B,), -1, 1), u((B,), -1, 1), torch.where(air, u((B,), -1, 2), 0.0)])
+    return rb.contiguous(), ball.contiguous(), u((2, n, B), -40, 40)
+
+
+def test_vss_physics_kernel_matches_plain(cuda):
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    launches = vp.vss_physics.launches
+    for trial in range(5):
+        rb, ball, cmd = random_vss_arrays(gen, cuda)
+        k_rb, k_ball = vp.vss_physics(env, rb, ball, cmd)
+        p_rb, p_ball = vp.vss_physics_plain(env, rb, ball, cmd)
+        d_th = (torch.remainder(k_rb[2] - p_rb[2] + math.pi, 2 * math.pi) - math.pi).abs()
+        assert float(d_th.max()) <= ATOL, trial
+        assert float((k_rb[[0, 1, 3, 4, 5]] - p_rb[[0, 1, 3, 4, 5]]).abs().max()) <= ATOL, trial
+        assert float((k_ball - p_ball).abs().max()) <= ATOL, trial
+    assert vp.vss_physics.launches == launches + 5
+
+
+def test_fused_physics_main_path_goes_through_the_kernel(cuda):
+    """The physics kernel launches once per step, no other kernel launches,
+    and the rollout matches the unfused one."""
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    env.max_episode_steps = 8
+    benv = BatchedEnv(env, B, device=cuda, fused_physics=True)
+    twin = BatchedEnv(env, B, device=cuda)
+    launches = launch_counts()
+    carry, ms = R.make_rollout_fn(benv, 20)(R.init_carry(benv, seed=0))
+    assert launch_counts() == [n + 20 * (w is vp.vss_physics) for n, w in zip(launches, WRAPPERS)]
+    c_t, m_t = R.make_rollout_fn(twin, 20)(R.init_carry(twin, seed=0))
+    assert int(ms.episodes) == int(m_t.episodes) > 0
+    assert float((carry.obs - c_t.obs).abs().max()) <= 1e-3
+    assert bool(torch.isfinite(carry.obs).all())
+
+
+def test_vss_physics_bad_operands_raise(cuda):
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    rb, ball, cmd = random_vss_arrays(torch.Generator(device=cuda).manual_seed(0), cuda)
+    with pytest.raises(ValueError):
+        vp.vss_physics(env, rb, ball[:5], cmd)
+    with pytest.raises(ValueError):
+        vp.vss_physics(env, rb, ball, cmd.cpu())
+    with pytest.raises(ValueError):
+        vp.vss_physics(env, rb.transpose(1, 2).contiguous().transpose(1, 2), ball, cmd)  # strided
+    odd = rsoccer_tpu_torch.make("VSS-v0", n_robots_blue=5, n_robots_yellow=5)
+    rb10, ball10, cmd10 = random_vss_arrays(torch.Generator(device=cuda).manual_seed(0), cuda, n=10)
+    with pytest.raises(NotImplementedError):
+        vp.vss_physics(odd, rb10, ball10, cmd10)

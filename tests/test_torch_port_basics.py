@@ -41,6 +41,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys, rsoccer_tpu_torch, rsoccer_tpu_torch.batch.rollout, "
         "rsoccer_tpu_torch.ops.vss_full, rsoccer_tpu_torch.ops.ssl_full, "
+        "rsoccer_tpu_torch.ops.vss_physics, "
         "rsoccer_tpu_torch.convert; "
         "assert 'jax' not in sys.modules, 'jax was imported'; print('ok')"
     )
@@ -146,10 +147,10 @@ def test_registry_and_make_vec():
     env = rsoccer_tpu_torch.make("VSS-v0")
     assert (env.obs_size, env.action_size, env.max_episode_steps) == (40, 2, 1200)
     assert rsoccer_tpu_torch.registered_ids() == [
-        "SSLContestedPossession-v0", "SSLStaticDefenders-v0", "VSS-v0"]
-    for env_id in ("SSLDribbling-v0", "VSSSelfPlay-v0"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rsoccer_tpu_torch.make(env_id)
+        "SSLContestedPossession-v0", "SSLDribbling-v0", "SSLPassEndurance-v0",
+        "SSLStaticDefenders-v0", "VSS-v0"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rsoccer_tpu_torch.make("VSSSelfPlay-v0")
     with pytest.raises(KeyError):
         rsoccer_tpu_torch.make("nope-v0")
     benv = rsoccer_tpu_torch.make_vec("VSS-v0", 8, device="cpu", fused=True, field_type=1)
@@ -160,8 +161,10 @@ def test_batched_env_refuses_unported_paths():
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 
     env = rsoccer_tpu_torch.make("VSS-v0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedEnv(env, 8, device="cpu", pallas_physics=True)
+    with pytest.raises(ValueError, match="pick one"):
+        BatchedEnv(env, 8, device="cpu", fused=True, fused_physics=True)
+    with pytest.raises(NotImplementedError, match="VSS envs only"):
+        BatchedEnv(rsoccer_tpu_torch.make("SSLDribbling-v0"), 8, device="cpu", fused_physics=True)
     with pytest.raises(ValueError):
         BatchedEnv(env, 8, device="cpu", fused=True, fused_rng="hardware")
 

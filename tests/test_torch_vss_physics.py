@@ -1,0 +1,160 @@
+"""The VSS physics-only step (``ops/vss_physics``): its plain version vs the
+JAX package's Pallas kernel (interpret mode) and XLA step on the same
+arrays, the kernel's parameter struct, the wrapper's dispatch, and
+``BatchedEnv(..., fused_physics=True)`` vs the unfused env step and the
+JAX package's ``pallas_physics`` step fed the same noise."""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rsoccer_tpu
+import rsoccer_tpu_torch
+from rsoccer_tpu.batch.vecenv import BatchedEnv as JBatchedEnv
+from rsoccer_tpu.ops import pallas_vss as jpv
+from rsoccer_tpu_torch import convert
+from rsoccer_tpu_torch.batch import rollout as R
+from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+from rsoccer_tpu_torch.envs.vss import VSSState
+from rsoccer_tpu_torch.ops import vss_physics as vp
+from rsoccer_tpu_torch.physics.vss import make_vss_step
+from tests.test_pallas_vss import B, DT, FIELD, N, random_batched_world, xla_reference
+from tests.test_torch_env_vss import assert_states_close, np_noise
+
+torch.set_num_threads(1)
+
+ATOL = 5e-5
+PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "rsoccer_tpu_torch")
+
+
+def assert_arrays_close(got, want, tag):
+    """(robots, ball) of the port vs a JAX step's; headings on the circle."""
+    rb, ball = (np.asarray(a) for a in got)
+    w_rb, w_ball = (np.asarray(a) for a in want)
+    d_th = np.remainder(rb[2] - w_rb[2] + np.pi, 2 * np.pi) - np.pi
+    np.testing.assert_allclose(d_th, 0.0, atol=ATOL, err_msg=f"{tag} theta")
+    np.testing.assert_allclose(rb[[0, 1, 3, 4, 5]], w_rb[[0, 1, 3, 4, 5]], atol=ATOL, err_msg=f"{tag} robots")
+    np.testing.assert_allclose(ball, w_ball, atol=ATOL, err_msg=f"{tag} ball")
+
+
+def port_arrays(rb, ball, cmds):
+    return (torch.from_numpy(np.asarray(a).copy()) for a in (rb, ball, cmds))
+
+
+@pytest.mark.parametrize("reference", ["pallas_interpret", "xla"])
+def test_plain_matches_jax_physics(reference):
+    """Random worlds (half the balls airborne, robots overlapping) one
+    control step: the port's plain version vs the JAX Pallas kernel and
+    the JAX XLA step, to 5e-5."""
+    tenv = rsoccer_tpu_torch.make("VSS-v0")
+    if reference == "xla":
+        step = xla_reference
+    else:
+        step = jpv.make_pallas_vss_physics(FIELD, rsoccer_tpu.make("VSS-v0").physics_cfg, DT,
+                                           n_robots=N, batch=B, tile=B, interpret=True)
+    rng = np.random.default_rng(0)
+    for trial in range(5):
+        rb, ball, cmds = random_batched_world(rng)
+        got = vp.vss_physics_plain(tenv, *port_arrays(rb, ball, cmds))
+        assert_arrays_close(got, step(rb, ball, cmds), f"trial {trial}")
+
+
+def test_plain_is_the_port_world_step():
+    """world_step on CPU is physics/vss's step on the same world, v_wheel
+    included; the infrared leaf is carried through."""
+    tenv = rsoccer_tpu_torch.make("VSS-v0")
+    benv = BatchedEnv(tenv, B, device="cpu")
+    state = R.init_carry(benv, seed=1).state
+    cmd, _ = tenv.pre_physics(state, torch.rand((2, B)) * 2 - 1,
+                              {"ou": torch.zeros((N, 2, B))})
+    want = make_vss_step(tenv.field, tenv.physics_cfg, tenv.time_step)(state.world, cmd)
+    got = vp.world_step(tenv, state.world, cmd)
+    for g, w in zip(jax.tree.leaves(convert.state_to_numpy(got)),
+                    jax.tree.leaves(convert.state_to_numpy(want))):
+        np.testing.assert_allclose(g, w, atol=1e-6)
+
+
+def test_kernel_param_struct_matches_cuda_source():
+    """ctypes mirror of VssPhysParams == the X-list in csrc/vss_physics.cu."""
+    src = open(os.path.join(PORT, "csrc", "vss_physics.cu")).read()
+    block = src[src.index("#define VSS_PHYS_PARAMS(X)"): src.index("struct VssPhysParams")]
+    assert re.findall(r"X\((\w+)\)", block) == vp.PARAM_FIELDS
+    assert sorted(vp.kernel_params(rsoccer_tpu_torch.make("VSS-v0"))) == sorted(vp.PARAM_FIELDS)
+
+
+def test_wrapper_dispatch_on_cpu():
+    """On CPU the wrapper runs the plain version and never counts a launch;
+    other devices are refused."""
+    tenv = rsoccer_tpu_torch.make("VSS-v0")
+    rb, ball, cmds = port_arrays(*random_batched_world(np.random.default_rng(2)))
+    launches = vp.vss_physics.launches
+    for g, w in zip(vp.vss_physics(tenv, rb, ball, cmds), vp.vss_physics_plain(tenv, rb, ball, cmds)):
+        assert torch.equal(g, w)
+    assert vp.vss_physics.launches == launches
+    with pytest.raises(NotImplementedError):
+        vp.vss_physics(tenv, rb.to("meta"), ball.to("meta"), cmds.to("meta"))
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["step", "step_final"])
+@pytest.mark.parametrize("max_steps", [None, 3], ids=["limit1200", "limit3"])
+def test_fused_physics_step_matches_unfused_and_jax(max_steps, final):
+    """BatchedEnv(fused_physics=True) vs the unfused BatchedEnv and vs the
+    JAX package's pallas_physics step (its kernel in interpret mode), fed
+    the same noise through auto-resets."""
+    jenv, tenv = rsoccer_tpu.make("VSS-v0"), rsoccer_tpu_torch.make("VSS-v0")
+    if max_steps is not None:
+        jenv.max_episode_steps = tenv.max_episode_steps = max_steps
+    fused = BatchedEnv(tenv, B, device="cpu", fused_physics=True)
+    twin = BatchedEnv(tenv, B, device="cpu")
+    jbenv = JBatchedEnv(jenv, B, pallas_physics=True, pallas_tile=B)
+    j_step = jax.jit(jbenv._pallas_step)
+    rng = np.random.default_rng(11)
+    r0 = np_noise(rng, tenv.reset_noise_spec(), B)
+    ts = tenv.reset_state(convert.noise_from_numpy(r0, device="cpu"))
+    js = jax.vmap(jenv.reset_state, in_axes=-1, out_axes=-1)({k: jnp.asarray(v) for k, v in r0.items()})
+    dones = 0
+    for t in range(5):
+        act = rng.uniform(-1, 1, (2, B)).astype(np.float32)
+        tn, rn = (np_noise(rng, spec, B) for spec in (tenv.transition_noise_spec(), tenv.reset_noise_spec()))
+        t_noise, r_noise = (convert.noise_from_numpy(n, device="cpu") for n in (tn, rn))
+        step = fused.step_final_with_noise if final else fused.step_with_noise
+        plain = twin.step_final_with_noise if final else twin.step_with_noise
+        got = step(ts, torch.from_numpy(act), t_noise, r_noise)
+        want = plain(ts, torch.from_numpy(act), t_noise, r_noise)
+        assert isinstance(got[0], VSSState) and len(got) == len(want) == (7 if final else 6)
+        assert_states_close(got[0], convert.state_to_numpy(want[0]), tag=f"step {t} unfused")
+        for g, w in zip(got[1:-1], want[1:-1]):
+            torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+        for k in want[-1]:
+            torch.testing.assert_close(got[-1][k], want[-1][k], rtol=0, atol=ATOL)
+        jo = j_step(js, jnp.asarray(act), {k: jnp.asarray(v) for k, v in tn.items()},
+                    {k: jnp.asarray(v) for k, v in rn.items()})
+        assert_states_close(got[0], jo[0], tag=f"step {t} jax")
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(jo[1]), atol=ATOL)
+        np.testing.assert_allclose(got[-4].numpy(), np.asarray(jo[2]), atol=ATOL)
+        np.testing.assert_array_equal(got[-3].numpy(), np.asarray(jo[3]))
+        np.testing.assert_array_equal(got[-2].numpy(), np.asarray(jo[4]))
+        dones += int((got[-3] | got[-2]).sum())
+        ts, js = got[0], jo[0]
+    if max_steps is not None:
+        assert dones > 0
+
+
+def test_fused_physics_rollout_matches_unfused():
+    """The rollout through fused_physics (its plain version here) and the
+    unfused one give the same metrics and final obs."""
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    env.max_episode_steps = 4
+    fused = BatchedEnv(env, B, device="cpu", fused_physics=True)
+    twin = BatchedEnv(env, B, device="cpu")
+    c_f, m_f = R.make_rollout_fn(fused, 10)(R.init_carry(fused, seed=3))
+    c_t, m_t = R.make_rollout_fn(twin, 10)(R.init_carry(twin, seed=3))
+    assert int(m_f.episodes) > 0 and int(m_f.episodes) == int(m_t.episodes)
+    for a, b in zip(m_f, m_t):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    torch.testing.assert_close(c_f.obs, c_t.obs, rtol=0, atol=ATOL)
