@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --vss-baseline DIR
+
 
 Builds the port's CUDA kernels from ``rsoccer_tpu_torch/csrc`` (one nvcc per
 source, in parallel, at first use) and, for each fused env step —
@@ -13,13 +15,23 @@ auto-resets; the Dribbling and PassEndurance checks start from lanes built
 next to each gate and on pass lines, and print the crossings, completions
 and receptions they saw.  The VSS physics kernel (``vss_physics``) is held
 to its plain version on every step of a ``fused_physics`` rollout, and that
-rollout to the unfused one.  Then it drives each main path —
+rollout to the unfused one.  The VSS fused step (both RNG modes) and the
+physics kernel are held to their plain versions again at a ragged batch
+(8191 envs: the last block part empty), and both are timed at 32768 and
+131072 envs.  Then it drives each main path —
 ``BatchedEnv(<id>, 8192, device="cuda", fused=True, fused_rng="kernel")``,
 and ``BatchedEnv(VSS-v0, 8192, device="cuda", fused_physics=True)`` —
 through ``make_rollout_fn`` with every launch count set to 0 just before and
 read just after, and times it.  Each phase prints one line; any failure
 exits non-zero.  The last two lines are the kernels' JSON record and
 ``{"ok": true, ...}``.
+
+With ``--vss-baseline DIR`` it runs instead one comparison: the VSS
+kernels (the fused step in both RNG modes, the physics kernel) built from
+another tree's sources in DIR (its ``rsoccer_tpu_torch/csrc``, for example
+the parent commit's, unpacked with ``git archive``) against this tree's,
+outputs bit for bit and device time per launch in turns (baseline, this,
+this, baseline) at 8192, 32768 and 131072 envs.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -36,6 +48,8 @@ from types import SimpleNamespace
 import torch
 
 B = 8192
+RAGGED_B = 8191  # leaves the last 32-env block of the VSS kernels part empty
+SCALE_BATCHES = (32768, 131072)
 N_CHECK_STEPS = 5
 WARM_STEPS = 60  # SSL checks start mid-episode: contacts, dribbling, kicks
 ROLLOUT_STEPS = 100
@@ -229,14 +243,14 @@ def pe_pass_states(st, share: float = 0.5):
     return st, kind
 
 
-def check_kernel_vs_plain(task, rng_mode: str):
+def check_kernel_vs_plain(task, rng_mode: str, batch: int = B):
     """A few steps, kernel and plain each on their own trajectory, for
     both step-limit settings and both obs variants.  VSS-v0 starts from a
     reset state with random actions; the SSL tasks start after WARM_STEPS
     kernel steps of their policy (the actions of the checked steps come
     from the kernel's obs and go to both), DR and PE from lanes rebuilt by
-    ``task.prepare``.  Returns (max error, where it is, dones seen,
-    ``task.events`` summed over the checked steps)."""
+    ``task.prepare``, at ``batch`` envs.  Returns (max error, where it is,
+    dones seen, ``task.events`` summed over the checked steps)."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops.philox import make_key
@@ -247,7 +261,7 @@ def check_kernel_vs_plain(task, rng_mode: str):
             env = rt.make(task.env_id)
             if max_steps is not None:
                 env.max_episode_steps = max_steps
-            benv = BatchedEnv(env, B, device="cuda", fused=True, fused_rng="kernel")
+            benv = BatchedEnv(env, batch, device="cuda", fused=True, fused_rng="kernel")
             key = make_key(11, device="cuda")
             st_k, obs = benv.reset(key)
             gen = torch.Generator(device="cuda").manual_seed(5)
@@ -262,12 +276,12 @@ def check_kernel_vs_plain(task, rng_mode: str):
                 act = task.actions(obs, gen)
                 if rng_mode == "kernel":
                     got = task.wrapper(env, st_k, act, key=key, emit_final=emit_final)
-                    rows = task.draw(env, key_p, B)
+                    rows = task.draw(env, key_p, batch)
                 else:
-                    rows = task.draw(env, key, B)
+                    rows = task.draw(env, key, batch)
                     got = task.wrapper(env, st_k, act, *rows, emit_final=emit_final)
                 want = task.plain(env, st_p, act, *rows, emit_final)
-                tag = (f"{task.name} rng={rng_mode} max_steps={max_steps} "
+                tag = (f"{task.name} B={batch} rng={rng_mode} max_steps={max_steps} "
                        f"final={emit_final} step={t}")
                 err, at = compare_step(env.n_robots, got, want, tag)
                 if err >= worst:
@@ -317,12 +331,12 @@ def pe_events(kinds, st_before, got, t):
     return ev
 
 
-def check_physics_vs_plain():
-    """The VSS physics kernel on a ``fused_physics`` rollout: at every step
-    the kernel vs its plain version on that step's arrays, and the whole
-    step (state, obs, reward, flags, info) vs the unfused env step fed the
-    same noise, for both step-limit settings and both obs variants.
-    Returns (max error, dones seen)."""
+def check_physics_vs_plain(batch: int = B):
+    """The VSS physics kernel on a ``fused_physics`` rollout of ``batch``
+    envs: at every step the kernel vs its plain version on that step's
+    arrays, and the whole step (state, obs, reward, flags, info) vs the
+    unfused env step fed the same noise, for both step-limit settings and
+    both obs variants.  Returns (max error, dones seen)."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops import vss_full as vf
@@ -335,21 +349,21 @@ def check_physics_vs_plain():
             env = rt.make("VSS-v0")
             if max_steps is not None:
                 env.max_episode_steps = max_steps
-            fused = BatchedEnv(env, B, device="cuda", fused_physics=True)
-            twin = BatchedEnv(env, B, device="cuda")
+            fused = BatchedEnv(env, batch, device="cuda", fused_physics=True)
+            twin = BatchedEnv(env, batch, device="cuda")
             key = make_key(11, device="cuda")
             st_k, _ = fused.reset(key)
             st_p = st_k
             gen = torch.Generator(device="cuda").manual_seed(5)
             for t in range(N_CHECK_STEPS):
-                act = torch.rand((2, B), generator=gen, device="cuda") * 2 - 1
+                act = torch.rand((2, batch), generator=gen, device="cuda") * 2 - 1
                 t_noise, r_noise = fused._draw(key)
                 cmd, _ = env.pre_physics(st_k, act, t_noise)
                 rb, bl = vp._stack(st_k.world)
                 cmd = torch.stack([cmd.v_wheel0, cmd.v_wheel1])
                 k_rb, k_bl = vp.vss_physics(env, rb, bl, cmd)
                 p_rb, p_bl = vp.vss_physics_plain(env, rb, bl, cmd)
-                tag = f"vss_physics max_steps={max_steps} final={final} step={t}"
+                tag = f"vss_physics B={batch} max_steps={max_steps} final={final} step={t}"
                 d_th = (torch.remainder(k_rb[2] - p_rb[2] + math.pi, 2 * math.pi) - math.pi).abs()
                 errs = [max_err(k_rb[[0, 1, 3, 4, 5]], p_rb[[0, 1, 3, 4, 5]]), float(d_th.max()),
                         max_err(k_bl, p_bl)]
@@ -499,6 +513,149 @@ def physics_calls(task, env, carry):
                 ins=(rb, bl, cmd), n_done=lambda outs: 0)
 
 
+def time_at_scale(card, k1, k2):
+    """Device time per launch of the VSS fused step (task ``k1``, both RNG
+    modes) and the physics kernel (task ``k2``) at each of SCALE_BATCHES
+    envs, on the state after 20 main-path steps, with each call's bound.
+    One phase per batch."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.batch import rollout as R
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    for batch in SCALE_BATCHES:
+        env = rt.make("VSS-v0")
+        benv = BatchedEnv(env, batch, device="cuda", fused=True, fused_rng="kernel")
+        carry, _ = R.make_rollout_fn(benv, 20)(R.init_carry(benv, seed=0))
+        st = carry.state
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        act = torch.rand((2, batch), generator=gen, device="cuda") * 2 - 1
+        key = make_key(3, device="cuda")
+        rows = vf.draw_step_rows(env, key.clone(), batch)
+        rb, bl = vp._stack(vf.unpack_vss_state(st, env.n_robots, env.field.rbt_wheel_radius).world)
+        cmd = (torch.rand((2, env.n_robots, batch), generator=gen, device="cuda") * 2 - 1) * 60.0
+        calls = {
+            "vss_full_kernel_rng": (k1, lambda: vf.vss_full_step(env, st, act, key=key), (st, act, key)),
+            "vss_full_input_rows": (k1, lambda: vf.vss_full_step(env, st, act, *rows), (st, act, *rows)),
+            "vss_physics": (k2, lambda: vp.vss_physics(env, rb, bl, cmd), (rb, bl, cmd)),
+        }
+        dev_us, bound_us = {}, {}
+        for name, (task, fn, ins) in calls.items():
+            dev_us[name], _ = device_us(fn, TIMED_LAUNCHES, task.kernel_match)
+            outs = fn()
+            n_done = int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum()) if task is k1 else 0
+            bound, by, _, _ = bound_ms(task, ins, outs, n_done)
+            bound_us[name] = [bound * 1e3, by]
+        torch.cuda.synchronize()
+        phase("kernel_scale", card=card, B=batch, device_us=dev_us, bound_us=bound_us)
+
+
+def build_baseline(csrc_dir):
+    """nvcc the VSS kernels of another tree's ``csrc_dir`` (the same flags
+    as this tree's) into a library under OUT_DIR; ctypes-loaded, entries
+    declared, its VssParams fields checked against this tree's."""
+    import ctypes
+    import shutil
+
+    from rsoccer_tpu_torch.ops import _build
+    from rsoccer_tpu_torch.ops import vss_full as vf
+
+    out = os.path.join(OUT_DIR, "vss_baseline")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(csrc_dir, out)
+    nvcc = _build.nvcc_path()
+    names = ("vss_full", "vss_physics")
+    procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", f"{out}/{n}.o", f"{out}/{n}.cu"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in names]
+    logs = [(pr.communicate()[0], pr.returncode) for pr in procs]
+    if any(rc for _, rc in logs):
+        raise RuntimeError("baseline nvcc failed:\n" + "".join(log for log, _ in logs))
+    subprocess.run([nvcc, "-shared", "-o", f"{out}/lib.so", *(f"{out}/{n}.o" for n in names)], check=True)
+    lib = ctypes.CDLL(f"{out}/lib.so")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vss_params_fields.restype = ctypes.c_char_p
+    lib.vss_full_step.argtypes = [i, i, i, i] + [p] * 10 + [i, p]
+    lib.vss_physics_step.argtypes = [p] * 6 + [i, i, p]
+    if lib.vss_params_fields().decode().rstrip(",").split(",") != vf.PARAM_FIELDS:
+        raise RuntimeError("the baseline's VssParams differ from this tree's")
+    ptxas = [ln.strip() for log, _ in logs for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    return lib, ptxas
+
+
+def vss_against_baseline(csrc_dir, card):
+    """This tree's VSS kernels against those built from ``csrc_dir``: every
+    output bit for bit, then device us per launch in turns (baseline, this,
+    this, baseline) at 8192, 32768 and 131072 envs, on the state after 20
+    VSS-v0 steps.  One phase per batch.  Raises if an output differs."""
+    import ctypes
+
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.batch import rollout as R
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    lib, ptxas = build_baseline(csrc_dir)
+    phase("vss_baseline_build", source=csrc_dir, ptxas=ptxas)
+    for batch in (B, *SCALE_BATCHES):
+        env = rt.make("VSS-v0")
+        benv = BatchedEnv(env, batch, device="cuda", fused=True, fused_rng="kernel")
+        carry, _ = R.make_rollout_fn(benv, 20)(R.init_carry(benv, seed=0))
+        st = carry.state
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        act = torch.rand((2, batch), generator=gen, device="cuda") * 2 - 1
+        key = make_key(3, device="cuda")
+        rows = vf.draw_step_rows(env, key.clone(), batch)
+        rb, bl = vp._stack(vf.unpack_vss_state(st, env.n_robots, env.field.rbt_wheel_radius).world)
+        cmd = (torch.rand((2, env.n_robots, batch), generator=gen, device="cuda") * 2 - 1) * 60.0
+        outs = (torch.empty_like(st), torch.empty((env.obs_size, batch), device="cuda"),
+                torch.empty((vf.N_AUX, batch), device="cuda"))
+        phys_outs = (torch.empty_like(rb), torch.empty_like(bl))
+        prm, pprm = vf._params_struct(env), vp._params_struct(env)
+
+        def base_full(rng):
+            def call():
+                ou, sp, th = (None, None, None) if rng else (r.data_ptr() for r in rows)
+                err = lib.vss_full_step(3, 3, 0, int(rng), ctypes.byref(prm), st.data_ptr(), act.data_ptr(),
+                                        ou, sp, th, key.data_ptr() if rng else None,
+                                        *(t.data_ptr() for t in outs), batch,
+                                        torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"baseline vss_full_step launch failed: cudaError {err}")
+            return call
+
+        def base_phys():
+            err = lib.vss_physics_step(ctypes.byref(pprm), rb.data_ptr(), bl.data_ptr(), cmd.data_ptr(),
+                                       *(t.data_ptr() for t in phys_outs), env.n_robots, batch,
+                                       torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"baseline vss_physics_step launch failed: cudaError {err}")
+
+        pairs = {
+            "vss_full_kernel_rng": (base_full(True), lambda: vf.vss_full_step(env, st, act, key=key),
+                                    "vss_full_kernel", outs),
+            "vss_full_input_rows": (base_full(False), lambda: vf.vss_full_step(env, st, act, *rows),
+                                    "vss_full_kernel", outs),
+            "vss_physics": (base_phys, lambda: vp.vss_physics(env, rb, bl, cmd), "vss_physics_kernel", phys_outs),
+        }
+        turns = {}
+        for name, (base, this, match, base_outs) in pairs.items():
+            k0 = key.clone()
+            got = this()
+            key.copy_(k0)
+            base()
+            key.copy_(k0)
+            if not all(torch.equal(a, b) for a, b in zip(got, base_outs)):
+                raise AssertionError(f"{name} at {batch} envs: outputs differ from the baseline's")
+            turns[name] = [device_us(fn, TIMED_LAUNCHES, match)[0] for fn in (base, this, this, base)]
+        phase("vss_baseline_turns", card=card, B=batch, bit_equal=True,
+              baseline_this_this_baseline_us=turns,
+              mean_us={n: {"baseline": (t[0] + t[3]) / 2, "this": (t[1] + t[2]) / 2} for n, t in turns.items()})
+
+
 def tensor_leaves(tree):
     """Leaves of a tensor or of (nested) NamedTuples of tensors."""
     if isinstance(tree, tuple):
@@ -604,6 +761,12 @@ def main_path(task, tasks, card):
 
 
 def main() -> int:
+    baseline = None
+    if sys.argv[1:2] == ["--vss-baseline"] and len(sys.argv) == 3:
+        baseline = sys.argv[2]
+    elif len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--vss-baseline DIR]", file=sys.stderr)
+        return 2
     # ---- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -639,10 +802,13 @@ def main() -> int:
             actions=random_actions(2), warm_steps=0, kernel_match="vss_full_kernel",
             source="rsoccer_tpu_torch/csrc/vss_full.cu",
             replaces="rsoccer_tpu/ops/pallas_vss_full.py:142",
-            # OU + wheels ~100, 5 substeps x (6 robots x 30 + 15 pairs x 25
-            # + walls 48 + ball 60 + 6 contacts x 20), spawn ~900 and 36
-            # Philox blocks on every lane, obs ~60
-            ops_env=100 + 5 * (180 + 375 + 48 + 60 + 120) + 900 + 36 * 40 + 60, ops_reset=0,
+            # OU + wheels ~100 and the 7 Philox blocks of the OU slots, 5
+            # substeps x (6 robots x 30 + 15 pairs x 25 + walls 48 + ball 60
+            # + 6 contacts x 20), obs ~60; a reset: spawn placement ~900
+            # (7 entities x 8 candidates against the points placed before)
+            # and its 28 Philox blocks, the theta block
+            ops_env=100 + 7 * 40 + 5 * (180 + 375 + 48 + 60 + 120) + 60,
+            ops_reset=900 + 28 * 40 + 40,
             **fused,
         ),
         SimpleNamespace(
@@ -725,6 +891,11 @@ def main() -> int:
         fh.write(log)
     phase("build", nvcc_seconds=nvcc_s, total_seconds=time.perf_counter() - t0,
           library=str(lib_path.name), ptxas=ptxas)
+    if baseline is not None:
+        vss_against_baseline(baseline, card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. each kernel vs its plain version, both RNG modes
     errs = {}
@@ -745,6 +916,20 @@ def main() -> int:
         phase(f"kernel_vs_plain_kernel_rng_{task.name}", B=B, steps=N_CHECK_STEPS,
               max_abs_err=err_k, worst_at=at_k, atol=ATOL, dones=dones_k, **extra)
         errs[task.name] = max(err_in, err_k)
+
+    # ---- 3b. the VSS kernels at a ragged batch
+    for rng_mode in ("input", "kernel"):
+        err, at, dones, _ = check_kernel_vs_plain(tasks[0], rng_mode, RAGGED_B)
+        phase(f"kernel_vs_plain_ragged_{rng_mode}_vss_full_step", B=RAGGED_B, steps=N_CHECK_STEPS,
+              max_abs_err=err, worst_at=at, atol=ATOL, dones=dones)
+        errs["vss_full_step"] = max(errs["vss_full_step"], err)
+    err, dones = check_physics_vs_plain(RAGGED_B)
+    phase("kernel_vs_plain_ragged_vss_physics", B=RAGGED_B, steps=N_CHECK_STEPS, max_abs_err=err,
+          atol=ATOL, dones=dones)
+    errs["vss_physics"] = max(errs["vss_physics"], err)
+
+    # ---- 3c. the VSS kernels at larger batches, timed
+    time_at_scale(card, tasks[0], next(t for t in tasks if t.name == "vss_physics"))
 
     # ---- 4. each main path, through its kernel, timed
     kernels = []

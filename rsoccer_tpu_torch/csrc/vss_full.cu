@@ -1,30 +1,41 @@
-// Fused VSS-v0 env step: the whole step for one env per thread.
+// Fused VSS-v0 env step: the whole step for one env on a group of 8 lanes.
 //
 // Replaces the TPU kernel rsoccer_tpu/ops/pallas_vss_full.py:142
 // (make_pallas_vss_full_step, body `compute` at :243).  Per env it runs:
 // OU update -> agent action over robot 0 -> wheel conversion with the
-// deadzone -> 5 physics substeps (reduced-range Taylor heading rotation,
-// pair-list robot contacts, robot wall clamp, ball friction and vertical
-// axis, ball-robot contacts, walls with goal pockets) -> reward cascade ->
-// shaping accumulators, truncation -> spawn first-valid placement ->
-// auto-reset select -> observation.
+// deadzone -> 5 physics substeps (vss_world.cuh: reduced-range Taylor
+// heading rotation, pair contacts, robot wall clamp, ball friction and
+// vertical axis, ball-robot contacts, walls with goal pockets) -> reward
+// cascade -> shaping accumulators, truncation -> on done envs only, spawn
+// first-valid placement -> auto-reset select -> observation.
 //
 // Layout: every operand is a flat row-major (rows, B) f32 array read as
-// p[row * B + b] — consecutive threads read consecutive addresses, so each
-// row load is coalesced.  It is the TPU kernel's (S, B) state layout byte
-// for byte (the TPU's (8, B/8) view was a relabelling of the same bytes).
+// p[row * B + b], the TPU kernel's (S, B) state layout byte for byte.  A
+// block of 256 threads steps 32 envs: each row of the block's envs passes
+// through a shared-memory tile in one coalesced 128-byte access, and each
+// input row is read once and each output row written once.
+//
+// Work split inside an env's group of 8 lanes (vss_world.cuh): lane k < 6
+// owns robot k (its OU noise, wheels, substep chain, state and obs rows);
+// lane l evaluates robot pairs l and l + 8; every lane carries the ball;
+// lane 6 writes the ball's rows, lane 7 the env's scalars and the aux
+// rows.  The reward cascade runs on every lane (each needs `done`).  A
+// done env places its 7 entities in order with candidate k on lane k: the
+// first valid candidate is the lowest set bit of the group's byte of a
+// warp ballot.
 //
 // What bounds it: at B = 8192 the step moves ~5.8 MB (state in/out, obs,
-// aux, actions), about 2 us of HBM time, while each thread runs a long
-// dependent scalar chain (5 substeps x 15 pairs + 6 robots, 7 x 8 spawn
-// candidates, 36 Philox blocks in the kernel-RNG variant).  8192 threads
-// are 256 warps for 132 SMs — under two warps per SM — so the kernel is
-// bound by instruction latency and occupancy, not bytes.  The design
-// keeps the whole env in registers (fully unrolled loops over
-// compile-time robot counts, no shared or local memory), reads each input
-// row and writes each output row once, and in the kernel-RNG variant
-// draws its ~142 random words in registers instead of streaming them
-// through HBM.  64 threads per block spread the 256 warps over 128 SMs.
+// aux, actions), about 1.7 us of HBM time.  One thread per env ran a long
+// dependent chain with 256 warps on 132 SMs: latency bound.  Eight lanes
+// per env give 2048 warps and cut each lane's chain per substep from ~780
+// operations to ~150, each pair still evaluated once.  The reset work (28
+// spawn Philox blocks, 7 x 8 candidates, the theta draw) runs only on done
+// envs.  In the kernel-RNG variant the group draws the 7 Philox blocks
+// that hold its OU slots once, one per lane, and shares the words.  From
+// ~32768 envs on, where the card is full, the eight lanes issue more
+// instructions per env than one thread did (the replicated ball work and
+// the exchanges), and the kernel is slower than one thread per env was
+// (PERF.md).
 //
 // Numerics: the reduced-range Taylor rotation and the rsqrt normals of the
 // TPU kernel are kept (the 5e-5 kernel-vs-plain tolerance was set against
@@ -33,8 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "pair_collide.cuh"
 #include "philox.cuh"
+#include "vss_world.cuh"
 
 #define VSS_PARAMS(X)                                                                           \
   X(dt) X(dts) X(lat_keep) X(a_lin) X(a_ang) X(max_wheel) X(wheel_r) X(two_half_axle)          \
@@ -54,22 +65,8 @@ struct VssParams {
 
 namespace {
 
-constexpr int kThreads = 64;
 constexpr int K = 8;  // spawn candidates per entity (envs/spawn.N_CANDIDATES)
 constexpr int kSubsteps = 5;  // PhysicsConfig.n_substeps (the wrapper checks)
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) { return fminf(fmaxf(v, lo), hi); }
-
-// jnp.sign / torch.sign: 0 at 0
-__device__ __forceinline__ float signf(float v) { return (float)(v > 0.0f) - (float)(v < 0.0f); }
-
-// jnp.mod(t + pi, 2 pi) - pi: fmodf takes the dividend's sign, so a
-// negative remainder is moved up by one period (floor-mod)
-__device__ __forceinline__ float wrap_angle(float t, const VssParams& p) {
-  float r = fmodf(t + p.pi, p.two_pi);
-  if (r != 0.0f && r < 0.0f) r += p.two_pi;
-  return r - p.pi;
-}
 
 __device__ __forceinline__ float to_wheel(float a, const VssParams& p) {
   float v = clampf(a * p.max_v, -p.max_v, p.max_v);
@@ -77,187 +74,122 @@ __device__ __forceinline__ float to_wheel(float a, const VssParams& p) {
   return v / p.wheel_r;
 }
 
+__device__ __forceinline__ uint32_t word_of(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// uniform of Philox slot `slot` of env `env`
+__device__ __forceinline__ float slot_uniform(const PhiloxKey& pk, uint32_t env, int slot) {
+  return philox_uniform(word_of(philox_block(pk, env, (uint32_t)(slot / 4)), slot % 4));
+}
+
 template <int NB, int NY, bool EMIT_FINAL, bool RNG_KERNEL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     vss_full_kernel(const VssParams p, const float* __restrict__ st, const float* __restrict__ act,
                     const float* __restrict__ ou_in, const float* __restrict__ sp_in,
                     const float* __restrict__ th_in, const long long* __restrict__ key,
                     float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out,
                     int B) {
   constexpr int N = NB + NY;
-  constexpr int NSP = (1 + N) * 2 * K;  // spawn uniforms
-  static_assert((2 * K) % 4 == 0, "spawn entities must start on a Philox block");
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t Bs = (size_t)B;
-#define LD(ptr, row) ((ptr)[(size_t)(row) * Bs + b])
+  using L = VssLayout<N>;
+  static_assert(K == kGroup, "spawn candidate k sits on lane k");
+  constexpr int S = 15 + 8 * N;               // state rows
+  constexpr int NSP = (1 + N) * 2 * K;        // spawn uniforms: slots [0, NSP)
+  constexpr int OU1 = NSP + N, OU2 = NSP + 3 * N;  // OU u1, u2 slots (theta: NSP + r)
+  static_assert(OU1 % 2 == 0, "a robot's two OU slots share a Philox block");
+  constexpr int OU_BLK0 = OU1 / 4, OU_NBLK = (OU2 + 2 * N - 1) / 4 - OU_BLK0 + 1;  // blocks of the OU slots
+  static_assert(OU_NBLK <= kGroup, "one OU Philox block per lane");
+  constexpr int OBS = 4 + 7 * NB + 5 * NY;
+  constexpr int OBS_ROWS = OBS * (EMIT_FINAL ? 2 : 1);
+  constexpr int IN_ROWS = S + 2 + (RNG_KERNEL ? 0 : 2 * N);  // state, action, OU normals
+  constexpr int OUT_ROWS = S + OBS_ROWS + 9;                  // state, obs, aux
+  constexpr int TILE_FLOATS = (IN_ROWS > OUT_ROWS ? IN_ROWS : OUT_ROWS) * kTileStride;
+  constexpr int XCHG_FLOATS = kEnvsPerBlock * L::kSlots * 4;
+  // the row tile (before and after the substeps) and the groups' exchange
+  // slots (during them) share one buffer
+  __shared__ float4 buf[((TILE_FLOATS > XCHG_FLOATS ? TILE_FLOATS : XCHG_FLOATS) + 3) / 4];
+  __shared__ int4 desc[2 * kGroup];
+  float* tile = reinterpret_cast<float*>(buf);
 
-  // ---- noise: OU normals (wheel-major rows) and reset headings
-  float ou_n[2 * N], th_u[N];
+  const int k = threadIdx.x % kGroup;  // lane in the env's group
+  const int e = threadIdx.x / kGroup;  // env in the block
+  const int b0 = blockIdx.x * kEnvsPerBlock;
+  const int b = b0 + e;
+  const bool live = b < B;  // lanes past B take part in every exchange, store nothing
+  const int rr = k < N ? k : 0;  // lanes past the robots carry robot 0
+  float4* grp = buf + e * L::kSlots;
+#define T(row) tile[(row) * kTileStride + e]
+
+  // ---- stage in
+  load_rows<S>(tile, 0, st, b0, B);
+  load_rows<2>(tile, S, act, b0, B);
+  if constexpr (!RNG_KERNEL) load_rows<2 * N>(tile, S + 2, ou_in, b0, B);
+  if (threadIdx.x < 2 * kGroup) desc[threadIdx.x] = pair_desc<N>(threadIdx.x);
+  __syncthreads();
+
+  VssRobot r;
+  r.x = T(6 + rr);
+  r.y = T(6 + N + rr);
+  r.th = T(6 + 2 * N + rr);
+  r.vx = T(6 + 3 * N + rr);
+  r.vy = T(6 + 4 * N + rr);
+  r.w = T(6 + 5 * N + rr);
+  VssBall ball{T(0), T(1), T(2), T(3), T(4), T(5)};
+  const float steps = T(6 + 6 * N);
+  float ou0 = T(7 + 6 * N + rr), ou1 = T(7 + 7 * N + rr);  // wheel 0, wheel 1
+  const float ball_pot = T(7 + 8 * N);
+  const float has_pot = T(8 + 8 * N);
+  float shaping[6];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) shaping[q] = T(9 + 8 * N + q);
+  const float a0 = T(S), a1 = T(S + 1);
+  float n0, n1;  // OU normals of this robot's two wheels
+  if constexpr (!RNG_KERNEL) {
+    n0 = T(S + 2 + rr);
+    n1 = T(S + 2 + N + rr);
+  }
+  __syncthreads();  // the buffer now takes the groups' exchange slots
+
+  // ---- in-kernel OU normals.  The env's OU slots span OU_NBLK Philox
+  // blocks: lane m draws block OU_BLK0 + m and posts it to the group.
   PhiloxKey pk{};
   if constexpr (RNG_KERNEL) {
     pk = philox_load_key(key);
-    // slots after the spawn block: theta (N), OU u1 (2N), OU u2 (2N)
-    float tail[5 * N];
-    philox_uniforms<5 * N>(pk, (uint32_t)b, NSP / 4, tail);
-#pragma unroll
-    for (int r = 0; r < N; ++r) th_u[r] = tail[r];
-#pragma unroll
-    for (int r = 0; r < N; ++r)
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        const int i = 2 * r + w;  // normal index in the (N, 2) OU block
-        ou_n[w * N + r] = box_muller(tail[N + i], tail[3 * N + i]);
-      }
-  } else {
-#pragma unroll
-    for (int r = 0; r < 2 * N; ++r) ou_n[r] = LD(ou_in, r);
-#pragma unroll
-    for (int r = 0; r < N; ++r) th_u[r] = LD(th_in, r);
+    uint4* words = reinterpret_cast<uint4*>(grp);
+    if (k < OU_NBLK) words[k] = philox_block(pk, (uint32_t)b, (uint32_t)(OU_BLK0 + k));
+    __syncwarp();
+    const int s1 = OU1 + 2 * rr, s2 = OU2 + 2 * rr;  // wheel w at s1 + w, s2 + w
+    const uint4 w1 = words[s1 / 4 - OU_BLK0];
+    const uint4 w2 = words[s2 / 4 - OU_BLK0];
+    n0 = box_muller(philox_uniform(word_of(w1, s1 % 4)), philox_uniform(word_of(w2, s2 % 4)));
+    n1 = box_muller(philox_uniform(word_of(w1, s1 % 4 + 1)), philox_uniform(word_of(w2, s2 % 4 + 1)));
+    __syncwarp();  // the substeps overwrite the slots next
   }
-
-  // ---- state
-  float bx = LD(st, 0), by = LD(st, 1), bz = LD(st, 2);
-  float bvx = LD(st, 3), bvy = LD(st, 4), bvz = LD(st, 5);
-  float x[N], y[N], th[N], vx[N], vy[N], w[N], ou[2 * N], shaping[6];
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    x[r] = LD(st, 6 + r);
-    y[r] = LD(st, 6 + N + r);
-    th[r] = LD(st, 6 + 2 * N + r);
-    vx[r] = LD(st, 6 + 3 * N + r);
-    vy[r] = LD(st, 6 + 4 * N + r);
-    w[r] = LD(st, 6 + 5 * N + r);
-  }
-  const float steps = LD(st, 6 + 6 * N);
-#pragma unroll
-  for (int r = 0; r < 2 * N; ++r) ou[r] = LD(st, 7 + 6 * N + r);
-  const float ball_pot = LD(st, 7 + 8 * N);
-  const float has_pot = LD(st, 8 + 8 * N);
-#pragma unroll
-  for (int k = 0; k < 6; ++k) shaping[k] = LD(st, 9 + 8 * N + k);
 
   // ---- OU update (envs/ou.ou_update: mu = 0, sigma = 0.5)
-#pragma unroll
-  for (int r = 0; r < 2 * N; ++r) ou[r] = ou[r] + p.ou_theta * (0.0f - ou[r]) * p.dt + p.ou_sig_sqdt * ou_n[r];
+  ou0 = ou0 + p.ou_theta * (0.0f - ou0) * p.dt + p.ou_sig_sqdt * n0;
+  ou1 = ou1 + p.ou_theta * (0.0f - ou1) * p.dt + p.ou_sig_sqdt * n1;
 
   // ---- actions -> wheels: the agent's action replaces robot 0's OU rows
-  float wl[N], wr[N], v_tgt[N], w_tgt[N];
-  wl[0] = to_wheel(LD(act, 0), p);
-  wr[0] = to_wheel(LD(act, 1), p);
-#pragma unroll
-  for (int r = 1; r < N; ++r) {
-    wl[r] = to_wheel(ou[r], p);
-    wr[r] = to_wheel(ou[N + r], p);
-  }
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    const float l = clampf(wl[r], -p.max_wheel, p.max_wheel);
-    const float rr = clampf(wr[r], -p.max_wheel, p.max_wheel);
-    v_tgt[r] = p.wheel_r * (l + rr) / 2.0f;
-    w_tgt[r] = p.wheel_r * (rr - l) / p.two_half_axle;
+  const float wl0 = to_wheel(a0, p), wr0 = to_wheel(a1, p);
+  {
+    const float l = clampf(k == 0 ? wl0 : to_wheel(ou0, p), -p.max_wheel, p.max_wheel);
+    const float rw = clampf(k == 0 ? wr0 : to_wheel(ou1, p), -p.max_wheel, p.max_wheel);
+    r.v_tgt = p.wheel_r * (l + rw) / 2.0f;
+    r.w_tgt = p.wheel_r * (rw - l) / p.two_half_axle;
   }
 
   // ---- physics substeps; cos/sin of the heading carried across substeps
-  float cos_t[N], sin_t[N];
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    cos_t[r] = cosf(th[r]);
-    sin_t[r] = sinf(th[r]);
-  }
+  r.c = cosf(r.th);
+  r.s = sinf(r.th);
 #pragma unroll 1  // kept rolled: the unrolled body would be 5x the code
-  for (int sub = 0; sub < kSubsteps; ++sub) {
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      float u = vx[r] * cos_t[r] + vy[r] * sin_t[r];
-      float s = -vx[r] * sin_t[r] + vy[r] * cos_t[r];
-      u = u + clampf(v_tgt[r] - u, -p.a_lin, p.a_lin);
-      s = s * p.lat_keep;
-      w[r] = w[r] + clampf(w_tgt[r] - w[r], -p.a_ang, p.a_ang);
-      const float dth = w[r] * p.dts;
-      th[r] = wrap_angle(th[r] + dth, p);
-      // rotate (cos, sin) by dth: |dth| <= w_max * dts <= 0.35 (checked by
-      // the wrapper), where the degree-7/6 Taylor terms are exact to far
-      // below f32 resolution — no transcendental in the substep loop
-      const float dd = dth * dth;
-      const float sin_d =
-          dth * (1.0f + dd * ((float)(-1.0 / 6.0) + dd * ((float)(1.0 / 120.0) - dd / 5040.0f)));
-      const float cos_d = 1.0f + dd * (-0.5f + dd * ((float)(1.0 / 24.0) - dd / 720.0f));
-      const float cos_n = cos_t[r] * cos_d - sin_t[r] * sin_d;
-      sin_t[r] = sin_t[r] * cos_d + cos_t[r] * sin_d;
-      cos_t[r] = cos_n;
-      vx[r] = u * cos_t[r] - s * sin_t[r];
-      vy[r] = u * sin_t[r] + s * cos_t[r];
-      x[r] = x[r] + vx[r] * p.dts;
-      y[r] = y[r] + vy[r] * p.dts;
-    }
+  for (int sub = 0; sub < kSubsteps; ++sub) vss_substep<TaylorRsqrt, N>(p, k, grp, desc, r, ball);
+  __syncthreads();  // the buffer now takes the output rows
 
-    resolve_pair_collisions<N>(x, y, vx, vy, p.two_r, p.pair_gain);
-
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      vx[r] = (fabsf(x[r]) > p.xl && vx[r] * signf(x[r]) > 0.0f) ? 0.0f : vx[r];
-      vy[r] = (fabsf(y[r]) > p.yl && vy[r] * signf(y[r]) > 0.0f) ? 0.0f : vy[r];
-      x[r] = clampf(x[r], -p.xl, p.xl);
-      y[r] = clampf(y[r], -p.yl, p.yl);
-    }
-
-    // ball: rolling friction while grounded, vertical axis, then contacts
-    const bool on_ground = bz <= p.ground_z;
-    const float inv_speed = rsqrtf(bvx * bvx + bvy * bvy + 1e-16f);
-    const float scale = fmaxf(0.0f, 1.0f - p.fric * inv_speed);
-    if (on_ground) {
-      bvx = bvx * scale;
-      bvy = bvy * scale;
-    }
-    bvz = bvz - p.gravity_dts;
-    bz = bz + bvz * p.dts;
-    const bool hit_floor = bz < p.r_ball;
-    if (hit_floor && bvz < 0.0f) bvz = p.neg_rest_ground * bvz;
-    if (hit_floor && bvz < p.bounce_min_v) bvz = 0.0f;
-    if (hit_floor) bz = p.r_ball;
-    bx = bx + bvx * p.dts;
-    by = by + bvy * p.dts;
-
-    const bool below_top = (bz - p.r_ball) < p.rbt_height;
-    float push_x = 0.0f, push_y = 0.0f, imp_x = 0.0f, imp_y = 0.0f;
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      const float dx = bx - x[r];
-      const float dy = by - y[r];
-      const float d2 = fmaxf(dx * dx + dy * dy, 1e-16f);
-      const float inv_d = rsqrtf(d2);
-      const float overlap = p.r_sum - d2 * inv_d;
-      const bool col = overlap > 0.0f && below_top;
-      const float nx = dx * inv_d, ny = dy * inv_d;
-      push_x += (col ? overlap : 0.0f) * nx;
-      push_y += (col ? overlap : 0.0f) * ny;
-      const float vn = (bvx - vx[r]) * nx + (bvy - vy[r]) * ny;
-      const float j = (col && vn < 0.0f) ? p.ball_gain * vn : 0.0f;
-      imp_x += j * nx;
-      imp_y += j * ny;
-    }
-    bx = bx + push_x;
-    by = by + push_y;
-    bvx = bvx + imp_x;
-    bvy = bvy + imp_y;
-
-    // walls, with goal pockets behind the end lines
-    const bool in_mouth = fabsf(by) < p.goal_half;
-    const float x_wall = (in_mouth ? p.hl_goal : p.half_len) - p.r_ball;
-    const float sx = signf(bx);
-    const bool hit_x = fabsf(bx) > x_wall;
-    if (hit_x) bx = sx * x_wall;
-    if (hit_x && bvx * sx > 0.0f) bvx = p.neg_rest_wall * bvx;
-    const bool in_pocket = fabsf(bx) > p.half_len;
-    const float y_wall = (in_pocket ? p.goal_half : p.half_wid) - p.r_ball;
-    const float sy = signf(by);
-    const bool hit_y = fabsf(by) > y_wall;
-    if (hit_y) by = sy * y_wall;
-    if (hit_y && bvy * sy > 0.0f) bvy = p.neg_rest_wall * bvy;
-  }
-
-  // ---- reward & termination cascade (envs/vss.post_physics)
+  // ---- reward & termination cascade (envs/vss.post_physics), every lane
+  const float x0 = __shfl_sync(kFullMask, r.x, 0, kGroup), y0 = __shfl_sync(kFullMask, r.y, 0, kGroup);
+  const float vx0 = __shfl_sync(kFullMask, r.vx, 0, kGroup), vy0 = __shfl_sync(kFullMask, r.vy, 0, kGroup);
+  const float bx = ball.x, by = ball.y;
   const bool goal_blue = bx > p.half_len;
   const bool goal_yellow = bx < -p.half_len;
   const bool goal = goal_blue || goal_yellow;
@@ -269,12 +201,12 @@ __global__ void __launch_bounds__(kThreads)
   const float potential = ((dist_1 + dist_2) / p.length100 - 1.0f) / 2.0f;
   const float grad = has_pot > 0.5f ? clampf((potential - ball_pot) * 3.0f / p.dt, -5.0f, 5.0f) : 0.0f;
 
-  float rbx = bx - x[0], rby = by - y[0];
+  float rbx = bx - x0, rby = by - y0;
   const float inv_rb = rsqrtf(fmaxf(rbx * rbx + rby * rby, 1e-16f));
   rbx = rbx * inv_rb;
   rby = rby * inv_rb;
-  const float move = clampf((rbx * vx[0] + rby * vy[0]) / 0.4f, -5.0f, 5.0f);
-  const float energy = -(fabsf(wl[0]) + fabsf(wr[0]));
+  const float move = clampf((rbx * vx0 + rby * vy0) / 0.4f, -5.0f, 5.0f);
+  const float energy = -(fabsf(wl0) + fabsf(wr0));
   const float shaped = 0.2f * move + 0.8f * grad + 2e-4f * energy;
   const float reward = goal_blue ? 10.0f : (goal_yellow ? -10.0f : shaped);
 
@@ -293,47 +225,53 @@ __global__ void __launch_bounds__(kThreads)
   auto npos = [&](float v) { return clampf(v / p.max_pos, -p.nbnd, p.nbnd); };
   auto nv = [&](float v) { return clampf(v / p.max_v, -p.nbnd, p.nbnd); };
   auto nw = [&](float v) { return clampf(v / p.max_w_rad, -p.nbnd, p.nbnd); };
-  const int obs_size = 4 + 7 * NB + 5 * NY;
+  // this robot's obs rows (from tile row `base`), then the ball's
+  auto robot_obs = [&](int base, float sn, float cs) {
+    int row = base + 4 + (k < NB ? 7 * k : 7 * NB + 5 * (k - NB));
+    T(row++) = npos(r.x);
+    T(row++) = npos(r.y);
+    if (k < NB) {
+      T(row++) = sn;
+      T(row++) = cs;
+    }
+    T(row++) = nv(r.vx);
+    T(row++) = nv(r.vy);
+    T(row++) = nw(r.w);
+  };
+  auto ball_obs = [&](int base) {
+    T(base + 0) = npos(ball.x);
+    T(base + 1) = npos(ball.y);
+    T(base + 2) = nv(ball.vx);
+    T(base + 3) = nv(ball.vy);
+  };
 
   // final (pre-reset) observation; heading trig from the substep carry
   if constexpr (EMIT_FINAL) {
-    int o = obs_size;
-    LD(obs_out, o++) = npos(bx);
-    LD(obs_out, o++) = npos(by);
-    LD(obs_out, o++) = nv(bvx);
-    LD(obs_out, o++) = nv(bvy);
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      LD(obs_out, o++) = npos(x[r]);
-      LD(obs_out, o++) = npos(y[r]);
-      if (r < NB) {
-        LD(obs_out, o++) = sin_t[r];
-        LD(obs_out, o++) = cos_t[r];
-      }
-      LD(obs_out, o++) = nv(vx[r]);
-      LD(obs_out, o++) = nv(vy[r]);
-      LD(obs_out, o++) = nw(w[r]);
-    }
+    if (k < N) robot_obs(S + OBS, r.s, r.c);
+    else if (k == N) ball_obs(S + OBS);
   }
 
-  // ---- spawn placement (envs/spawn.place_separated, first valid)
-  float px[1 + N], py[1 + N];
+  // ---- done envs only: spawn placement (envs/spawn.place_separated, first
+  // valid) and the reset headings; then the auto-reset select
+  const bool reset = done && live;
+  const unsigned reset_mask = __ballot_sync(kFullMask, reset);
+  if (reset) {
+    float th_u;
+    if constexpr (RNG_KERNEL) th_u = slot_uniform(pk, (uint32_t)b, NSP + rr);
+    else th_u = th_in[(size_t)rr * B + b];
+    float px[1 + N], py[1 + N];
 #pragma unroll
-  for (int i = 0; i < 1 + N; ++i) {
-    float u[2 * K];
-    if constexpr (RNG_KERNEL) {
-      philox_uniforms<2 * K>(pk, (uint32_t)b, (uint32_t)(i * 2 * K / 4), u);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 2 * K; ++k) u[k] = LD(sp_in, i * 2 * K + k);
-    }
-    float sel_x = p.x_lo + u[0] * p.x_span;
-    float sel_y = p.y_lo + u[K] * p.y_span;
-    bool found = false;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float cx = p.x_lo + u[k] * p.x_span;
-      const float cy = p.y_lo + u[K + k] * p.y_span;
+    for (int i = 0; i < 1 + N; ++i) {
+      float ux, uy;  // candidate k's uniforms: slots i*2K + k and i*2K + K + k
+      if constexpr (RNG_KERNEL) {
+        ux = slot_uniform(pk, (uint32_t)b, i * 2 * K + k);
+        uy = slot_uniform(pk, (uint32_t)b, i * 2 * K + K + k);
+      } else {
+        ux = sp_in[(size_t)(i * 2 * K + k) * B + b];
+        uy = sp_in[(size_t)(i * 2 * K + K + k) * B + b];
+      }
+      const float cx = p.x_lo + ux * p.x_span;
+      const float cy = p.y_lo + uy * p.y_span;
       bool ok = true;
 #pragma unroll
       for (int q = 0; q < i; ++q) {
@@ -341,88 +279,71 @@ __global__ void __launch_bounds__(kThreads)
         const float ddy = cy - py[q];
         ok = ok && (ddx * ddx + ddy * ddy) >= p.min_d2;
       }
-      if (ok && !found) {
-        sel_x = cx;
-        sel_y = cy;
-        found = true;
+      const unsigned valid = (__ballot_sync(reset_mask, ok) >> (threadIdx.x & 24u)) & 0xffu;
+      const int first = valid ? __ffs(valid) - 1 : 0;  // none valid: candidate 0
+      px[i] = __shfl_sync(reset_mask, cx, first, kGroup);
+      py[i] = __shfl_sync(reset_mask, cy, first, kGroup);
+    }
+    ball = VssBall{px[0], py[0], p.r_ball, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < N; ++i) {  // robot rr's point: a select, not an indexed (local-memory) load
+      if (i == rr) {
+        r.x = px[1 + i];
+        r.y = py[1 + i];
       }
     }
-    px[i] = sel_x;
-    py[i] = sel_y;
+    r.th = th_u * p.two_pi;
+    r.vx = r.vy = r.w = 0.0f;
   }
 
-  // ---- auto-reset select: done lanes take the freshly spawned world
-  if (done) {
-    bx = px[0];
-    by = py[0];
-    bz = p.r_ball;
-    bvx = bvy = bvz = 0.0f;
+  // ---- outputs into the tile: robot lanes their rows, lane N the ball's,
+  // lane N + 1 the env's scalars and aux rows
+  if (k < N) {
+    T(6 + k) = r.x;
+    T(6 + N + k) = r.y;
+    T(6 + 2 * N + k) = r.th;
+    T(6 + 3 * N + k) = r.vx;
+    T(6 + 4 * N + k) = r.vy;
+    T(6 + 5 * N + k) = r.w;
+    T(7 + 6 * N + k) = done ? 0.0f : ou0;
+    T(7 + 7 * N + k) = done ? 0.0f : ou1;
+    robot_obs(S, sinf(r.th), cosf(r.th));
+  } else if (k == N) {
+    T(0) = ball.x;
+    T(1) = ball.y;
+    T(2) = ball.z;
+    T(3) = ball.vx;
+    T(4) = ball.vy;
+    T(5) = ball.vz;
+    ball_obs(S);
+  } else if (k == N + 1) {
+    T(6 + 6 * N) = done ? 0.0f : steps_new;
+    T(7 + 8 * N) = done ? 0.0f : potential;
+    T(8 + 8 * N) = done ? 0.0f : 1.0f;
+    const int a = S + OBS_ROWS;
+    T(a + 0) = reward;
+    T(a + 1) = goal ? 1.0f : 0.0f;
+    T(a + 2) = trunc ? 1.0f : 0.0f;
 #pragma unroll
-    for (int r = 0; r < N; ++r) {
-      x[r] = px[1 + r];
-      y[r] = py[1 + r];
-      th[r] = th_u[r] * p.two_pi;
-      vx[r] = vy[r] = w[r] = 0.0f;
+    for (int q = 0; q < 6; ++q) {
+      T(9 + 8 * N + q) = done ? 0.0f : shaping_new[q];
+      T(a + 3 + q) = shaping_new[q];
     }
   }
+#undef T
+  __syncthreads();
 
-  // ---- outputs
-  LD(st_out, 0) = bx;
-  LD(st_out, 1) = by;
-  LD(st_out, 2) = bz;
-  LD(st_out, 3) = bvx;
-  LD(st_out, 4) = bvy;
-  LD(st_out, 5) = bvz;
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    LD(st_out, 6 + r) = x[r];
-    LD(st_out, 6 + N + r) = y[r];
-    LD(st_out, 6 + 2 * N + r) = th[r];
-    LD(st_out, 6 + 3 * N + r) = vx[r];
-    LD(st_out, 6 + 4 * N + r) = vy[r];
-    LD(st_out, 6 + 5 * N + r) = w[r];
-  }
-  LD(st_out, 6 + 6 * N) = done ? 0.0f : steps_new;
-#pragma unroll
-  for (int r = 0; r < 2 * N; ++r) LD(st_out, 7 + 6 * N + r) = done ? 0.0f : ou[r];
-  LD(st_out, 7 + 8 * N) = done ? 0.0f : potential;
-  LD(st_out, 8 + 8 * N) = done ? 0.0f : 1.0f;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) LD(st_out, 9 + 8 * N + k) = done ? 0.0f : shaping_new[k];
-
-  {
-    int o = 0;
-    LD(obs_out, o++) = npos(bx);
-    LD(obs_out, o++) = npos(by);
-    LD(obs_out, o++) = nv(bvx);
-    LD(obs_out, o++) = nv(bvy);
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      LD(obs_out, o++) = npos(x[r]);
-      LD(obs_out, o++) = npos(y[r]);
-      if (r < NB) {
-        LD(obs_out, o++) = sinf(th[r]);
-        LD(obs_out, o++) = cosf(th[r]);
-      }
-      LD(obs_out, o++) = nv(vx[r]);
-      LD(obs_out, o++) = nv(vy[r]);
-      LD(obs_out, o++) = nw(w[r]);
-    }
-  }
-
-  LD(aux_out, 0) = reward;
-  LD(aux_out, 1) = goal ? 1.0f : 0.0f;
-  LD(aux_out, 2) = trunc ? 1.0f : 0.0f;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) LD(aux_out, 3 + k) = shaping_new[k];
-#undef LD
+  // ---- stage out
+  store_rows<S>(tile, 0, st_out, b0, B);
+  store_rows<OBS_ROWS>(tile, S, obs_out, b0, B);
+  store_rows<9>(tile, S + OBS_ROWS, aux_out, b0, B);
 }
 
 template <int NB, int NY>
 cudaError_t launch(int emit_final, int rng_kernel, const VssParams& p, const float* st, const float* act,
                    const float* ou, const float* sp, const float* th, const long long* key, float* st_out,
                    float* obs_out, float* aux_out, int B, cudaStream_t stream) {
-  const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
+  const dim3 grid((B + kEnvsPerBlock - 1) / kEnvsPerBlock), block(kThreads);
 #define VSS_LAUNCH(EF, RK) \
   vss_full_kernel<NB, NY, EF, RK><<<grid, block, 0, stream>>>(p, st, act, ou, sp, th, key, st_out, obs_out, aux_out, B)
   if (emit_final && rng_kernel) VSS_LAUNCH(true, true);

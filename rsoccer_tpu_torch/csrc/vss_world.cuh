@@ -1,0 +1,346 @@
+// One VSS world substep run cooperatively by a group of kGroup = 8 lanes
+// per env: the substep of the fused VSS step (vss_full.cu, K1) and of the
+// physics-only kernel (vss_physics.cu, K2).
+//
+// Layout: the env of a group runs on 8 consecutive lanes of a warp (4 envs
+// per warp).  Lane k < N owns robot k (lanes k >= N carry a copy of robot
+// 0 that nothing reads) and evaluates pairs k and k + 8 of the N(N-1)/2
+// robot pairs (lexicographic over i < j; 15 for N = 6).  Every lane carries
+// the ball and updates it with the same operations on the same values, so
+// the ball needs no broadcast.  The group exchanges values through its
+// slots in shared memory, between __syncwarp()s.  A substep:
+//   1. every lane drives, turns and integrates its robot and posts the
+//      robot's (x, y, v_x, v_y); every lane applies the ball's rolling
+//      friction, vertical axis and integration (before its contacts the
+//      ball does not depend on the robots);
+//   2. each pair's terms are computed once, from the posted pre-pass values
+//      and from the lower robot's side, and posted into the two robots'
+//      partner slots: as they are for robot i, negated for robot j;
+//   3. robot k adds its partner slots 0..N-2 (partners 0..N-1 without
+//      itself) in order, then clamps against the walls;
+//   4. robot k posts its ball-contact term; every lane sums the N terms in
+//      robot order and applies the ball walls with goal pockets.
+//
+// Why the results are the one-thread-per-env kernels' to the bit: each
+// pair's terms are computed as there, once and from the lower robot's
+// side; robot k's corrections are added in the order of the pair-list pass
+// (pair_collide.cuh) and of the dense N x N row sums, which both visit
+// robot k's partners 0..N-1 in order; adding a negated term rounds as
+// subtracting it.  (The dense sums compute robot k's row from its own side,
+// x_k - x_q; IEEE subtraction and division are sign-symmetric, so those
+// terms are the exact negations: tests/test_torch_vss_pair_order.py.)
+//
+// Numerics are a compile-time policy:
+//   TaylorRsqrt (K1): the TPU kernel's reduced-range Taylor rotation of a
+//     carried (cos, sin) and rsqrt normals; pair terms added straight into
+//     x, y, v_x, v_y (pair_collide.cuh's form).
+//   ExactTrig (K2): physics/vss.py's sinf/cosf of the wrapped heading,
+//     sqrtf and true division; pair terms summed, then added (the dense
+//     row sums' form).
+// Both build with --fmad=false and no fast math (ops/_build.py).
+#pragma once
+#include <cuda_runtime.h>
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kGroup = 8;          // lanes per env
+constexpr int kEnvsPerBlock = 32;  // a block's envs: one 128-byte segment of each row
+constexpr int kThreads = kEnvsPerBlock * kGroup;
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) { return fminf(fmaxf(v, lo), hi); }
+
+// torch.sign / jnp.sign: 0 at 0
+__device__ __forceinline__ float signf(float v) { return (float)(v > 0.0f) - (float)(v < 0.0f); }
+
+// torch.remainder(t + pi, 2 pi) - pi: fmodf takes the dividend's sign, so a
+// negative remainder moves up by one period (floor-mod)
+template <class P>
+__device__ __forceinline__ float wrap_angle(float t, const P& p) {
+  float r = t + p.pi;
+  if (!(r >= 0.0f && r < p.two_pi)) {  // in [0, 2 pi) fmodf returns r itself
+    r = fmodf(r, p.two_pi);
+    if (r != 0.0f && r < 0.0f) r += p.two_pi;
+  }
+  return r - p.pi;
+}
+
+__device__ __forceinline__ float4 neg4(float4 v) { return make_float4(-v.x, -v.y, -v.z, -v.w); }
+
+struct VssRobot {
+  float x, y, th, vx, vy, w;
+  float c, s;          // cos, sin of th, carried across substeps
+  float v_tgt, w_tgt;  // the step's drive targets
+};
+
+struct VssBall {
+  float x, y, z, vx, vy, vz;
+};
+
+template <int N>
+struct VssLayout {
+  static constexpr int kPairs = N * (N - 1) / 2;
+  static constexpr int kPairsPerLane = (kPairs + kGroup - 1) / kGroup;
+  static_assert(N <= kGroup && kPairsPerLane == 2, "one robot and two pairs per lane");
+  // a group's float4 slots in shared memory: robot states (8), partner
+  // terms (robot q's partner t at q (N - 1) + t, then 2 slots that the
+  // padding pair writes), contact terms (8)
+  static constexpr int kXs = 0, kPt = kGroup, kCt = kPt + N * (N - 1) + 2, kSlots = kCt + kGroup;
+};
+
+// Pair p's (i, j, i's slot, j's slot), p < 2 kGroup; a padding pair reads
+// robots 0, 1 and writes the two spare slots.
+template <int N>
+__device__ __forceinline__ int4 pair_desc(int p) {
+  int4 d = make_int4(0, 1, N * (N - 1), N * (N - 1) + 1);
+#pragma unroll
+  for (int i = 0, q = 0; i < N; ++i)
+#pragma unroll
+    for (int j = i + 1; j < N; ++j, ++q)
+      if (q == p) d = make_int4(i, j, i * (N - 1) + (j - 1), j * (N - 1) + i);
+  return d;
+}
+
+struct TaylorRsqrt {
+  static constexpr bool kSumThenAdd = false;  // pair terms straight into x (pair_collide.cuh)
+
+  // |w * dts| <= 0.35 (the wrapper checks): the degree-7/6 Taylor terms are
+  // exact far below f32 resolution, and no transcendental runs per substep
+  template <class P>
+  static __device__ __forceinline__ void turn(const P& p, VssRobot& r) {
+    const float dth = r.w * p.dts;
+    r.th = wrap_angle(r.th + dth, p);
+    const float dd = dth * dth;
+    const float sin_d = dth * (1.0f + dd * ((float)(-1.0 / 6.0) + dd * ((float)(1.0 / 120.0) - dd / 5040.0f)));
+    const float cos_d = 1.0f + dd * (-0.5f + dd * ((float)(1.0 / 24.0) - dd / 720.0f));
+    const float cos_n = r.c * cos_d - r.s * sin_d;
+    r.s = r.s * cos_d + r.c * sin_d;
+    r.c = cos_n;
+  }
+
+  template <class P>
+  static __device__ __forceinline__ float friction_scale(const P& p, float bvx, float bvy) {
+    const float inv_speed = rsqrtf(bvx * bvx + bvy * bvy + 1e-16f);
+    return fmaxf(0.0f, 1.0f - p.fric * inv_speed);
+  }
+
+  // overlap with the ball and the unit normal robot -> ball
+  template <class P>
+  static __device__ __forceinline__ void contact(const P& p, float dx, float dy, float& overlap, float& nx,
+                                                 float& ny) {
+    const float d2 = fmaxf(dx * dx + dy * dy, 1e-16f);
+    const float inv_d = rsqrtf(d2);
+    overlap = p.r_sum - d2 * inv_d;
+    nx = dx * inv_d;
+    ny = dy * inv_d;
+  }
+
+  // the terms robot i adds for pair (i, j): position x, y, velocity x, y
+  template <class P>
+  static __device__ __forceinline__ float4 pair_term(const P& p, float4 a, float4 b) {
+    const float dx = a.x - b.x;
+    const float dy = a.y - b.y;
+    const float d2 = fmaxf(dx * dx + dy * dy, 1e-16f);
+    const float inv_d = rsqrtf(d2);
+    const float overlap = p.two_r - d2 * inv_d;
+    const bool col = overlap > 0.0f;
+    const float f = (col ? 0.5f * overlap : 0.0f) * inv_d;
+    const float rvx = a.z - b.z, rvy = a.w - b.w;
+    const float vn = rvx * dx + rvy * dy;  // (v_rel . n) * d
+    const float g = ((col && vn < 0.0f) ? p.pair_gain * vn : 0.0f) * (inv_d * inv_d);
+    return make_float4(f * dx, f * dy, g * dx, g * dy);
+  }
+};
+
+struct ExactTrig {
+  static constexpr bool kSumThenAdd = true;  // pair terms summed, then added (the dense row sums)
+
+  template <class P>
+  static __device__ __forceinline__ void turn(const P& p, VssRobot& r) {
+    r.th = wrap_angle(r.th + r.w * p.dts, p);
+    r.c = cosf(r.th);
+    r.s = sinf(r.th);
+  }
+
+  template <class P>
+  static __device__ __forceinline__ float friction_scale(const P& p, float bvx, float bvy) {
+    const float speed = sqrtf(bvx * bvx + bvy * bvy + 1e-16f);
+    return fmaxf(1.0f - p.fric / speed, 0.0f);
+  }
+
+  template <class P>
+  static __device__ __forceinline__ void contact(const P& p, float dx, float dy, float& overlap, float& nx,
+                                                 float& ny) {
+    const float d = sqrtf(fmaxf(dx * dx + dy * dy, 1e-16f));
+    overlap = p.r_sum - d;
+    nx = dx / fmaxf(d, 1e-8f);
+    ny = dy / fmaxf(d, 1e-8f);
+  }
+
+  template <class P>
+  static __device__ __forceinline__ float4 pair_term(const P& p, float4 a, float4 b) {
+    const float dx = a.x - b.x;
+    const float dy = a.y - b.y;
+    const float d = sqrtf(fmaxf(dx * dx + dy * dy, 1e-16f));
+    const float overlap = p.two_r - d;
+    const bool col = overlap > 0.0f;
+    const float nx = dx / fmaxf(d, 1e-8f);
+    const float ny = dy / fmaxf(d, 1e-8f);
+    const float push = col ? 0.5f * overlap : 0.0f;
+    const float vn = (a.z - b.z) * nx + (a.w - b.w) * ny;
+    const float imp = (col && vn < 0.0f) ? p.pair_gain * vn : 0.0f;
+    return make_float4(push * nx, push * ny, imp * nx, imp * ny);
+  }
+};
+
+// One substep of the env on this lane's group: k is the lane in the group,
+// grp the group's VssLayout::kSlots slots, desc the block's pair table
+// (pair_desc, one int4 per pair).  Called by every lane of the warp (it
+// synchronises the warp).
+template <class Pol, int N, class P>
+__device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, const int4* desc, VssRobot& r,
+                                            VssBall& b) {
+  using L = VssLayout<N>;
+  float4* xs = grp + L::kXs;
+  float4* pt = grp + L::kPt;
+  float4* ct = grp + L::kCt;
+
+  // ---- 1. drive (c, s: the heading trig carried from the last substep)
+  float u = r.vx * r.c + r.vy * r.s;
+  float sl = -r.vx * r.s + r.vy * r.c;
+  u = u + clampf(r.v_tgt - u, -p.a_lin, p.a_lin);
+  sl = sl * p.lat_keep;
+  r.w = r.w + clampf(r.w_tgt - r.w, -p.a_ang, p.a_ang);
+  Pol::turn(p, r);
+  r.vx = u * r.c - sl * r.s;
+  r.vy = u * r.s + sl * r.c;
+  r.x = r.x + r.vx * p.dts;
+  r.y = r.y + r.vy * p.dts;
+  xs[k] = make_float4(r.x, r.y, r.vx, r.vy);
+
+  // ---- the ball: rolling friction while grounded, vertical axis, integrate
+  const bool on_ground = b.z <= p.ground_z;
+  const float scale = Pol::friction_scale(p, b.vx, b.vy);
+  if (on_ground) {
+    b.vx = b.vx * scale;
+    b.vy = b.vy * scale;
+  }
+  b.vz = b.vz - p.gravity_dts;
+  b.z = b.z + b.vz * p.dts;
+  const bool hit_floor = b.z < p.r_ball;
+  if (hit_floor && b.vz < 0.0f) b.vz = p.neg_rest_ground * b.vz;
+  if (hit_floor && b.vz < p.bounce_min_v) b.vz = 0.0f;
+  if (hit_floor) b.z = p.r_ball;
+  b.x = b.x + b.vx * p.dts;
+  b.y = b.y + b.vy * p.dts;
+  __syncwarp();
+
+  // ---- 2. this lane's pairs, each once, from the pre-pass values
+#pragma unroll
+  for (int s = 0; s < L::kPairsPerLane; ++s) {
+    const int4 d = desc[s * kGroup + k];
+    const float4 t = Pol::pair_term(p, xs[d.x], xs[d.y]);
+    pt[d.z] = t;
+    pt[d.w] = neg4(t);
+  }
+  __syncwarp();
+
+  // ---- 3. robot k's partner terms in partner order; the walls
+  {
+    const float4* terms = pt + (k < N ? k : 0) * (N - 1);
+    float dpx = 0.0f, dpy = 0.0f, dvx = 0.0f, dvy = 0.0f;
+#pragma unroll
+    for (int t = 0; t < N - 1; ++t) {
+      const float4 v = terms[t];
+      if constexpr (Pol::kSumThenAdd) {
+        dpx = dpx + v.x;
+        dpy = dpy + v.y;
+        dvx = dvx + v.z;
+        dvy = dvy + v.w;
+      } else {
+        r.x = r.x + v.x;
+        r.y = r.y + v.y;
+        r.vx = r.vx + v.z;
+        r.vy = r.vy + v.w;
+      }
+    }
+    if constexpr (Pol::kSumThenAdd) {
+      r.x = r.x + dpx;
+      r.y = r.y + dpy;
+      r.vx = r.vx + dvx;
+      r.vy = r.vy + dvy;
+    }
+  }
+  // robots clamp dead against the walls
+  r.vx = (fabsf(r.x) > p.xl && r.vx * signf(r.x) > 0.0f) ? 0.0f : r.vx;
+  r.vy = (fabsf(r.y) > p.yl && r.vy * signf(r.y) > 0.0f) ? 0.0f : r.vy;
+  r.x = clampf(r.x, -p.xl, p.xl);
+  r.y = clampf(r.y, -p.yl, p.yl);
+
+  // ---- 4. ball vs robots (a ball above the robots' top plate flies over)
+  const bool below_top = (b.z - p.r_ball) < p.rbt_height;
+  {
+    float overlap, nx, ny;
+    Pol::contact(p, b.x - r.x, b.y - r.y, overlap, nx, ny);
+    const bool col = overlap > 0.0f && below_top;
+    const float vn = (b.vx - r.vx) * nx + (b.vy - r.vy) * ny;
+    const float jn = (col && vn < 0.0f) ? p.ball_gain * vn : 0.0f;
+    ct[k] = make_float4((col ? overlap : 0.0f) * nx, (col ? overlap : 0.0f) * ny, jn * nx, jn * ny);
+  }
+  __syncwarp();
+  float push_x = 0.0f, push_y = 0.0f, imp_x = 0.0f, imp_y = 0.0f;
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    const float4 c = ct[q];
+    push_x = push_x + c.x;
+    push_y = push_y + c.y;
+    imp_x = imp_x + c.z;
+    imp_y = imp_y + c.w;
+  }
+  b.x = b.x + push_x;
+  b.y = b.y + push_y;
+  b.vx = b.vx + imp_x;
+  b.vy = b.vy + imp_y;
+
+  // ---- ball walls, with goal pockets behind the end lines
+  const bool in_mouth = fabsf(b.y) < p.goal_half;
+  const float x_wall = (in_mouth ? p.hl_goal : p.half_len) - p.r_ball;
+  const float sx = signf(b.x);
+  const bool hit_x = fabsf(b.x) > x_wall;
+  if (hit_x) b.x = sx * x_wall;
+  if (hit_x && b.vx * sx > 0.0f) b.vx = p.neg_rest_wall * b.vx;
+  const bool in_pocket = fabsf(b.x) > p.half_len;
+  const float y_wall = (in_pocket ? p.goal_half : p.half_wid) - p.r_ball;
+  const float sy = signf(b.y);
+  const bool hit_y = fabsf(b.y) > y_wall;
+  if (hit_y) b.y = sy * y_wall;
+  if (hit_y && b.vy * sy > 0.0f) b.vy = p.neg_rest_wall * b.vy;
+}
+
+// ---- staging: a block's envs pass through shared memory in (row, env)
+// tiles, so each global row of kEnvsPerBlock envs is one coalesced 128-byte
+// access.  A row stride of 36 floats puts a group's 8 lanes, reading rows
+// base + k of 4 neighbouring envs, on 32 distinct banks.
+constexpr int kTileStride = kEnvsPerBlock + 4;
+
+// rows [0, ROWS) of the (rows, B) array `src` for the block's envs into
+// tile rows [row0, row0 + ROWS); envs past B read as 0
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float* tile, int row0, const float* __restrict__ src, int b0, int B) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * kEnvsPerBlock; i += kThreads) {
+    const int row = i / kEnvsPerBlock, e = i % kEnvsPerBlock;
+    const int b = b0 + e;
+    tile[(row0 + row) * kTileStride + e] = b < B ? src[(size_t)row * B + b] : 0.0f;
+  }
+}
+
+// tile rows [row0, row0 + ROWS) into rows [0, ROWS) of `dst`; envs past B
+// are not stored
+template <int ROWS>
+__device__ __forceinline__ void store_rows(const float* tile, int row0, float* __restrict__ dst, int b0, int B) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * kEnvsPerBlock; i += kThreads) {
+    const int row = i / kEnvsPerBlock, e = i % kEnvsPerBlock;
+    const int b = b0 + e;
+    if (b < B) dst[(size_t)row * B + b] = tile[(row0 + row) * kTileStride + e];
+  }
+}

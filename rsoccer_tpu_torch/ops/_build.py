@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # keep each multiply and add rounded as the plain version's separate
-    # ops are (see csrc/vss_full.cu); no --use_fast_math
+    # ops are (see csrc/vss_world.cuh); no --use_fast_math
     "--fmad=false",
     "-Xptxas", "-v",  # registers / spills per kernel, kept in the log
 )

@@ -5,9 +5,11 @@ Port of ``rsoccer_tpu/ops/pair_collide.py``.  The same contact physics as
 split evenly, restitution impulse along the center line), over the
 n(n-1)/2 upper-triangle pairs instead of the dense n x n matrix, applied
 antisymmetrically (x_i += f, x_j -= f).  Its ``__device__`` twin,
-``csrc/pair_collide.cuh``, is inlined in the fused VSS step kernel
-(``csrc/vss_full.cu``); this plain version is what the tests hold against
-the JAX resolver.
+``csrc/pair_collide.cuh``, is inlined in the fused SSL step kernels; the
+fused VSS step evaluates the same terms per robot in partner order
+(``csrc/vss_world.cuh``, held to this pass bit for bit by
+``tests/test_torch_vss_pair_order.py``).  This plain version is what the
+tests hold against the JAX resolver.
 """
 
 from __future__ import annotations

@@ -2,17 +2,19 @@
 
 Replaces the TPU kernel ``rsoccer_tpu/ops/pallas_vss_full.py:142``
 (``make_pallas_vss_full_step``).  The kernel is ``csrc/vss_full.cu`` (with
-``csrc/pair_collide.cuh`` and ``csrc/philox.cuh``), one thread per env: OU
-update -> wheel commands with the deadzone -> 5 physics substeps ->
-reward/termination -> spawn placement -> auto-reset select -> obs.
+the VSS substep of ``csrc/vss_world.cuh`` and ``csrc/philox.cuh``), one env
+on a group of 8 lanes, one robot per lane: OU update -> wheel commands with
+the deadzone -> 5 physics substeps -> reward/termination -> on done envs
+only, spawn placement -> auto-reset select -> obs.
 
 What bounds it on the card: at 8192 envs a step moves ~5.8 MB, about 2 us
-of HBM time, but each thread runs a long dependent scalar chain and 8192
-threads are under two warps per SM — latency and occupancy bound, not
-bytes.  The design keeps each env in registers, touches every input and
-output row once, and (``rng="kernel"``) draws its random words in
-registers; the state stays in the packed ``(S, B)`` layout across a whole
-rollout, so there is no per-step pack/unpack.
+of HBM time, while the env's work is a dependent scalar chain.  Eight
+lanes per env split that chain by robot and put 2048 warps on 132 SMs;
+each block stages its 32 envs' rows through shared memory, so every input
+and output row is touched once in coalesced accesses; ``rng="kernel"``
+draws the random words in registers, the reset's only on done envs.  The
+state stays in the packed ``(S, B)`` layout across a whole rollout, so
+there is no per-step pack/unpack.
 
 State row layout (N = n_robots), identical to the TPU kernel's:
     0:6         ball x, y, z, v_x, v_y, v_z

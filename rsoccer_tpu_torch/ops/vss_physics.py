@@ -4,8 +4,10 @@ Replaces the TPU kernel ``rsoccer_tpu/ops/pallas_vss.py:37``
 (``make_pallas_vss_physics``): 5 substeps of the differential-drive world
 (drive, dense robot contacts, wall clamp, ball friction and vertical axis,
 ball-robot contacts, goal-pocket walls) on stacked arrays.  The kernel is
-``csrc/vss_physics.cu``, one thread per env, with N = 6 compiled in (other
-team sizes raise on the card, as the fused VSS step does).
+``csrc/vss_physics.cu``, one env on a group of 8 lanes (the VSS substep of
+``csrc/vss_world.cuh``, shared with the fused VSS step), with N = 6
+compiled in (other team sizes raise on the card, as the fused VSS step
+does).
 
 Arrays, as the TPU kernel's: robots ``(6, N, B)`` rows [x, y, theta, v_x,
 v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands

@@ -25,6 +25,7 @@ pytestmark = pytest.mark.cuda
 
 B = 256
 ATOL = 5e-5
+RAGGED = [1, 37, 8193]  # batches that leave the last 32-env block part empty
 
 
 @pytest.fixture()
@@ -52,6 +53,32 @@ def assert_step_close(env, got, want, tag):
         assert float((aux[3:] - w_aux[3:]).abs().max()) <= ATOL, tag
 
 
+def check_vss_steps(env, st_k, key, rng_mode, emit_final, gen, n_steps=5):
+    """``n_steps`` fused steps, kernel and plain each on their own
+    trajectory from ``st_k``; returns the dones seen."""
+    b = st_k.shape[-1]
+    st_p, key_p = st_k.clone(), key.clone()
+    launches = vf.vss_full_step.launches
+    dones = 0
+    for t in range(n_steps):
+        act = torch.rand((2, b), generator=gen, device=st_k.device) * 2 - 1
+        if rng_mode == "kernel":
+            got = vf.vss_full_step(env, st_k, act, key=key, emit_final=emit_final)
+            rows = vf.draw_step_rows(env, key_p, b)
+        else:
+            rows = vf.draw_step_rows(env, key, b)
+            got = vf.vss_full_step(env, st_k, act, *rows, emit_final=emit_final)
+        want = vf.vss_full_step_plain(env, st_p, act, *rows, emit_final)
+        torch.cuda.synchronize()
+        assert_step_close(env, got, want, f"step {t}")
+        dones += int(got[2][1:3].sum())
+        st_k, st_p = got[0], want[0]
+    assert vf.vss_full_step.launches == launches + n_steps
+    if rng_mode == "kernel":  # the kernel advanced its key as draw_noise did
+        assert torch.equal(key, key_p)
+    return dones
+
+
 @pytest.mark.parametrize("rng_mode", ["input", "kernel"])
 @pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
 @pytest.mark.parametrize("max_steps", [None, 3], ids=["limit1200", "limit3"])
@@ -61,24 +88,29 @@ def test_kernel_matches_plain(cuda, rng_mode, emit_final, max_steps):
         env.max_episode_steps = max_steps
     key = make_key(1, device=cuda)
     st_k, _ = BatchedEnv(env, B, device=cuda, fused=True).reset(key)
-    st_p, key_p = st_k.clone(), key.clone()
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    launches = vf.vss_full_step.launches
-    for t in range(5):
-        act = torch.rand((2, B), generator=gen, device=cuda) * 2 - 1
-        if rng_mode == "kernel":
-            got = vf.vss_full_step(env, st_k, act, key=key, emit_final=emit_final)
-            rows = vf.draw_step_rows(env, key_p, B)
-        else:
-            rows = vf.draw_step_rows(env, key, B)
-            got = vf.vss_full_step(env, st_k, act, *rows, emit_final=emit_final)
-        want = vf.vss_full_step_plain(env, st_p, act, *rows, emit_final)
-        torch.cuda.synchronize()
-        assert_step_close(env, got, want, f"step {t}")
-        st_k, st_p = got[0], want[0]
-    assert vf.vss_full_step.launches == launches + 5
-    if rng_mode == "kernel":  # the kernel advanced its key as draw_noise did
-        assert torch.equal(key, key_p)
+    check_vss_steps(env, st_k, key, rng_mode, emit_final, torch.Generator(device=cuda).manual_seed(2))
+
+
+def stagger(st, n=6):
+    """Step counters staggered over the lanes, so that envs of one warp fall
+    due on different steps (partial reset masks)."""
+    st[6 + 6 * n] = (torch.arange(st.shape[-1], device=st.device) % 3).to(st.dtype)
+    return st
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+def test_kernel_matches_plain_ragged(cuda, batch, rng_mode, emit_final):
+    """Batches that leave a block part empty, through auto-resets that fall
+    on different steps in one warp."""
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    env.max_episode_steps = 3
+    key = make_key(4, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    st_k, _ = BatchedEnv(env, batch, device=cuda, fused=True).reset(key)
+    dones = check_vss_steps(env, stagger(st_k), key, rng_mode, emit_final, gen)
+    assert dones >= batch  # every env reset at least once
 
 
 def test_philox_words_bit_equal(cuda):
@@ -201,35 +233,44 @@ def test_ssl_bad_operands_raise(cuda, env_id):
         wrapper(env, st, torch.zeros((a, B), device=cuda), key=key)
 
 
-def random_vss_arrays(gen, dev, n=6):
-    """Random VSS worlds as the physics kernel takes them: robots (6, n, B)
-    crowded enough to touch, half the balls airborne, wheel commands past
-    the clamp."""
+def random_vss_arrays(gen, dev, n=6, batch=B):
+    """Random VSS worlds as the physics kernel takes them: robots (6, n,
+    batch) crowded enough to touch, half the balls airborne, wheel commands
+    past the clamp."""
     def u(shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
 
-    rb = torch.stack([u((n, B), -0.6, 0.6), u((n, B), -0.5, 0.5), u((n, B), -math.pi, math.pi),
-                      u((n, B), -0.5, 0.5), u((n, B), -0.5, 0.5), u((n, B), -5, 5)])
-    air = u((B,), 0, 1) < 0.5
-    ball = torch.stack([u((B,), -0.6, 0.6), u((B,), -0.5, 0.5),
-                        0.0215 + torch.where(air, u((B,), 0, 0.3), 0.0),
-                        u((B,), -1, 1), u((B,), -1, 1), torch.where(air, u((B,), -1, 2), 0.0)])
-    return rb.contiguous(), ball.contiguous(), u((2, n, B), -40, 40)
+    rb = torch.stack([u((n, batch), -0.6, 0.6), u((n, batch), -0.5, 0.5), u((n, batch), -math.pi, math.pi),
+                      u((n, batch), -0.5, 0.5), u((n, batch), -0.5, 0.5), u((n, batch), -5, 5)])
+    air = u((batch,), 0, 1) < 0.5
+    ball = torch.stack([u((batch,), -0.6, 0.6), u((batch,), -0.5, 0.5),
+                        0.0215 + torch.where(air, u((batch,), 0, 0.3), 0.0),
+                        u((batch,), -1, 1), u((batch,), -1, 1), torch.where(air, u((batch,), -1, 2), 0.0)])
+    return rb.contiguous(), ball.contiguous(), u((2, n, batch), -40, 40)
 
 
-def test_vss_physics_kernel_matches_plain(cuda):
+def check_vss_physics(cuda, batch, trials=5):
     env = rsoccer_tpu_torch.make("VSS-v0")
     gen = torch.Generator(device=cuda).manual_seed(3)
     launches = vp.vss_physics.launches
-    for trial in range(5):
-        rb, ball, cmd = random_vss_arrays(gen, cuda)
+    for trial in range(trials):
+        rb, ball, cmd = random_vss_arrays(gen, cuda, batch=batch)
         k_rb, k_ball = vp.vss_physics(env, rb, ball, cmd)
         p_rb, p_ball = vp.vss_physics_plain(env, rb, ball, cmd)
         d_th = (torch.remainder(k_rb[2] - p_rb[2] + math.pi, 2 * math.pi) - math.pi).abs()
         assert float(d_th.max()) <= ATOL, trial
         assert float((k_rb[[0, 1, 3, 4, 5]] - p_rb[[0, 1, 3, 4, 5]]).abs().max()) <= ATOL, trial
         assert float((k_ball - p_ball).abs().max()) <= ATOL, trial
-    assert vp.vss_physics.launches == launches + 5
+    assert vp.vss_physics.launches == launches + trials
+
+
+def test_vss_physics_kernel_matches_plain(cuda):
+    check_vss_physics(cuda, B)
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+def test_vss_physics_kernel_matches_plain_ragged(cuda, batch):
+    check_vss_physics(cuda, batch)
 
 
 def test_fused_physics_main_path_goes_through_the_kernel(cuda):
