@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --vss-baseline DIR
+    python3 chip_smoke.py --baseline DIR
 
 
 Builds the port's CUDA kernels from ``rsoccer_tpu_torch/csrc`` (one nvcc per
@@ -15,10 +15,13 @@ auto-resets; the Dribbling and PassEndurance checks start from lanes built
 next to each gate and on pass lines, and print the crossings, completions
 and receptions they saw.  The VSS physics kernel (``vss_physics``) is held
 to its plain version on every step of a ``fused_physics`` rollout, and that
-rollout to the unfused one.  The VSS fused step (both RNG modes) and the
-physics kernel are held to their plain versions again at a ragged batch
-(8191 envs: the last block part empty), and both are timed at 32768 and
-131072 envs.  Then it drives each main path —
+rollout to the unfused one.  The VSS fused step, the physics kernel and the
+StaticDefenders and Dribbling steps (both RNG modes) are held to their
+plain versions again at a ragged batch (8191 envs: the last block part
+empty), the StaticDefenders and Dribbling steps also at 16384 envs, where
+their wrappers launch the one-thread kernels, and all of them are timed
+at 32768 and 131072 envs.  Then it
+drives each main path —
 ``BatchedEnv(<id>, 8192, device="cuda", fused=True, fused_rng="kernel")``,
 and ``BatchedEnv(VSS-v0, 8192, device="cuda", fused_physics=True)`` —
 through ``make_rollout_fn`` with every launch count set to 0 just before and
@@ -26,12 +29,13 @@ read just after, and times it.  Each phase prints one line; any failure
 exits non-zero.  The last two lines are the kernels' JSON record and
 ``{"ok": true, ...}``.
 
-With ``--vss-baseline DIR`` it runs instead one comparison: the VSS
-kernels (the fused step in both RNG modes, the physics kernel) built from
-another tree's sources in DIR (its ``rsoccer_tpu_torch/csrc``, for example
-the parent commit's, unpacked with ``git archive``) against this tree's,
-outputs bit for bit and device time per launch in turns (baseline, this,
-this, baseline) at 8192, 32768 and 131072 envs.
+With ``--baseline DIR`` it runs instead one comparison against the kernels
+built from another tree's sources in DIR (its ``rsoccer_tpu_torch/csrc``,
+for example the parent commit's, unpacked with ``git archive``): the VSS
+kernels and all four SSL steps, outputs bit for bit at 8192 to 131072 envs
+(the SSL steps in both RNG modes and both obs variants), then the
+StaticDefenders and Dribbling steps timed in turns (baseline, this, this,
+baseline) with this tree's one-thread kernels beside them.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -40,6 +44,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,7 +53,8 @@ from types import SimpleNamespace
 import torch
 
 B = 8192
-RAGGED_B = 8191  # leaves the last 32-env block of the VSS kernels part empty
+RAGGED_B = 8191  # leaves the last 32-env block of the group kernels part empty
+ONE_THREAD_B = 16384  # above ops/ssl_full.GROUP_MAX_ENVS: the one-thread SD and DR kernels
 SCALE_BATCHES = (32768, 131072)
 N_CHECK_STEPS = 5
 WARM_STEPS = 60  # SSL checks start mid-episode: contacts, dribbling, kicks
@@ -427,25 +433,32 @@ def time_cuda(fn, n: int) -> float:
 
 def device_us(fn, n: int, match: str = "", table: str = "") -> tuple[float, dict]:
     """Device time per call of ``fn`` from the profiler over ``n`` calls:
-    (us per call summed over the device kernels whose name holds
-    ``match``, {kernel name: us per call} of the top kernels).  ``table``
+    (us per call summed over the device kernels whose name the regular
+    expression ``match`` finds, {kernel name: us per call} of the top
+    kernels).  With a ``match``, each matched kernel is taken to launch
+    once per call.  ``table``
     names a file under chiprun_out/ for the profiler's full table."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):  # a window in which the profiler saw no kernel at all is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA and re.search(match, e.key) for e in prof.key_averages()):
+            break
     if table:
         with open(os.path.join(OUT_DIR, table), "w") as fh:
             fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    # a named kernel launches once per call: its time per call is its time
+    # per launch the profiler saw (a window that misses events stays right)
     kernels = {
-        e.key: e.self_device_time_total / n
+        e.key: e.self_device_time_total / (e.count if match else n)
         for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and match in e.key
+        if e.device_type == DeviceType.CUDA and re.search(match, e.key)
     }
     total = sum(kernels.values())
     if total <= 0:
@@ -513,11 +526,12 @@ def physics_calls(task, env, carry):
                 ins=(rb, bl, cmd), n_done=lambda outs: 0)
 
 
-def time_at_scale(card, k1, k2):
+def time_at_scale(card, k1, k2, ssl_tasks):
     """Device time per launch of the VSS fused step (task ``k1``, both RNG
-    modes) and the physics kernel (task ``k2``) at each of SCALE_BATCHES
-    envs, on the state after 20 main-path steps, with each call's bound.
-    One phase per batch."""
+    modes), the physics kernel (task ``k2``) and the SSL steps of
+    ``ssl_tasks`` (K4 in both RNG modes, K6) at each of SCALE_BATCHES envs,
+    on the state after 20 main-path steps, through the wrappers, with each
+    call's bound.  One phase per batch."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch import rollout as R
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
@@ -541,11 +555,21 @@ def time_at_scale(card, k1, k2):
             "vss_full_input_rows": (k1, lambda: vf.vss_full_step(env, st, act, *rows), (st, act, *rows)),
             "vss_physics": (k2, lambda: vp.vss_physics(env, rb, bl, cmd), (rb, bl, cmd)),
         }
+        for task in ssl_tasks:
+            s_env, s_st, s_act = ssl_state(task, batch)
+            s_key = make_key(3, device="cuda")
+            s_rows = task.draw(s_env, s_key.clone(), batch)
+            calls[f"{task.name}_kernel_rng"] = (
+                task, lambda t=task, e=s_env, x=s_st, a=s_act, k=s_key: t.wrapper(e, x, a, key=k), (s_st, s_act, s_key))
+            if s_rows:
+                calls[f"{task.name}_input_rows"] = (
+                    task, lambda t=task, e=s_env, x=s_st, a=s_act, r=s_rows: t.wrapper(e, x, a, *r),
+                    (s_st, s_act, *s_rows))
         dev_us, bound_us = {}, {}
         for name, (task, fn, ins) in calls.items():
             dev_us[name], _ = device_us(fn, TIMED_LAUNCHES, task.kernel_match)
             outs = fn()
-            n_done = int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum()) if task is k1 else 0
+            n_done = 0 if task is k2 else int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum())
             bound, by, _, _ = bound_ms(task, ins, outs, n_done)
             bound_us[name] = [bound * 1e3, by]
         torch.cuda.synchronize()
@@ -553,20 +577,22 @@ def time_at_scale(card, k1, k2):
 
 
 def build_baseline(csrc_dir):
-    """nvcc the VSS kernels of another tree's ``csrc_dir`` (the same flags
-    as this tree's) into a library under OUT_DIR; ctypes-loaded, entries
-    declared, its VssParams fields checked against this tree's."""
+    """nvcc the kernels of another tree's ``csrc_dir`` (the same flags as
+    this tree's, one nvcc per source, all at once) into a library under
+    OUT_DIR; ctypes-loaded, entries declared, its parameter structs checked
+    against this tree's."""
     import ctypes
     import shutil
 
     from rsoccer_tpu_torch.ops import _build
+    from rsoccer_tpu_torch.ops import ssl_full as sf
     from rsoccer_tpu_torch.ops import vss_full as vf
 
-    out = os.path.join(OUT_DIR, "vss_baseline")
+    out = os.path.join(OUT_DIR, "baseline")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc_dir, out)
     nvcc = _build.nvcc_path()
-    names = ("vss_full", "vss_physics")
+    names = ("vss_full", "vss_physics", "ssl_full")
     procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", f"{out}/{n}.o", f"{out}/{n}.cu"],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in names]
     logs = [(pr.communicate()[0], pr.returncode) for pr in procs]
@@ -576,19 +602,127 @@ def build_baseline(csrc_dir):
     lib = ctypes.CDLL(f"{out}/lib.so")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vss_params_fields.restype = ctypes.c_char_p
+    lib.ssl_params_fields.restype = ctypes.c_char_p
     lib.vss_full_step.argtypes = [i, i, i, i] + [p] * 10 + [i, p]
     lib.vss_physics_step.argtypes = [p] * 6 + [i, i, p]
+    for entry, n_ptr in SSL_ENTRIES.values():
+        getattr(lib, entry).argtypes = [i, i] + [p] * n_ptr + [i, p]
     if lib.vss_params_fields().decode().rstrip(",").split(",") != vf.PARAM_FIELDS:
         raise RuntimeError("the baseline's VssParams differ from this tree's")
+    if lib.ssl_params_fields().decode().rstrip(",").split(",") != sf.PARAM_FIELDS:
+        raise RuntimeError("the baseline's SslParams differ from this tree's")
     ptxas = [ln.strip() for log, _ in logs for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     return lib, ptxas
 
 
-def vss_against_baseline(csrc_dir, card):
-    """This tree's VSS kernels against those built from ``csrc_dir``: every
-    output bit for bit, then device us per launch in turns (baseline, this,
-    this, baseline) at 8192, 32768 and 131072 envs, on the state after 20
-    VSS-v0 steps.  One phase per batch.  Raises if an output differs."""
+# SSL task -> (C entry, pointer arguments of the entry)
+SSL_ENTRIES = {
+    "ssl_sd_full_step": ("ssl_sd_full_step", 10),
+    "ssl_cp_full_step": ("ssl_cp_full_step", 8),
+    "ssl_dr_full_step": ("ssl_dr_full_step", 6),
+    "ssl_pe_full_step": ("ssl_pe_full_step", 9),
+}
+SSL_TIMED = ("ssl_sd_full_step", "ssl_dr_full_step")  # the kernels this tree redesigned
+CROSSOVER_BATCHES = (B, 8448, 10240, 16384, 32768, 131072)
+
+
+def ssl_entry_call(lib, entry, env, st, act, rows, key, emit_final, outs):
+    """Launch the C entry ``entry`` of ``lib`` (an SSL fused step) on the
+    given operands into ``outs``, as ``ops/ssl_full._launch`` does, without
+    advancing the key."""
+    import ctypes
+
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+
+    rng = key is not None
+    ptrs = [None if rng else r.data_ptr() for r in rows]
+    if rows:
+        ptrs.append(key.data_ptr() if rng else None)
+    err = getattr(lib, entry)(int(emit_final), int(rng), ctypes.byref(sf._params_struct(env)), st.data_ptr(),
+                              act.data_ptr(), *ptrs, *(t.data_ptr() for t in outs), st.shape[-1],
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
+def ssl_state(task, batch, steps: int = 20, prepare: bool = True):
+    """The task's state after ``steps`` main-path steps at ``batch`` envs
+    (DR and PE with the lanes of ``task.prepare`` unless ``prepare`` is
+    false), its obs and one step's actions."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.batch import rollout as R
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+
+    env = rt.make(task.env_id)
+    benv = BatchedEnv(env, batch, device="cuda", fused=True, fused_rng="kernel")
+    carry, _ = R.make_rollout_fn(benv, steps)(R.init_carry(benv, seed=0))
+    st = carry.state
+    if prepare and task.prepare is not None:
+        st, _ = task.prepare(st)
+    act = task.actions(carry.obs, torch.Generator(device="cuda").manual_seed(7))
+    return env, st.contiguous(), act.contiguous()
+
+
+def ssl_against_baseline(lib, tasks, card):
+    """This tree's SSL steps (K4-K7, through their wrappers) against the
+    baseline library's on the same operands: every output bit for bit in
+    both RNG modes and both obs variants, at each of CROSSOVER_BATCHES.
+    Then K4 (both RNG modes) and K6 timed in turns (baseline, this tree's
+    group kernel, the same, baseline) with this tree's one-thread kernel
+    beside them.  One phase per batch.  Raises if an output differs."""
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    this = sf._library()
+    for batch in CROSSOVER_BATCHES:
+        turns, one_thread = {}, {}
+        for task in tasks:
+            entry, _ = SSL_ENTRIES[task.name]
+            env, st, act = ssl_state(task, batch)
+            key = make_key(3, device="cuda")
+            rows = task.draw(env, key.clone(), batch)
+            for rng in (False, True):
+                for emit_final in (False, True):
+                    k0 = key.clone()
+                    got = task.wrapper(env, st, act, *(() if rng else rows),
+                                       **({"key": key} if rng else {}), emit_final=emit_final)
+                    key.copy_(k0)
+                    base = tuple(torch.full_like(t, float("nan")) for t in got)
+                    ssl_entry_call(lib, entry, env, st, act, rows, key if rng else None, emit_final, base)
+                    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, base)):
+                        raise AssertionError(f"{task.name} at {batch} envs (rng_kernel={rng}, "
+                                             f"final={emit_final}): outputs differ from the baseline's")
+            if task.name not in SSL_TIMED:
+                continue
+            outs = tuple(torch.empty_like(t) for t in got[:1]) + (
+                torch.empty((env.obs_size, batch), device="cuda"), torch.empty_like(got[2]))
+            modes = {"kernel_rng": True, "input_rows": False} if rows else {"kernel_rng": True}
+            states = {"": (st, act)}
+            if batch == B:  # and the main path's state: 700 steps, as main_path times it
+                _, m_st, m_act = ssl_state(task, batch, 2 * ROLLOUT_STEPS + TIMED_ROLLOUTS * ROLLOUT_STEPS,
+                                           prepare=False)
+                states["_main_state"] = (m_st, m_act)
+            for tag, (x, a) in states.items():
+                for mode, rng in modes.items():
+                    def run(lib_, ent, rng=rng, x=x, a=a):
+                        return lambda: ssl_entry_call(lib_, ent, env, x, a, rows, key if rng else None, False, outs)
+                    base_fn, group_fn = run(lib, entry), run(this, entry)
+                    name = f"{task.name}_{mode}{tag}"
+                    turns[name] = [device_us(fn, TIMED_LAUNCHES, task.kernel_match)[0]
+                                   for fn in (base_fn, group_fn, group_fn, base_fn)]
+                    one_thread[name] = device_us(run(this, entry + "_one_thread"), TIMED_LAUNCHES,
+                                                 task.kernel_match)[0]
+        phase("ssl_baseline_turns", card=card, B=batch, bit_equal=[t.name for t in tasks],
+              baseline_group_group_baseline_us=turns, this_one_thread_us=one_thread,
+              mean_us={n: {"baseline": (t[0] + t[3]) / 2, "group": (t[1] + t[2]) / 2}
+                       for n, t in turns.items()})
+
+
+def vss_against_baseline(lib, card):
+    """This tree's VSS kernels against the baseline library's: every output
+    bit for bit, then device us per launch in turns (baseline, this, this,
+    baseline) at 8192, 32768 and 131072 envs, on the state after 20 VSS-v0
+    steps.  One phase per batch.  Raises if an output differs."""
     import ctypes
 
     import rsoccer_tpu_torch as rt
@@ -598,8 +732,6 @@ def vss_against_baseline(csrc_dir, card):
     from rsoccer_tpu_torch.ops import vss_physics as vp
     from rsoccer_tpu_torch.ops.philox import make_key
 
-    lib, ptxas = build_baseline(csrc_dir)
-    phase("vss_baseline_build", source=csrc_dir, ptxas=ptxas)
     for batch in (B, *SCALE_BATCHES):
         env = rt.make("VSS-v0")
         benv = BatchedEnv(env, batch, device="cuda", fused=True, fused_rng="kernel")
@@ -635,14 +767,14 @@ def vss_against_baseline(csrc_dir, card):
                 raise RuntimeError(f"baseline vss_physics_step launch failed: cudaError {err}")
 
         pairs = {
-            "vss_full_kernel_rng": (base_full(True), lambda: vf.vss_full_step(env, st, act, key=key),
-                                    "vss_full_kernel", outs),
-            "vss_full_input_rows": (base_full(False), lambda: vf.vss_full_step(env, st, act, *rows),
-                                    "vss_full_kernel", outs),
-            "vss_physics": (base_phys, lambda: vp.vss_physics(env, rb, bl, cmd), "vss_physics_kernel", phys_outs),
+            "vss_full_kernel_rng": (base_full(True), lambda: vf.vss_full_step(env, st, act, key=key), outs,
+                                    "vss_full_kernel"),
+            "vss_full_input_rows": (base_full(False), lambda: vf.vss_full_step(env, st, act, *rows), outs,
+                                    "vss_full_kernel"),
+            "vss_physics": (base_phys, lambda: vp.vss_physics(env, rb, bl, cmd), phys_outs, "vss_physics_kernel"),
         }
         turns = {}
-        for name, (base, this, match, base_outs) in pairs.items():
+        for name, (base, this, base_outs, match) in pairs.items():
             k0 = key.clone()
             got = this()
             key.copy_(k0)
@@ -762,10 +894,10 @@ def main_path(task, tasks, card):
 
 def main() -> int:
     baseline = None
-    if sys.argv[1:2] == ["--vss-baseline"] and len(sys.argv) == 3:
+    if sys.argv[1:2] == ["--baseline"] and len(sys.argv) == 3:
         baseline = sys.argv[2]
     elif len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--vss-baseline DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--baseline DIR]", file=sys.stderr)
         return 2
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -780,6 +912,8 @@ def main() -> int:
     from rsoccer_tpu_torch.ops import vss_full as vf
     from rsoccer_tpu_torch.ops import vss_physics as vp
 
+    if ONE_THREAD_B <= sf.GROUP_MAX_ENVS:
+        raise AssertionError(f"ONE_THREAD_B {ONE_THREAD_B} must exceed GROUP_MAX_ENVS {sf.GROUP_MAX_ENVS}")
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -814,7 +948,7 @@ def main() -> int:
         SimpleNamespace(
             name="ssl_sd_full_step", env_id="SSLStaticDefenders-v0", wrapper=sf.sd_full_step,
             plain=sf.sd_full_step_plain, draw=sf.sd_draw_step_rows,
-            actions=chase_actions, warm_steps=WARM_STEPS, kernel_match="sd_full_kernel",
+            actions=chase_actions, warm_steps=WARM_STEPS, kernel_match=r"sd_(full|thread)_kernel",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:456",
             # trig + actions ~40, 5 substeps x (7 robots x 20 + 21 pairs x 25
@@ -840,7 +974,7 @@ def main() -> int:
         SimpleNamespace(
             name="ssl_dr_full_step", env_id="SSLDribbling-v0", wrapper=sf.dr_full_step,
             plain=sf.dr_full_step_plain, draw=sf.dr_draw_step_rows,
-            actions=dribble_actions, warm_steps=WARM_STEPS, kernel_match="dr_full_kernel",
+            actions=dribble_actions, warm_steps=WARM_STEPS, kernel_match=r"dr_(full|thread)_kernel",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:1086",
             # trig 10 + actions ~20, 5 substeps x (5 robots x 20 + 10 pairs
@@ -891,8 +1025,12 @@ def main() -> int:
         fh.write(log)
     phase("build", nvcc_seconds=nvcc_s, total_seconds=time.perf_counter() - t0,
           library=str(lib_path.name), ptxas=ptxas)
+    ssl_tasks = [t for t in tasks if t.name in SSL_ENTRIES]
     if baseline is not None:
-        vss_against_baseline(baseline, card)
+        lib, base_ptxas = build_baseline(baseline)
+        phase("baseline_build", source=baseline, ptxas=base_ptxas)
+        vss_against_baseline(lib, card)
+        ssl_against_baseline(lib, ssl_tasks, card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
@@ -927,9 +1065,19 @@ def main() -> int:
     phase("kernel_vs_plain_ragged_vss_physics", B=RAGGED_B, steps=N_CHECK_STEPS, max_abs_err=err,
           atol=ATOL, dones=dones)
     errs["vss_physics"] = max(errs["vss_physics"], err)
+    # K4 and K6: their group kernels at the ragged batch, their one-thread
+    # kernels (which the wrappers launch above GROUP_MAX_ENVS) at ONE_THREAD_B
+    for task in (t for t in ssl_tasks if t.name in SSL_TIMED):
+        for batch, tag in ((RAGGED_B, "ragged"), (ONE_THREAD_B, "one_thread")):
+            for rng_mode in ("input", "kernel"):
+                err, at, dones, _ = check_kernel_vs_plain(task, rng_mode, batch)
+                phase(f"kernel_vs_plain_{tag}_{rng_mode}_{task.name}", B=batch, steps=N_CHECK_STEPS,
+                      max_abs_err=err, worst_at=at, atol=ATOL, dones=dones)
+                errs[task.name] = max(errs[task.name], err)
 
-    # ---- 3c. the VSS kernels at larger batches, timed
-    time_at_scale(card, tasks[0], next(t for t in tasks if t.name == "vss_physics"))
+    # ---- 3c. the VSS kernels, K4 and K6 at larger batches, timed
+    time_at_scale(card, tasks[0], next(t for t in tasks if t.name == "vss_physics"),
+                  [t for t in ssl_tasks if t.name in SSL_TIMED])
 
     # ---- 4. each main path, through its kernel, timed
     kernels = []

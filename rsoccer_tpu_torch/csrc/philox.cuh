@@ -48,6 +48,16 @@ __device__ __forceinline__ float philox_uniform(uint32_t w) {
   return (float)(w >> 8) * 5.9604644775390625e-08f;  // 2^-24
 }
 
+// word i of a block (i in 0..3)
+__device__ __forceinline__ uint32_t philox_word(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// the uniform of slot `slot` of env `env`: one block drawn for one word
+__device__ __forceinline__ float philox_slot_uniform(const PhiloxKey& k, uint32_t env, int slot) {
+  return philox_uniform(philox_word(philox_block(k, env, (uint32_t)(slot / 4)), slot % 4));
+}
+
 __device__ __forceinline__ float box_muller(float u1, float u2) {
   u1 = fmaxf(u1, 1e-7f);
   return sqrtf(-2.0f * logf(u1)) * cosf(6.2831855f * u2);

@@ -1,40 +1,42 @@
-// Fused SSL env steps, one env per thread: SSLStaticDefenders-v0 (N = 7),
-// SSLContestedPossession-v0 (N = 2), SSLDribbling-v0 (N = 5) and
-// SSLPassEndurance-v0 (N = 2).
+// Fused SSL env steps: SSLStaticDefenders-v0 (N = 7), SSLContestedPossession-v0
+// (N = 2), SSLDribbling-v0 (N = 5) and SSLPassEndurance-v0 (N = 2).
 //
 // Replaces the TPU kernels rsoccer_tpu/ops/pallas_ssl_full.py:456
 // (make_pallas_sd_full_step), :824 (make_pallas_cp_full_step), :1086
 // (make_pallas_dr_full_step) and :1327 (make_pallas_pe_full_step), and
 // their shared launch _build_call (:289).  Per env: action conversion ->
-// the SSL world step (ssl_body.cuh) -> the task's termination and reward
-// (SD/CP: the reference's termination chain and shaping; DR: the gate
-// automaton; PE: pass received, wrong ball, stopped counter) -> on done
-// lanes only, the reset (SD: first-valid ball and six separated defenders;
-// CP: the enemy in the penalty strip; DR: the fixed course; PE: ball,
-// shooter and the first receiver candidate 1 m away) -> auto-reset select
-// -> observation.
+// the SSL world step -> the task's termination and reward (SD/CP: the
+// reference's termination chain and shaping; DR: the gate automaton; PE:
+// pass received, wrong ball, stopped counter) -> on done envs only, the
+// reset (SD: first-valid ball and six separated defenders; CP: the enemy in
+// the penalty strip; DR: the fixed course; PE: ball, shooter and the first
+// receiver candidate 1 m away) -> auto-reset select -> observation.
 //
 // Layout: every operand is a flat row-major (rows, B) f32 array read as
-// p[row * B + b], so each row load is coalesced (the TPU kernels' (S, B)
-// state layout byte for byte).
+// p[row * B + b] (the TPU kernels' (S, B) state layout byte for byte).
 //
-// What bounds it: at B = 8192 an SD step moves ~5 MB (state in/out, action,
-// obs, aux), about 1.5 us of HBM time, while each thread runs a long
-// dependent scalar chain (5 substeps x (21 robot pairs + 7 ball contacts))
-// and 8192 threads are under two warps per SM: latency and occupancy
-// bound, not bytes.  The design keeps the env in registers (loops over
-// compile-time robot counts, no shared or local memory by intent), reads
-// each input row and writes each output row once, and draws the reset
-// noise (kernel RNG) or reads its rows only on done lanes.
+// Two designs.  One thread per env (CP, PE, and SD and DR above the
+// wrapper's GROUP_MAX_ENVS): the env in registers, the world step of
+// ssl_body.cuh, each input row read and each output row written once,
+// coalesced.  At B = 8192 that is 256 warps on 132 SMs, each thread a long
+// dependent scalar chain: latency bound.  A group of 8 lanes per env (SD and
+// DR up to GROUP_MAX_ENVS, the main path's 8192 envs): the world step of
+// ssl_world.cuh, one robot per lane, rows staged through shared memory with
+// every load in flight at once, the reset's Philox blocks drawn once per
+// env and shared; 2048 warps at B = 8192.  From ~10240 envs on, where the
+// card is full, the group kernels issue more instructions per env than one
+// thread does (the ball's work on every lane) and lose (PERF.md, section 6).
 //
 // Numerics: built without --use_fast_math and with --fmad=false, so every
 // multiply and add rounds as the plain version's separate torch ops do;
 // constants are folded in double and rounded to f32 once, by the wrapper.
+// The two designs give the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"
 #include "ssl_body.cuh"
+#include "ssl_world.cuh"
 
 #define SSL_PARAMS(X)                                                                              \
   X(dts) X(a_lin) X(a_ang) X(two_pi) X(pi) X(two_r) X(pair_gain)                                   \
@@ -56,7 +58,7 @@ struct SslParams {
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreadBlock = 64;  // the one-thread-per-env kernels' block
 constexpr int K = 8;  // spawn candidates per entity (envs/spawn.N_CANDIDATES)
 
 #define LD(ptr, row) ((ptr)[(size_t)(row) * (size_t)B + b])
@@ -118,11 +120,11 @@ struct SslStep {
 
 // convert_actions: robot 0's action rows 0-2, global -> local, the speed
 // scaled only above max_v
-__device__ __forceinline__ void convert_action(const SslParams& p, const float* __restrict__ act, float c0,
-                                               float s0, float& lvx, float& lvy, float& a_vt, int b, int B) {
-  const float a_vx = LD(act, 0) * p.max_v;
-  const float a_vy = LD(act, 1) * p.max_v;
-  a_vt = LD(act, 2) * p.max_w_cmd;
+__device__ __forceinline__ void convert_action(const SslParams& p, float a0, float a1, float a2, float c0,
+                                               float s0, float& lvx, float& lvy, float& a_vt) {
+  const float a_vx = a0 * p.max_v;
+  const float a_vy = a1 * p.max_v;
+  a_vt = a2 * p.max_w_cmd;
   lvx = a_vx * c0 + a_vy * s0;
   lvy = -a_vx * s0 + a_vy * c0;
   const float v_norm = sqrtf(lvx * lvx + lvy * lvy);
@@ -140,23 +142,14 @@ __device__ __forceinline__ void heading_trig(const float (&th)[N], float (&c)[N]
   }
 }
 
-template <int N, int NSH>
-__device__ __forceinline__ SslStep task_step(const SslParams& p, SslEnv<N, NSH>& e, float (&c)[N], float (&s)[N],
-                                             const float* __restrict__ act, int b, int B) {
-  heading_trig(e.th, c, s);
-  float lvx, lvy, a_vt;
-  convert_action(p, act, c[0], s[0], lvx, lvy, a_vt, b, B);
-  const float kick0 = LD(act, 3) > 0.0f ? p.kick_speed : 0.0f;
-  const bool drib0 = LD(act, 4) > 0.0f;
-
-  const float x0 = e.x[0], y0 = e.y[0], bx0 = e.bl.x, by0 = e.bl.y;
+// The SD/CP termination chain (static_defenders.py:179-197) and shaping
+// (ball_dist, ball_grad, energy: achieved wheel speeds of robot 0) from
+// robot 0 and the ball at the step's start (x0, y0, bx0, by0) and end.
+// inc: the step's increments of the 8 accumulators.
+__device__ __forceinline__ SslStep sd_outcome(const SslParams& p, float x0, float y0, float bx0, float by0, float rx,
+                                              float ry, float vx, float vy, float w, float c, float s, float bx,
+                                              float by, float (&inc)[8]) {
   SslStep out;
-  bool ir[N];
-  ssl_world_step<N, 0u>(p, e.x, e.y, e.th, e.vx, e.vy, e.w, c, s, e.bl, lvx, lvy, a_vt, kick0, 0.0f, drib0, ir);
-  out.ir0 = ir[0];
-
-  // termination priority chain (static_defenders.py:179-197)
-  const float rx = e.x[0], ry = e.y[0], bx = e.bl.x, by = e.bl.y;
   const bool c_rbt_out = rx < -0.2f || fabsf(ry) > p.half_wid;
   const bool c_gk = !c_rbt_out && rx > p.gk_x && fabsf(ry) < p.half_pen_wid;
   const bool c_ball_out = !c_rbt_out && !c_gk && (bx < 0.0f || fabsf(by) > p.half_wid);
@@ -165,32 +158,62 @@ __device__ __forceinline__ SslStep task_step(const SslParams& p, SslEnv<N, NSH>&
   out.chain_done = c_rbt_out || c_gk || c_ball_out || c_ball_right;
   const bool sb = !out.chain_done;
 
-  // shaping: ball_dist, ball_grad, energy (achieved wheel speeds of robot 0)
   const float dlx = x0 - bx0, dly = y0 - by0, dx = rx - bx, dy = ry - by;
   const float ball_dist = ssl_clampf(sqrtf(dlx * dlx + dly * dly) - sqrtf(dx * dx + dy * dy), -1.0f, 1.0f) /
                           p.ball_dist_scale;
   const float glx = bx0 - p.half_len, gx = bx - p.half_len;
   const float ball_grad =
       ssl_clampf(sqrtf(glx * glx + by0 * by0) - sqrtf(gx * gx + by * by), -1.0f, 1.0f) / p.ball_grad_scale;
-  const float u0 = e.vx[0] * c[0] + e.vy[0] * s[0];
-  const float s0 = -e.vx[0] * s[0] + e.vy[0] * c[0];
+  const float u0 = vx * c + vy * s;
+  const float s0 = -vx * s + vy * c;
   const float J[4][3] = {{p.j00, p.j01, p.j02}, {p.j10, p.j11, p.j12}, {p.j20, p.j21, p.j22}, {p.j30, p.j31, p.j32}};
   float en = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) en = en + fabsf((J[k][0] * u0 + J[k][1] * s0 + J[k][2] * e.w[0]) / p.wheel_r);
+  for (int k = 0; k < 4; ++k) en = en + fabsf((J[k][0] * u0 + J[k][1] * s0 + J[k][2] * w) / p.wheel_r);
   const float energy = -en / p.energy_scale;
   const float shaped = ball_dist + ball_grad + energy;
   out.reward = out.goal ? 5.0f : (sb ? shaped : 0.0f);
 
   const bool ball_out_right = c_ball_right && !out.goal;
-  const float inc[8] = {
-      out.goal ? 1.0f : 0.0f, c_gk ? 1.0f : 0.0f, c_ball_out ? 1.0f : 0.0f, ball_out_right ? 1.0f : 0.0f,
-      c_rbt_out ? 1.0f : 0.0f, sb ? ball_dist : 0.0f, sb ? ball_grad : 0.0f, sb ? energy : 0.0f,
-  };
+  inc[0] = out.goal ? 1.0f : 0.0f;
+  inc[1] = c_gk ? 1.0f : 0.0f;
+  inc[2] = c_ball_out ? 1.0f : 0.0f;
+  inc[3] = ball_out_right ? 1.0f : 0.0f;
+  inc[4] = c_rbt_out ? 1.0f : 0.0f;
+  inc[5] = sb ? ball_dist : 0.0f;
+  inc[6] = sb ? ball_grad : 0.0f;
+  inc[7] = sb ? energy : 0.0f;
+  return out;
+}
+
+template <int N, int NSH>
+__device__ __forceinline__ SslStep task_step(const SslParams& p, SslEnv<N, NSH>& e, float (&c)[N], float (&s)[N],
+                                             const float* __restrict__ act, int b, int B) {
+  heading_trig(e.th, c, s);
+  float lvx, lvy, a_vt;
+  convert_action(p, LD(act, 0), LD(act, 1), LD(act, 2), c[0], s[0], lvx, lvy, a_vt);
+  const float kick0 = LD(act, 3) > 0.0f ? p.kick_speed : 0.0f;
+  const bool drib0 = LD(act, 4) > 0.0f;
+
+  const float x0 = e.x[0], y0 = e.y[0], bx0 = e.bl.x, by0 = e.bl.y;
+  bool ir[N];
+  ssl_world_step<N, 0u>(p, e.x, e.y, e.th, e.vx, e.vy, e.w, c, s, e.bl, lvx, lvy, a_vt, kick0, 0.0f, drib0, ir);
+  float inc[8];
+  SslStep out = sd_outcome(p, x0, y0, bx0, by0, e.x[0], e.y[0], e.vx[0], e.vy[0], e.w[0], c[0], s[0], e.bl.x,
+                           e.bl.y, inc);
+  out.ir0 = ir[0];
 #pragma unroll
   for (int k = 0; k < 8; ++k) e.extra[k] = e.extra[k] + inc[k];
   e.steps = e.steps + 1.0f;
   return out;
+}
+
+// the obs normalisation of positions and velocities
+__device__ __forceinline__ float obs_pos(const SslParams& p, float v) {
+  return ssl_clampf(v / p.max_pos, -p.nbnd, p.nbnd);
+}
+__device__ __forceinline__ float obs_vel(const SslParams& p, float v) {
+  return ssl_clampf(v / p.max_v, -p.nbnd, p.nbnd);
 }
 
 // observe_standard: ball 4, robot 0's 8 (infrared 1 or ir_low), others'
@@ -199,8 +222,8 @@ template <int N, int NSH>
 __device__ __forceinline__ void write_obs(const SslParams& p, const SslEnv<N, NSH>& e, float sin0, float cos0,
                                           bool ir0, float* __restrict__ obs, int o, int b, int B,
                                           float ir_low = 0.0f) {
-  auto npos = [&](float v) { return ssl_clampf(v / p.max_pos, -p.nbnd, p.nbnd); };
-  auto nv = [&](float v) { return ssl_clampf(v / p.max_v, -p.nbnd, p.nbnd); };
+  auto npos = [&](float v) { return obs_pos(p, v); };
+  auto nv = [&](float v) { return obs_vel(p, v); };
   LD(obs, o++) = npos(e.bl.x);
   LD(obs, o++) = npos(e.bl.y);
   LD(obs, o++) = nv(e.bl.vx);
@@ -251,8 +274,8 @@ __device__ __forceinline__ void write_outputs(const SslParams& p, const SslEnv<N
 
 // ---------------------------------------------------------------- SD
 template <bool EMIT_FINAL, bool RNG_KERNEL>
-__global__ void __launch_bounds__(kThreads)
-    sd_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
+__global__ void __launch_bounds__(kThreadBlock)
+    sd_thread_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
                    const float* __restrict__ ball_in, const float* __restrict__ sp_in,
                    const float* __restrict__ th_in, const long long* __restrict__ key, float* __restrict__ st_out,
                    float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
@@ -350,7 +373,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------- CP
 template <bool EMIT_FINAL, bool RNG_KERNEL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadBlock)
     cp_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
                    const float* __restrict__ enemy_in, const long long* __restrict__ key,
                    float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
@@ -395,11 +418,43 @@ __global__ void __launch_bounds__(kThreads)
 // The course (envs/ssl_dribbling.NODES, MARGIN): exact in f32.
 constexpr float kNode0 = -0.5f, kNode1 = -1.0f, kNode2 = -1.5f, kNode3 = -2.0f, kMargin = 1.0f;
 
+// The gate automaton on the f32 checkpoint count (exact small integers),
+// the course box and the collision flag: the step's reward, termination
+// and new count.  by0: the ball's y at the step's start.
+struct DrStep {
+  bool term;
+  float reward, new_count;
+};
+
+__device__ __forceinline__ DrStep dr_outcome(const SslParams& p, float by0, float rx, float ry, float bx, float by,
+                                             float count, bool collision) {
+  const bool rbt_out = rx < kNode3 - kMargin || rx > kMargin || fabsf(ry) > kMargin;
+  const bool down = by0 >= 0.0f && by < 0.0f;
+  const bool up = by0 < 0.0f && by >= 0.0f;
+  const bool in01 = bx < kNode0 && bx > kNode1;
+  const bool in12 = bx < kNode1 && bx > kNode2;
+  const bool in23 = bx < kNode2 && bx > kNode3;
+  const bool in3m = bx > kNode3 - kMargin && bx < kNode3;
+  const bool is_even = fmodf(count, 2.0f) == 0.0f;
+  const bool even_ge2 = count >= 2.0f && is_even;
+  const bool odd_ge2 = count >= 2.0f && !is_even;
+  const bool cross_even = even_ge2 && in23 && down;
+  const bool crossed = !rbt_out && ((count == 0.0f && in01 && down) || (count == 1.0f && in12 && up) ||
+                                    cross_even || (odd_ge2 && in3m && up));
+  const bool reversed_gate = !rbt_out && even_ge2 && in23 && up;
+  DrStep out;
+  out.new_count = count + (crossed ? 1.0f : 0.0f);
+  const bool completed = !rbt_out && cross_even && out.new_count == 7.0f;
+  out.reward = crossed ? 1.0f : 0.0f;
+  out.term = collision || rbt_out || reversed_gate || completed;
+  return out;
+}
+
 // DR draws no noise (its reset is deterministic), so one kernel serves both
 // RNG modes; the wrapper still advances the key in kernel-RNG mode.
 template <bool EMIT_FINAL>
-__global__ void __launch_bounds__(kThreads)
-    dr_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
+__global__ void __launch_bounds__(kThreadBlock)
+    dr_thread_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
                    float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
   constexpr int N = 5, NX = 1, kObs = 21;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -410,7 +465,7 @@ __global__ void __launch_bounds__(kThreads)
   float c[N], s[N];
   heading_trig(e.th, c, s);
   float lvx, lvy, a_vt;
-  convert_action(p, act, c[0], s[0], lvx, lvy, a_vt, b, B);
+  convert_action(p, LD(act, 0), LD(act, 1), LD(act, 2), c[0], s[0], lvx, lvy, a_vt);
   const float by0 = e.bl.y;
   bool ir[N];
   ssl_world_step<N, 0u>(p, e.x, e.y, e.th, e.vx, e.vy, e.w, c, s, e.bl, lvx, lvy, a_vt, 0.0f, 0.0f,
@@ -420,36 +475,17 @@ __global__ void __launch_bounds__(kThreads)
   bool collision = false;
 #pragma unroll
   for (int r = 1; r < N; ++r) collision = collision || fabsf(e.vx[r]) > 0.05f || fabsf(e.vy[r]) > 0.05f;
-  const float rx = e.x[0], ry = e.y[0], bx = e.bl.x, by = e.bl.y;
-  const bool rbt_out = rx < kNode3 - kMargin || rx > kMargin || fabsf(ry) > kMargin;
-
-  // gate automaton on the f32 checkpoint count (exact small integers)
-  const bool down = by0 >= 0.0f && by < 0.0f;
-  const bool up = by0 < 0.0f && by >= 0.0f;
-  const bool in01 = bx < kNode0 && bx > kNode1;
-  const bool in12 = bx < kNode1 && bx > kNode2;
-  const bool in23 = bx < kNode2 && bx > kNode3;
-  const bool in3m = bx > kNode3 - kMargin && bx < kNode3;
-  const float count = e.extra[0];
-  const bool is_even = fmodf(count, 2.0f) == 0.0f;
-  const bool even_ge2 = count >= 2.0f && is_even;
-  const bool odd_ge2 = count >= 2.0f && !is_even;
-  const bool cross_even = even_ge2 && in23 && down;
-  const bool crossed = !rbt_out && ((count == 0.0f && in01 && down) || (count == 1.0f && in12 && up) ||
-                                    cross_even || (odd_ge2 && in3m && up));
-  const bool reversed_gate = !rbt_out && even_ge2 && in23 && up;
-  const float new_count = count + (crossed ? 1.0f : 0.0f);
-  const bool completed = !rbt_out && cross_even && new_count == 7.0f;
-  const float reward = crossed ? 1.0f : 0.0f;
-  const bool term = collision || rbt_out || reversed_gate || completed;
+  const DrStep out = dr_outcome(p, by0, e.x[0], e.y[0], e.bl.x, e.bl.y, e.extra[0], collision);
+  const float reward = out.reward;
+  const bool term = out.term;
   e.steps = e.steps + 1.0f;
-  e.extra[0] = new_count;
+  e.extra[0] = out.new_count;
   const bool trunc = e.steps >= p.max_steps;
   const bool done = term || trunc;
 
   // obs head: checkpoint progress; infrared reported in {-1, 1}
   if constexpr (EMIT_FINAL) {
-    LD(obs_out, kObs) = (new_count / 6.0f) * 2.0f - 1.0f;
+    LD(obs_out, kObs) = (out.new_count / 6.0f) * 2.0f - 1.0f;
     write_obs(p, e, s[0], c[0], ir[0], obs_out, kObs + 1, b, B, -1.0f);
   }
   if (done) {  // the course (envs/ssl_dribbling.reset_state), heading pi
@@ -470,6 +506,364 @@ __global__ void __launch_bounds__(kThreads)
   LD(aux_out, 0) = reward;
   LD(aux_out, 1) = term ? 1.0f : 0.0f;
   LD(aux_out, 2) = trunc ? 1.0f : 0.0f;
+}
+
+// ------------------------------------------- SD and DR: 8 lanes per env
+// The group kernels run the world step of ssl_world.cuh.  A block of 256
+// threads steps 32 envs; each row of the block's envs passes through a
+// shared-memory tile in one coalesced 128-byte access.  Lane k < N owns robot k:
+// its state and obs rows.  Lane 7 writes the ball's rows, the env's
+// scalars and the aux rows.  Every lane runs the termination chain (each
+// needs `done`).  No thread returns early: lanes past B compute on zeros
+// and store nothing.
+constexpr int kScalarLane = kGroup - 1;
+
+// write_obs on the group: lane k < N its robot's rows of the obs block at
+// tile row o, the scalar lane the ball's
+template <int N>
+__device__ __forceinline__ void group_obs(const SslParams& p, float* tile, int e, int o, int k, const SslRobot& r,
+                                          const SslBall& bl, float sin0, float cos0, bool ir0, float ir_low) {
+#define T(row) tile[(row) * kTileStride + e]
+  if (k == 0) {
+    T(o + 4) = obs_pos(p, r.x);
+    T(o + 5) = obs_pos(p, r.y);
+    T(o + 6) = sin0;
+    T(o + 7) = cos0;
+    T(o + 8) = obs_vel(p, r.vx);
+    T(o + 9) = obs_vel(p, r.vy);
+    T(o + 10) = ssl_clampf(r.w / p.max_w_norm, -p.nbnd, p.nbnd);
+    T(o + 11) = ir0 ? 1.0f : ir_low;
+  } else if (k < N) {
+    T(o + 10 + 2 * k) = obs_pos(p, r.x);
+    T(o + 11 + 2 * k) = obs_pos(p, r.y);
+  } else if (k == kScalarLane) {
+    T(o + 0) = obs_pos(p, bl.x);
+    T(o + 1) = obs_pos(p, bl.y);
+    T(o + 2) = obs_vel(p, bl.vx);
+    T(o + 3) = obs_vel(p, bl.vy);
+  }
+#undef T
+}
+
+// this lane's robot's six state rows (N robots)
+template <int N>
+__device__ __forceinline__ void group_robot_rows(float* tile, int e, int k, const SslRobot& r) {
+#define T(row) tile[(row) * kTileStride + e]
+  T(6 + k) = r.x;
+  T(6 + N + k) = r.y;
+  T(6 + 2 * N + k) = r.th;
+  T(6 + 3 * N + k) = r.vx;
+  T(6 + 4 * N + k) = r.vy;
+  T(6 + 5 * N + k) = r.w;
+#undef T
+}
+
+// The first valid candidate of the lane's group (candidate k on lane k),
+// else candidate 0: its (x, y) on every lane of the group.  Every lane of
+// the warp calls it.
+__device__ __forceinline__ void first_valid(bool ok, float cx, float cy, float& x, float& y) {
+  const unsigned valid = (__ballot_sync(kFullMask, ok) >> (threadIdx.x & 24u)) & 0xffu;
+  const int first = valid ? __ffs(valid) - 1 : 0;
+  x = __shfl_sync(kFullMask, cx, first, kGroup);
+  y = __shfl_sync(kFullMask, cy, first, kGroup);
+}
+
+template <bool EMIT_FINAL, bool RNG_KERNEL>
+__global__ void __launch_bounds__(kThreads, 2)
+    sd_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
+                   const float* __restrict__ ball_in, const float* __restrict__ sp_in,
+                   const float* __restrict__ th_in, const long long* __restrict__ key, float* __restrict__ st_out,
+                   float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
+  constexpr int N = 7, NY = 6, NSH = 8, kObs = 24, kAct = 5;
+  constexpr int S = 7 + 6 * N + NSH;  // state rows
+  constexpr int OBS_ROWS = kObs * (EMIT_FINAL ? 2 : 1);
+  constexpr int NAUX = 3 + NSH;
+  using L = SslLayout<N>;
+  static_assert(K == kGroup && N < kGroup, "spawn candidate k on lane k; lane 7 is free");
+  constexpr int IN_ROWS = S + kAct, OUT_ROWS = S + OBS_ROWS + NAUX;
+  constexpr int TILE_FLOATS = (IN_ROWS > OUT_ROWS ? IN_ROWS : OUT_ROWS) * kTileStride;
+  // the row tile and the groups' exchange slots apart: after the staging a
+  // warp touches only its own envs' columns, so no block barrier is needed
+  // between staging in and staging out
+  __shared__ float4 buf[(TILE_FLOATS + 3) / 4];
+  __shared__ float4 xchg[kEnvsPerBlock * L::kSlots];
+  constexpr int kSpawnBlocks = 30;  // Philox blocks of the reset: ball 0-3, defender d 4 + 4d.., theta 28-29
+  __shared__ uint4 words[RNG_KERNEL ? kEnvsPerBlock * kSpawnBlocks : 1];
+  float* tile = reinterpret_cast<float*>(buf);
+
+  const int k = threadIdx.x % kGroup;  // lane in the env's group
+  const int e = threadIdx.x / kGroup;  // env in the block
+  const int b0 = blockIdx.x * kEnvsPerBlock;
+  const int b = b0 + e;
+  const bool live = b < B;
+  const int rr = k < N ? k : 0;  // lanes past the robots carry robot 0
+  float4* grp = xchg + e * L::kSlots;
+#define T(row) tile[(row) * kTileStride + e]
+
+  // ---- stage in
+  load_rows_in_flight<S>(tile, 0, st, b0, B);
+  load_rows_in_flight<kAct>(tile, S, act, b0, B);
+  __syncthreads();
+
+  SslRobot r;
+  r.x = T(6 + rr);
+  r.y = T(6 + N + rr);
+  r.th = T(6 + 2 * N + rr);
+  r.vx = T(6 + 3 * N + rr);
+  r.vy = T(6 + 4 * N + rr);
+  r.w = T(6 + 5 * N + rr);
+  SslBall bl{T(0), T(1), T(2), T(3), T(4), T(5)};
+  const float x_start = T(6), y_start = T(6 + N), bx_start = bl.x, by_start = bl.y;
+  const float steps = T(6 + 6 * N);
+  float acc[NSH];
+#pragma unroll
+  for (int q = 0; q < NSH; ++q) acc[q] = T(7 + 6 * N + q);
+  const float a0 = T(S), a1 = T(S + 1), a2 = T(S + 2);
+  const float kick0 = T(S + 3) > 0.0f ? p.kick_speed : 0.0f;
+  const bool drib0 = T(S + 4) > 0.0f;
+
+  // ---- the world step; robots 1..N-1 keep their starting trig
+  r.s = sinf(r.th);
+  r.c = cosf(r.th);
+  float tu = 0.0f, tv = 0.0f, tw = 0.0f;
+  if (k == 0) convert_action(p, a0, a1, a2, r.c, r.s, tu, tv, tw);
+  SslRobot0 r0;
+  bool ir0 = false;
+#pragma unroll 1  // kept rolled: the unrolled body would be 5x the code
+  for (int sub = 0; sub < kSslSubsteps; ++sub)
+    ir0 = ssl_substep<N>(p, k, grp, r, bl, tu, tv, tw, kick0, drib0, r0);
+
+  // ---- termination chain and shaping, every lane
+  float inc[NSH];
+  const SslStep out = sd_outcome(p, x_start, y_start, bx_start, by_start, r0.x, r0.y, r0.vx, r0.vy, r0.w, r0.c,
+                                 r0.s, bl.x, bl.y, inc);
+  const float steps_new = steps + 1.0f;
+  const bool trunc = steps_new >= p.max_steps;
+  const bool done = out.chain_done || trunc;
+  if constexpr (EMIT_FINAL) group_obs<N>(p, tile, e, S + kObs, k, r, bl, r0.s, r0.c, ir0, 0.0f);
+
+  // ---- the reset spawn (envs/ssl_static_defenders.reset_state) on warps
+  // that hold a done env: the ball, then 6 defenders, each the first of 8
+  // candidates valid against everything placed before; then the auto-reset
+  // select.  Every lane of such a warp takes part in the votes; the lanes
+  // of envs that do not reset compute on what they hold and keep nothing.
+  const bool reset = done && live;
+  if (__ballot_sync(kFullMask, reset)) {
+    // candidate k of entity i (0 the ball, 1 + d defender d): slots
+    // 16 i + k (x) and 16 i + 8 + k (y); theta of robot k: slot 111 + k
+    float ux[1 + NY], uy[1 + NY], th_u = 0.0f;
+    if constexpr (RNG_KERNEL) {
+      // the env's 30 spawn blocks, drawn once: lane k draws blocks k, k + 8, ...
+      uint4* w = words + e * kSpawnBlocks;
+      if (reset) {  // four independent chains (a fixed trip count unrolls and interleaves them)
+        const PhiloxKey pk = philox_load_key(key);
+        uint4 blk[(kSpawnBlocks + kGroup - 1) / kGroup];
+#pragma unroll
+        for (int j = 0; j < (kSpawnBlocks + kGroup - 1) / kGroup; ++j)
+          blk[j] = philox_block(pk, (uint32_t)b, (uint32_t)(k + j * kGroup));
+#pragma unroll
+        for (int j = 0; j < (kSpawnBlocks + kGroup - 1) / kGroup; ++j)
+          if (k + j * kGroup < kSpawnBlocks) w[k + j * kGroup] = blk[j];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 1 + NY; ++i) {
+        ux[i] = philox_uniform(philox_word(w[4 * i + (k >> 2)], k & 3));
+        uy[i] = philox_uniform(philox_word(w[4 * i + 2 + (k >> 2)], k & 3));
+      }
+      if (k >= 1 && k < N) th_u = philox_uniform(philox_word(w[28 + ((k - 1) >> 2)], (k - 1) & 3));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 1 + NY; ++i) {
+        const float* __restrict__ rows = i == 0 ? ball_in : sp_in + (size_t)(16 * (i - 1)) * B;
+        ux[i] = reset ? rows[(size_t)k * B + b] : 0.0f;
+        uy[i] = reset ? rows[(size_t)(K + k) * B + b] : 0.0f;
+      }
+      if (reset && k >= 1 && k < N) th_u = th_in[(size_t)(k - 1) * B + b];
+    }
+    float px[2 + NY], py[2 + NY];
+    {  // ball: valid outside the GK area
+      const float cx = p.sp_x_lo + ux[0] * p.sp_x_span;
+      const float cy = p.sp_y_lo + uy[0] * p.sp_y_span;
+      first_valid(!(cx > p.gk_x && fabsf(cy) < p.half_pen_wid), cx, cy, px[0], py[0]);
+    }
+    px[1] = py[1] = 0.0f;  // the blue, preplaced at the origin
+    // defender i: 0.2 m from everything placed before.  Each candidate's
+    // test is brought up to date as each point is placed, so that only the
+    // newest point's distance lies between one vote and the next.
+    float cx[NY], cy[NY];
+    bool ok[NY];
+#pragma unroll
+    for (int i = 0; i < NY; ++i) {
+      cx[i] = p.sp_x_lo + ux[1 + i] * p.yl_x_span;
+      cy[i] = p.sp_y_lo + uy[1 + i] * p.yl_y_span;
+      ok[i] = true;
+    }
+    auto clears = [&](int i, int q) {
+      const float ddx = cx[i] - px[q];
+      const float ddy = cy[i] - py[q];
+      return (ddx * ddx + ddy * ddy) >= p.min_d2;
+    };
+#pragma unroll
+    for (int i = 0; i < NY; ++i) {
+      if (i == 0) {
+#pragma unroll
+        for (int d = 0; d < NY; ++d) ok[d] = clears(d, 0) && clears(d, 1);
+      }
+      first_valid(ok[i], cx[i], cy[i], px[2 + i], py[2 + i]);
+#pragma unroll
+      for (int d = i + 1; d < NY; ++d) ok[d] = ok[d] && clears(d, 2 + i);
+    }
+    if (reset) {
+      bl = SslBall{px[0], py[0], p.r_ball, 0.0f, 0.0f, 0.0f};
+      r.vx = r.vy = r.w = 0.0f;
+      if (k == 0) {
+        r.x = r.y = r.th = 0.0f;
+      } else if (k < N) {
+        r.th = th_u * p.two_pi;  // in [0, 2 pi); wrapped by the next substep
+#pragma unroll
+        for (int i = 0; i < NY; ++i) {  // robot k's point: a select, not an indexed (local-memory) load
+          if (i + 1 == k) {
+            r.x = px[2 + i];
+            r.y = py[2 + i];
+          }
+        }
+      }
+    }
+  }
+
+  // ---- outputs into the tile: robot 0 resets to heading 0
+  if (k < N) group_robot_rows<N>(tile, e, k, r);
+  group_obs<N>(p, tile, e, S, k, r, bl, done ? 0.0f : r0.s, done ? 1.0f : r0.c, ir0 && !done, 0.0f);
+  if (k == kScalarLane) {
+    T(0) = bl.x;
+    T(1) = bl.y;
+    T(2) = bl.z;
+    T(3) = bl.vx;
+    T(4) = bl.vy;
+    T(5) = bl.vz;
+    T(6 + 6 * N) = done ? 0.0f : steps_new;
+    const int a = S + OBS_ROWS;
+    T(a + 0) = out.reward;
+    T(a + 1) = out.chain_done ? 1.0f : 0.0f;
+    T(a + 2) = trunc ? 1.0f : 0.0f;
+#pragma unroll
+    for (int q = 0; q < NSH; ++q) {
+      const float sh = acc[q] + inc[q];
+      T(7 + 6 * N + q) = done ? 0.0f : sh;
+      T(a + 3 + q) = sh;
+    }
+  }
+#undef T
+  __syncthreads();
+
+  // ---- stage out
+  store_rows<S>(tile, 0, st_out, b0, B);
+  store_rows<OBS_ROWS>(tile, S, obs_out, b0, B);
+  store_rows<NAUX>(tile, S + OBS_ROWS, aux_out, b0, B);
+}
+
+template <bool EMIT_FINAL>
+__global__ void __launch_bounds__(kThreads, 2)
+    dr_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
+                   float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
+  constexpr int N = 5, kObs = 21, kAct = 4;
+  constexpr int S = 7 + 6 * N + 1;  // state rows: + the checkpoint count
+  constexpr int OBS_ROWS = kObs * (EMIT_FINAL ? 2 : 1);
+  constexpr int NAUX = 3;
+  using L = SslLayout<N>;
+  constexpr int IN_ROWS = S + kAct, OUT_ROWS = S + OBS_ROWS + NAUX;
+  constexpr int TILE_FLOATS = (IN_ROWS > OUT_ROWS ? IN_ROWS : OUT_ROWS) * kTileStride;
+  // the row tile and the groups' exchange slots apart: after the staging a
+  // warp touches only its own envs' columns, so no block barrier is needed
+  // between staging in and staging out
+  __shared__ float4 buf[(TILE_FLOATS + 3) / 4];
+  __shared__ float4 xchg[kEnvsPerBlock * L::kSlots];
+  float* tile = reinterpret_cast<float*>(buf);
+
+  const int k = threadIdx.x % kGroup;
+  const int e = threadIdx.x / kGroup;
+  const int b0 = blockIdx.x * kEnvsPerBlock;
+  const int rr = k < N ? k : 0;
+  float4* grp = xchg + e * L::kSlots;
+#define T(row) tile[(row) * kTileStride + e]
+
+  load_rows_in_flight<S>(tile, 0, st, b0, B);
+  load_rows_in_flight<kAct>(tile, S, act, b0, B);
+  __syncthreads();
+
+  SslRobot r;
+  r.x = T(6 + rr);
+  r.y = T(6 + N + rr);
+  r.th = T(6 + 2 * N + rr);
+  r.vx = T(6 + 3 * N + rr);
+  r.vy = T(6 + 4 * N + rr);
+  r.w = T(6 + 5 * N + rr);
+  SslBall bl{T(0), T(1), T(2), T(3), T(4), T(5)};
+  const float by_start = bl.y;
+  const float steps = T(6 + 6 * N), count = T(7 + 6 * N);
+  const float a0 = T(S), a1 = T(S + 1), a2 = T(S + 2);
+  const bool drib0 = T(S + 3) > 0.0f;
+
+  r.s = sinf(r.th);
+  r.c = cosf(r.th);
+  float tu = 0.0f, tv = 0.0f, tw = 0.0f;
+  if (k == 0) convert_action(p, a0, a1, a2, r.c, r.s, tu, tv, tw);
+  SslRobot0 r0;
+  bool ir0 = false;
+#pragma unroll 1
+  for (int sub = 0; sub < kSslSubsteps; ++sub)
+    ir0 = ssl_substep<N>(p, k, grp, r, bl, tu, tv, tw, 0.0f, drib0, r0);
+
+  // ---- collision (any yellow moving: a warp vote), course box, gates
+  const bool moving = k >= 1 && k < N && (fabsf(r.vx) > 0.05f || fabsf(r.vy) > 0.05f);
+  const bool collision = ((__ballot_sync(kFullMask, moving) >> (threadIdx.x & 24u)) & 0xffu) != 0u;
+  const DrStep out = dr_outcome(p, by_start, r0.x, r0.y, bl.x, bl.y, count, collision);
+  const float steps_new = steps + 1.0f;
+  const bool trunc = steps_new >= p.max_steps;
+  const bool done = out.term || trunc;
+  // obs head: checkpoint progress; infrared reported in {-1, 1}
+  if constexpr (EMIT_FINAL) {
+    if (k == kScalarLane) T(S + kObs) = (out.new_count / 6.0f) * 2.0f - 1.0f;
+    group_obs<N>(p, tile, e, S + kObs + 1, k, r, bl, r0.s, r0.c, ir0, -1.0f);
+  }
+  float sin0 = r0.s, cos0 = r0.c;
+  if (done) {  // the course (envs/ssl_dribbling.reset_state), heading pi
+    bl = SslBall{-0.1f, 0.0f, p.r_ball, 0.0f, 0.0f, 0.0f};
+    r.x = k == 0 ? 0.0f : k == 1 ? kNode0 : k == 2 ? kNode1 : k == 3 ? kNode2 : kNode3;
+    r.y = 0.0f;
+    r.th = p.pi;
+    r.vx = r.vy = r.w = 0.0f;
+    // a reset robot 0 faces pi: its obs trig is the f32 sin/cos of pi
+    // (sin ~ -8.74e-8, not 0), as the plain version computes it
+    sin0 = sinf(p.pi);
+    cos0 = cosf(p.pi);
+  }
+
+  // ---- outputs into the tile
+  if (k < N) group_robot_rows<N>(tile, e, k, r);
+  group_obs<N>(p, tile, e, S + 1, k, r, bl, sin0, cos0, ir0 && !done, -1.0f);
+  if (k == kScalarLane) {
+    T(0) = bl.x;
+    T(1) = bl.y;
+    T(2) = bl.z;
+    T(3) = bl.vx;
+    T(4) = bl.vy;
+    T(5) = bl.vz;
+    T(6 + 6 * N) = done ? 0.0f : steps_new;
+    T(7 + 6 * N) = done ? 0.0f : out.new_count;
+    T(S) = ((done ? 0.0f : out.new_count) / 6.0f) * 2.0f - 1.0f;
+    const int a = S + OBS_ROWS;
+    T(a + 0) = out.reward;
+    T(a + 1) = out.term ? 1.0f : 0.0f;
+    T(a + 2) = trunc ? 1.0f : 0.0f;
+  }
+#undef T
+  __syncthreads();
+
+  store_rows<S>(tile, 0, st_out, b0, B);
+  store_rows<OBS_ROWS>(tile, S, obs_out, b0, B);
+  store_rows<NAUX>(tile, S + OBS_ROWS, aux_out, b0, B);
 }
 
 // ---------------------------------------------------------------- PE
@@ -495,7 +889,7 @@ __device__ __forceinline__ void pe_ball_obs(const SslParams& p, const SslBall& b
 }
 
 template <bool EMIT_FINAL, bool RNG_KERNEL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadBlock)
     pe_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
                    const float* __restrict__ ball_in, const float* __restrict__ recv_in,
                    const long long* __restrict__ key, float* __restrict__ st_out, float* __restrict__ obs_out,
@@ -608,9 +1002,18 @@ __global__ void __launch_bounds__(kThreads)
 
 #undef LD
 
+// one thread per env (CP, PE, and the one-thread SD and DR kernels)
 template <class Kernel, class... Args>
 cudaError_t launch(Kernel kernel, int B, cudaStream_t stream, Args... args) {
-  const dim3 grid((B + kThreads - 1) / kThreads), block(kThreads);
+  const dim3 grid((B + kThreadBlock - 1) / kThreadBlock), block(kThreadBlock);
+  kernel<<<grid, block, 0, stream>>>(args..., B);
+  return cudaGetLastError();
+}
+
+// a group of kGroup lanes per env (the SD and DR group kernels)
+template <class Kernel, class... Args>
+cudaError_t launch_group(Kernel kernel, int B, cudaStream_t stream, Args... args) {
+  const dim3 grid((B + kEnvsPerBlock - 1) / kEnvsPerBlock), block(kThreads);
   kernel<<<grid, block, 0, stream>>>(args..., B);
   return cudaGetLastError();
 }
@@ -627,15 +1030,30 @@ const char* ssl_params_fields() {
 #undef SSL_NAME
 }
 
-// One fused SSLStaticDefenders-v0 step (N = 7); noise rows ball_u (16, B),
-// spawn_u (96, B), theta_u (6, B), or key (rng_kernel).  Returns a
-// cudaError_t.
+// One fused SSLStaticDefenders-v0 step (N = 7) on 8 lanes per env; noise
+// rows ball_u (16, B), spawn_u (96, B), theta_u (6, B), or key
+// (rng_kernel).  Returns a cudaError_t.
 int ssl_sd_full_step(int emit_final, int rng_kernel, const SslParams* p, const float* st, const float* act,
                      const float* ball_u, const float* spawn_u, const float* theta_u, const long long* key,
                      float* st_out, float* obs_out, float* aux_out, int B, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
 #define SD_LAUNCH(EF, RK) \
-  launch(sd_full_kernel<EF, RK>, B, s, *p, st, act, ball_u, spawn_u, theta_u, key, st_out, obs_out, aux_out)
+  launch_group(sd_full_kernel<EF, RK>, B, s, *p, st, act, ball_u, spawn_u, theta_u, key, st_out, obs_out, aux_out)
+  if (emit_final && rng_kernel) return (int)SD_LAUNCH(true, true);
+  if (emit_final) return (int)SD_LAUNCH(true, false);
+  if (rng_kernel) return (int)SD_LAUNCH(false, true);
+  return (int)SD_LAUNCH(false, false);
+#undef SD_LAUNCH
+}
+
+// The same step, one thread per env: the same arguments and outputs.
+int ssl_sd_full_step_one_thread(int emit_final, int rng_kernel, const SslParams* p, const float* st,
+                                const float* act, const float* ball_u, const float* spawn_u, const float* theta_u,
+                                const long long* key, float* st_out, float* obs_out, float* aux_out, int B,
+                                void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+#define SD_LAUNCH(EF, RK) \
+  launch(sd_thread_kernel<EF, RK>, B, s, *p, st, act, ball_u, spawn_u, theta_u, key, st_out, obs_out, aux_out)
   if (emit_final && rng_kernel) return (int)SD_LAUNCH(true, true);
   if (emit_final) return (int)SD_LAUNCH(true, false);
   if (rng_kernel) return (int)SD_LAUNCH(false, true);
@@ -657,14 +1075,25 @@ int ssl_cp_full_step(int emit_final, int rng_kernel, const SslParams* p, const f
 #undef CP_LAUNCH
 }
 
-// One fused SSLDribbling-v0 step (N = 5).  It draws no noise: rng_kernel
-// selects nothing (the wrapper advances the key).  Returns a cudaError_t.
+// One fused SSLDribbling-v0 step (N = 5) on 8 lanes per env.  It draws no
+// noise: rng_kernel selects nothing (the wrapper advances the key).
+// Returns a cudaError_t.
 int ssl_dr_full_step(int emit_final, int rng_kernel, const SslParams* p, const float* st, const float* act,
                      float* st_out, float* obs_out, float* aux_out, int B, void* stream) {
   (void)rng_kernel;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (emit_final) return (int)launch(dr_full_kernel<true>, B, s, *p, st, act, st_out, obs_out, aux_out);
-  return (int)launch(dr_full_kernel<false>, B, s, *p, st, act, st_out, obs_out, aux_out);
+  if (emit_final) return (int)launch_group(dr_full_kernel<true>, B, s, *p, st, act, st_out, obs_out, aux_out);
+  return (int)launch_group(dr_full_kernel<false>, B, s, *p, st, act, st_out, obs_out, aux_out);
+}
+
+// The same step, one thread per env.
+int ssl_dr_full_step_one_thread(int emit_final, int rng_kernel, const SslParams* p, const float* st,
+                                const float* act, float* st_out, float* obs_out, float* aux_out, int B,
+                                void* stream) {
+  (void)rng_kernel;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (emit_final) return (int)launch(dr_thread_kernel<true>, B, s, *p, st, act, st_out, obs_out, aux_out);
+  return (int)launch(dr_thread_kernel<false>, B, s, *p, st, act, st_out, obs_out, aux_out);
 }
 
 // One fused SSLPassEndurance-v0 step (N = 2); noise rows ball_u (2, B) and

@@ -74,15 +74,6 @@ __device__ __forceinline__ float to_wheel(float a, const VssParams& p) {
   return v / p.wheel_r;
 }
 
-__device__ __forceinline__ uint32_t word_of(const uint4& w, int i) {
-  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-}
-
-// uniform of Philox slot `slot` of env `env`
-__device__ __forceinline__ float slot_uniform(const PhiloxKey& pk, uint32_t env, int slot) {
-  return philox_uniform(word_of(philox_block(pk, env, (uint32_t)(slot / 4)), slot % 4));
-}
-
 template <int NB, int NY, bool EMIT_FINAL, bool RNG_KERNEL>
 __global__ void __launch_bounds__(kThreads, 2)
     vss_full_kernel(const VssParams p, const float* __restrict__ st, const float* __restrict__ act,
@@ -161,8 +152,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int s1 = OU1 + 2 * rr, s2 = OU2 + 2 * rr;  // wheel w at s1 + w, s2 + w
     const uint4 w1 = words[s1 / 4 - OU_BLK0];
     const uint4 w2 = words[s2 / 4 - OU_BLK0];
-    n0 = box_muller(philox_uniform(word_of(w1, s1 % 4)), philox_uniform(word_of(w2, s2 % 4)));
-    n1 = box_muller(philox_uniform(word_of(w1, s1 % 4 + 1)), philox_uniform(word_of(w2, s2 % 4 + 1)));
+    n0 = box_muller(philox_uniform(philox_word(w1, s1 % 4)), philox_uniform(philox_word(w2, s2 % 4)));
+    n1 = box_muller(philox_uniform(philox_word(w1, s1 % 4 + 1)), philox_uniform(philox_word(w2, s2 % 4 + 1)));
     __syncwarp();  // the substeps overwrite the slots next
   }
 
@@ -257,15 +248,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   const unsigned reset_mask = __ballot_sync(kFullMask, reset);
   if (reset) {
     float th_u;
-    if constexpr (RNG_KERNEL) th_u = slot_uniform(pk, (uint32_t)b, NSP + rr);
+    if constexpr (RNG_KERNEL) th_u = philox_slot_uniform(pk, (uint32_t)b, NSP + rr);
     else th_u = th_in[(size_t)rr * B + b];
     float px[1 + N], py[1 + N];
 #pragma unroll
     for (int i = 0; i < 1 + N; ++i) {
       float ux, uy;  // candidate k's uniforms: slots i*2K + k and i*2K + K + k
       if constexpr (RNG_KERNEL) {
-        ux = slot_uniform(pk, (uint32_t)b, i * 2 * K + k);
-        uy = slot_uniform(pk, (uint32_t)b, i * 2 * K + K + k);
+        ux = philox_slot_uniform(pk, (uint32_t)b, i * 2 * K + k);
+        uy = philox_slot_uniform(pk, (uint32_t)b, i * 2 * K + K + k);
       } else {
         ux = sp_in[(size_t)(i * 2 * K + k) * B + b];
         uy = sp_in[(size_t)(i * 2 * K + K + k) * B + b];

@@ -39,12 +39,7 @@
 //     row sums' form).
 // Both build with --fmad=false and no fast math (ops/_build.py).
 #pragma once
-#include <cuda_runtime.h>
-
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kGroup = 8;          // lanes per env
-constexpr int kEnvsPerBlock = 32;  // a block's envs: one 128-byte segment of each row
-constexpr int kThreads = kEnvsPerBlock * kGroup;
+#include "lane_group.cuh"
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) { return fminf(fmaxf(v, lo), hi); }
 
@@ -313,34 +308,4 @@ __device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, cons
   const bool hit_y = fabsf(b.y) > y_wall;
   if (hit_y) b.y = sy * y_wall;
   if (hit_y && b.vy * sy > 0.0f) b.vy = p.neg_rest_wall * b.vy;
-}
-
-// ---- staging: a block's envs pass through shared memory in (row, env)
-// tiles, so each global row of kEnvsPerBlock envs is one coalesced 128-byte
-// access.  A row stride of 36 floats puts a group's 8 lanes, reading rows
-// base + k of 4 neighbouring envs, on 32 distinct banks.
-constexpr int kTileStride = kEnvsPerBlock + 4;
-
-// rows [0, ROWS) of the (rows, B) array `src` for the block's envs into
-// tile rows [row0, row0 + ROWS); envs past B read as 0
-template <int ROWS>
-__device__ __forceinline__ void load_rows(float* tile, int row0, const float* __restrict__ src, int b0, int B) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * kEnvsPerBlock; i += kThreads) {
-    const int row = i / kEnvsPerBlock, e = i % kEnvsPerBlock;
-    const int b = b0 + e;
-    tile[(row0 + row) * kTileStride + e] = b < B ? src[(size_t)row * B + b] : 0.0f;
-  }
-}
-
-// tile rows [row0, row0 + ROWS) into rows [0, ROWS) of `dst`; envs past B
-// are not stored
-template <int ROWS>
-__device__ __forceinline__ void store_rows(const float* tile, int row0, float* __restrict__ dst, int b0, int B) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * kEnvsPerBlock; i += kThreads) {
-    const int row = i / kEnvsPerBlock, e = i % kEnvsPerBlock;
-    const int b = b0 + e;
-    if (b < B) dst[(size_t)row * B + b] = tile[(row0 + row) * kTileStride + e];
-  }
 }

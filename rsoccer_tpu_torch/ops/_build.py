@@ -155,6 +155,8 @@ def load() -> ctypes.CDLL:
     # key, st_out, obs_out, aux_out, B, stream
     lib.ssl_sd_full_step.argtypes = [i, i] + [p] * 10 + [i, p]
     lib.ssl_sd_full_step.restype = i
+    lib.ssl_sd_full_step_one_thread.argtypes = lib.ssl_sd_full_step.argtypes
+    lib.ssl_sd_full_step_one_thread.restype = i
     # emit_final, rng_kernel, params*, st, act, enemy_u, key, st_out,
     # obs_out, aux_out, B, stream
     lib.ssl_cp_full_step.argtypes = [i, i] + [p] * 8 + [i, p]
@@ -163,6 +165,8 @@ def load() -> ctypes.CDLL:
     # B, stream
     lib.ssl_dr_full_step.argtypes = [i, i] + [p] * 6 + [i, p]
     lib.ssl_dr_full_step.restype = i
+    lib.ssl_dr_full_step_one_thread.argtypes = lib.ssl_dr_full_step.argtypes
+    lib.ssl_dr_full_step_one_thread.restype = i
     # emit_final, rng_kernel, params*, st, act, ball_u, recv_u, key, st_out,
     # obs_out, aux_out, B, stream
     lib.ssl_pe_full_step.argtypes = [i, i] + [p] * 9 + [i, p]

@@ -6,12 +6,16 @@ Replaces the TPU kernels ``rsoccer_tpu/ops/pallas_ssl_full.py:456``
 ``:1086`` (``make_pallas_dr_full_step``) and ``:1327``
 (``make_pallas_pe_full_step``), with their shared launch ``_build_call``
 (``:289``) and SSL world body ``make_ssl_physics_body`` (``:90``).  The
-kernels are ``csrc/ssl_full.cu`` with the world step ``csrc/ssl_body.cuh``
-(and ``pair_collide.cuh``, ``philox.cuh``), one thread per env: action
-conversion -> 5 SSL substeps (omni drive, robot contacts, dribbler,
-vertical ball, ball-robot with the dribbler face, kick, infrared) -> the
-task's termination and reward -> on done lanes only, the reset -> auto-reset
-select -> obs.
+kernels are ``csrc/ssl_full.cu``: action conversion -> 5 SSL substeps
+(omni drive, robot contacts, dribbler, vertical ball, ball-robot with the
+dribbler face, kick, infrared) -> the task's termination and reward -> on
+done envs only, the reset -> auto-reset select -> obs.  The
+StaticDefenders and Dribbling steps run one env on a group of 8 lanes, one
+robot per lane, on the cooperative world step ``csrc/ssl_world.cuh``, up to
+``GROUP_MAX_ENVS`` envs, and one env per thread above it; the
+ContestedPossession and PassEndurance steps run one env per thread.  The
+one-thread kernels step the world with ``csrc/ssl_body.cuh`` (and
+``pair_collide.cuh``); ``philox.cuh`` serves the in-kernel draws.
 
 State row layout (N robots), identical to the TPU kernels':
     0:6          ball x, y, z, v_x, v_y, v_z
@@ -66,6 +70,12 @@ from rsoccer_tpu_torch.physics.ssl import (
 
 N_SUBSTEPS = 5  # compiled into the kernels
 SD_ROBOTS, CP_ROBOTS, DR_ROBOTS, PE_ROBOTS = 7, 2, 5, 2  # compiled into the kernels
+# Up to this many envs the SD and DR steps launch their 8-lane group
+# kernels, above it their one-thread-per-env kernels: one wave of the group
+# kernels' 32-env blocks, two resident per SM on the H100's 132 SMs.  On the
+# card the group kernels win at 8192 envs and lose from 10240 on (PERF.md,
+# section 6).
+GROUP_MAX_ENVS = 8448
 K = spawn_mod.N_CANDIDATES
 DR_KEYS = ()  # the reference's Dribbling step has no info keys
 
@@ -364,6 +374,8 @@ def _launch(entry: str, env, n_robots: int, state_rows: int, n_aux: int, state, 
         for i, (t, rows) in enumerate(zip(noise, noise_rows)):
             _build.check_operand(t, f"noise[{i}]", rows, b, dev)
 
+    if b > GROUP_MAX_ENVS and entry in ("ssl_sd_full_step", "ssl_dr_full_step"):
+        entry += "_one_thread"
     lib = _library()
     st_out = torch.empty_like(state)
     obs = torch.empty((env.obs_size * (2 if emit_final else 1), b), dtype=torch.float32, device=dev)
@@ -406,7 +418,9 @@ def sd_full_step(env, state, action, ball_u=None, spawn_u=None, theta_u=None, *,
 
     Noise either as input rows (``ball_u``, ``spawn_u``, ``theta_u``), or
     drawn from ``key`` (int64 ``[k0, k1, step]``, advanced by one).
-    Returns ``(state, obs, aux)``.
+    Returns ``(state, obs, aux)``.  On the card it launches the 8-lane group
+    kernel up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel
+    above: the crossover the H100 measured (PERF.md, section 6).
     """
     noise = (ball_u, spawn_u, theta_u)
     if _dispatch("sd_full_step", env, state, noise, key):
@@ -440,7 +454,9 @@ def cp_full_step(env, state, action, enemy_u=None, *, key=None, emit_final: bool
 def dr_full_step(env, state, action, *, key=None, emit_final: bool = False):
     """One fused SSLDribbling-v0 step.  It draws no noise; ``key``, where
     given (the kernel-RNG mode), is advanced by one all the same.  Returns
-    ``(state, obs, aux)``."""
+    ``(state, obs, aux)``.  On the card it launches the 8-lane group kernel
+    up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel above:
+    the crossover the H100 measured (PERF.md, section 6)."""
     if _dispatch("dr_full_step", env, state, (), key):
         out = _launch("ssl_dr_full_step", env, DR_ROBOTS, dr_state_size(), 3, state, action,
                       (), (), key, emit_final)

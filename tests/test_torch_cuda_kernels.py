@@ -25,7 +25,7 @@ pytestmark = pytest.mark.cuda
 
 B = 256
 ATOL = 5e-5
-RAGGED = [1, 37, 8193]  # batches that leave the last 32-env block part empty
+RAGGED = [1, 37, 8191, 8193]  # batches that leave the last 32-env block part empty
 
 
 @pytest.fixture()
@@ -163,6 +163,32 @@ def launch_counts():
     return [w.launches for w in WRAPPERS]
 
 
+def check_ssl_steps(env, wrapper, plain, draw, st_k, key, rng_mode, emit_final, gen, n_steps=5):
+    """``n_steps`` fused SSL steps, kernel and plain each on their own
+    trajectory from ``st_k``; returns the dones seen."""
+    b = st_k.shape[-1]
+    st_p, key_p = st_k.clone(), key.clone()
+    launches = wrapper.launches
+    dones = 0
+    for t in range(n_steps):
+        act = torch.rand((env.action_size, b), generator=gen, device=st_k.device) * 2 - 1
+        if rng_mode == "kernel":
+            got = wrapper(env, st_k, act, key=key, emit_final=emit_final)
+            rows = draw(env, key_p, b)
+        else:
+            rows = draw(env, key, b)
+            got = wrapper(env, st_k, act, *rows, emit_final=emit_final)
+        want = plain(env, st_p, act, *rows, emit_final)
+        torch.cuda.synchronize()
+        assert_step_close(env, got, want, f"step {t}")
+        dones += int(got[2][1:3].sum())
+        st_k, st_p = got[0], want[0]
+    assert wrapper.launches == launches + n_steps
+    if rng_mode == "kernel":
+        assert torch.equal(key, key_p)
+    return dones
+
+
 @pytest.mark.parametrize("rng_mode", ["input", "kernel"])
 @pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
 @pytest.mark.parametrize("max_steps", [None, 3], ids=["limit_default", "limit3"])
@@ -174,28 +200,45 @@ def test_ssl_kernel_matches_plain(cuda, env_id, rng_mode, emit_final, max_steps)
         env.max_episode_steps = max_steps
     key = make_key(1, device=cuda)
     st_k, _ = BatchedEnv(env, B, device=cuda, fused=True).reset(key)
-    st_p, key_p = st_k.clone(), key.clone()
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    launches = wrapper.launches
-    dones = 0
-    for t in range(5):
-        act = torch.rand((env.action_size, B), generator=gen, device=cuda) * 2 - 1
-        if rng_mode == "kernel":
-            got = wrapper(env, st_k, act, key=key, emit_final=emit_final)
-            rows = draw(env, key_p, B)
-        else:
-            rows = draw(env, key, B)
-            got = wrapper(env, st_k, act, *rows, emit_final=emit_final)
-        want = plain(env, st_p, act, *rows, emit_final)
-        torch.cuda.synchronize()
-        assert_step_close(env, got, want, f"step {t}")
-        dones += int(got[2][1:3].sum())
-        st_k, st_p = got[0], want[0]
-    assert wrapper.launches == launches + 5
-    if rng_mode == "kernel":
-        assert torch.equal(key, key_p)
+    dones = check_ssl_steps(env, wrapper, plain, draw, st_k, key, rng_mode, emit_final,
+                            torch.Generator(device=cuda).manual_seed(2))
     if max_steps is not None:  # auto-resets inside the window
         assert dones > 0
+
+
+@pytest.mark.parametrize("batch", RAGGED)
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+@pytest.mark.parametrize("env_id", ["SSLStaticDefenders-v0", "SSLDribbling-v0"])
+def test_ssl_group_kernel_matches_plain_ragged(cuda, env_id, batch, rng_mode, emit_final):
+    """The SD and DR steps on 8 lanes per env at batches that leave a block
+    part empty, through auto-resets that fall on different steps in one
+    warp."""
+    wrapper, plain, draw = SSL[env_id]
+    env = rsoccer_tpu_torch.make(env_id)
+    env.max_episode_steps = 3
+    key = make_key(4, device=cuda)
+    st_k, _ = BatchedEnv(env, batch, device=cuda, fused=True).reset(key)
+    dones = check_ssl_steps(env, wrapper, plain, draw, stagger(st_k, env.n_robots), key, rng_mode, emit_final,
+                            torch.Generator(device=cuda).manual_seed(6))
+    assert dones >= batch  # every env reset at least once
+
+
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+@pytest.mark.parametrize("env_id", ["SSLStaticDefenders-v0", "SSLDribbling-v0"])
+def test_ssl_one_thread_kernel_matches_plain(cuda, env_id, rng_mode, emit_final):
+    """Above GROUP_MAX_ENVS the SD and DR wrappers launch their one-thread
+    kernels: held to the plain versions there, through auto-resets."""
+    wrapper, plain, draw = SSL[env_id]
+    env = rsoccer_tpu_torch.make(env_id)
+    env.max_episode_steps = 3
+    batch = sf.GROUP_MAX_ENVS + 1
+    key = make_key(5, device=cuda)
+    st_k, _ = BatchedEnv(env, batch, device=cuda, fused=True).reset(key)
+    dones = check_ssl_steps(env, wrapper, plain, draw, stagger(st_k, env.n_robots), key, rng_mode, emit_final,
+                            torch.Generator(device=cuda).manual_seed(7))
+    assert dones >= batch
 
 
 @pytest.mark.parametrize("env_id", list(SSL))
