@@ -19,11 +19,18 @@ rollout to the unfused one.  The VSS fused step, the physics kernel and the
 StaticDefenders and Dribbling steps (both RNG modes) are held to their
 plain versions again at a ragged batch (8191 envs: the last block part
 empty), the StaticDefenders and Dribbling steps also at 16384 envs, where
-their wrappers launch the one-thread kernels, and all of them are timed
-at 32768 and 131072 envs.  Then it
-drives each main path —
+their wrappers launch the one-thread kernels.  VSS-v0 at 5v5 on its own
+field, at 1v0 and at 3v3 beyond the Taylor bound (``time_step`` 0.1) is
+held the same way at 8192 and 8191 envs (the one-thread VSS kernels; at
+3v3 the group kernel's exact-trig policy), the physics kernel at 5v5 and
+1v0, and at 3v3 the one-thread VSS kernels are held bit for bit to the
+group kernels at 32768 envs.  The VSS kernels, K4 and K6 are timed at
+32768 and 131072 envs through their wrappers' routes.  Then it drives each
+main path —
 ``BatchedEnv(<id>, 8192, device="cuda", fused=True, fused_rng="kernel")``,
-and ``BatchedEnv(VSS-v0, 8192, device="cuda", fused_physics=True)`` —
+``BatchedEnv(VSS-v0, 8192, device="cuda", fused_physics=True)``, and
+``make_vec("VSS-v0", 8192, ..., field_type=1, n_robots_blue=5,
+n_robots_yellow=5)`` fused and ``fused_physics`` —
 through ``make_rollout_fn`` with every launch count set to 0 just before and
 read just after, and times it.  Each phase prints one line; any failure
 exits non-zero.  The last two lines are the kernels' JSON record and
@@ -31,11 +38,14 @@ exits non-zero.  The last two lines are the kernels' JSON record and
 
 With ``--baseline DIR`` it runs instead one comparison against the kernels
 built from another tree's sources in DIR (its ``rsoccer_tpu_torch/csrc``,
-for example the parent commit's, unpacked with ``git archive``): the VSS
-kernels and all four SSL steps, outputs bit for bit at 8192 to 131072 envs
-(the SSL steps in both RNG modes and both obs variants), then the
-StaticDefenders and Dribbling steps timed in turns (baseline, this, this,
-baseline) with this tree's one-thread kernels beside them.
+for example the parent commit's, unpacked with ``git archive``): the 3v3
+VSS kernels bit for bit, this tree's one-thread VSS kernels with them, all
+timed in turns (baseline, group, one thread, one thread, group, baseline)
+from 8192 to 131072 envs (the group-vs-one-thread crossover); all four SSL
+steps, outputs bit for bit at 8192 to 131072 envs (in both RNG modes and
+both obs variants), then the StaticDefenders and Dribbling steps timed in
+turns (baseline, this, this, baseline) with this tree's one-thread kernels
+beside them.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -56,6 +66,16 @@ B = 8192
 RAGGED_B = 8191  # leaves the last 32-env block of the group kernels part empty
 ONE_THREAD_B = 16384  # above ops/ssl_full.GROUP_MAX_ENVS: the one-thread SD and DR kernels
 SCALE_BATCHES = (32768, 131072)
+VSS_THREAD_B = 32768  # above VSS_GROUP_MAX_ENVS: the one-thread VSS kernels, checked bit for bit at 3v3
+# VSS-v0 beyond 3v3 and the Taylor bound: 5v5 on its own field (state 95
+# rows, obs 64), 1v0 (no robot pairs), 3v3 with exact trig each substep
+VSS_CONFIGS = {
+    "5v5": dict(field_type=1, n_robots_blue=5, n_robots_yellow=5),
+    "1v0": dict(n_robots_blue=1, n_robots_yellow=0),
+    "3v3_dt0.1": dict(time_step=0.1),
+}
+# the group-vs-one-thread crossover of the VSS kernels, timed in turns
+VSS_CROSSOVER_BATCHES = (B, 10240, 16384, 24576, 32768, 131072)
 N_CHECK_STEPS = 5
 WARM_STEPS = 60  # SSL checks start mid-episode: contacts, dribbling, kicks
 ROLLOUT_STEPS = 100
@@ -71,6 +91,32 @@ F32_OPS_PER_S = 67e12
 
 def phase(name, **fields):
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def make_env(task):
+    import rsoccer_tpu_torch as rt
+
+    return rt.make(task.env_id, **task.env_kwargs)
+
+
+def vss_full_ops(n):
+    """K1's f32 operations per env (ops_env) and per done env (ops_reset),
+    counted from the kernel source for n robots: OU + wheels ~17 per robot
+    and the n + 1 Philox blocks of the OU slots; 5 substeps x (n robots x 30
+    + n(n-1)/2 pairs x 25 + walls 8 per robot + ball 60 + n contacts x 20);
+    obs ~10 per robot.  A reset: spawn placement (n + 1 entities x 8
+    candidates against the points placed before, ~4 each, and their
+    setup) and its 4(n + 1) Philox blocks, the theta block."""
+    ops_env = 17 * n + (n + 1) * 40 + 5 * (38 * n + 25 * n * (n - 1) // 2 + 60 + 20 * n) + 10 * n
+    ops_reset = 16 * n * (n + 1) + 32 * (n + 1) + 40 * (4 * (n + 1) + 1)
+    return ops_env, ops_reset
+
+
+def vss_physics_ops(n):
+    """K2's f32 operations per env for n robots: commands and trig 12 per
+    robot, 5 substeps x (n robots x 35 + n(n-1)/2 pairs x 35 + apply 4 and
+    walls 16 per robot + ball 24 + n contacts x 28 + 4 + ball walls 20)."""
+    return 12 * n + 5 * (55 * n + 35 * n * (n - 1) // 2 + 28 * n + 48)
 
 
 def card_line() -> str:
@@ -257,14 +303,13 @@ def check_kernel_vs_plain(task, rng_mode: str, batch: int = B):
     from the kernel's obs and go to both), DR and PE from lanes rebuilt by
     ``task.prepare``, at ``batch`` envs.  Returns (max error, where it is,
     dones seen, ``task.events`` summed over the checked steps)."""
-    import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops.philox import make_key
 
     worst, where, dones, events = 0.0, {}, 0, {}
     for max_steps in (None, 3):
         for emit_final in (False, True):
-            env = rt.make(task.env_id)
+            env = make_env(task)
             if max_steps is not None:
                 env.max_episode_steps = max_steps
             benv = BatchedEnv(env, batch, device="cuda", fused=True, fused_rng="kernel")
@@ -337,12 +382,13 @@ def pe_events(kinds, st_before, got, t):
     return ev
 
 
-def check_physics_vs_plain(batch: int = B):
+def check_physics_vs_plain(batch: int = B, env_kwargs=None):
     """The VSS physics kernel on a ``fused_physics`` rollout of ``batch``
-    envs: at every step the kernel vs its plain version on that step's
-    arrays, and the whole step (state, obs, reward, flags, info) vs the
-    unfused env step fed the same noise, for both step-limit settings and
-    both obs variants.  Returns (max error, dones seen)."""
+    envs of VSS-v0 (with ``env_kwargs``): at every step the kernel vs its
+    plain version on that step's arrays, and the whole step (state, obs,
+    reward, flags, info) vs the unfused env step fed the same noise, for
+    both step-limit settings and both obs variants.  Returns (max error,
+    dones seen)."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops import vss_full as vf
@@ -352,7 +398,7 @@ def check_physics_vs_plain(batch: int = B):
     worst, dones = 0.0, 0
     for max_steps in (None, 3):
         for final in (False, True):
-            env = rt.make("VSS-v0")
+            env = rt.make("VSS-v0", **(env_kwargs or {}))
             if max_steps is not None:
                 env.max_episode_steps = max_steps
             fused = BatchedEnv(env, batch, device="cuda", fused_physics=True)
@@ -385,12 +431,12 @@ def check_physics_vs_plain(batch: int = B):
                     aux = torch.stack([rew, term.float(), trunc.float()] + list(info.values()))
                     return vf.pack_vss_state(out[0]), torch.cat(out[1:1 + n_obs]), aux
 
-                worst = max(worst, *errs, compare_step(6, as_step(got), as_step(want), tag)[0])
+                worst = max(worst, *errs, compare_step(env.n_robots, as_step(got), as_step(want), tag)[0])
                 dones += int((got[-3] | got[-2]).sum())
                 st_k, st_p = got[0], want[0]
     torch.cuda.synchronize()
     if dones == 0:
-        raise AssertionError("vss_physics: no auto-reset inside the checked window")
+        raise AssertionError(f"vss_physics {env_kwargs}: no auto-reset inside the checked window")
     return worst, dones
 
 
@@ -530,8 +576,8 @@ def time_at_scale(card, k1, k2, ssl_tasks):
     """Device time per launch of the VSS fused step (task ``k1``, both RNG
     modes), the physics kernel (task ``k2``) and the SSL steps of
     ``ssl_tasks`` (K4 in both RNG modes, K6) at each of SCALE_BATCHES envs,
-    on the state after 20 main-path steps, through the wrappers, with each
-    call's bound.  One phase per batch."""
+    on the state after 20 main-path steps, through the wrappers (so through
+    each one's ``route``), with each call's bound.  One phase per batch."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch import rollout as R
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
@@ -573,7 +619,8 @@ def time_at_scale(card, k1, k2, ssl_tasks):
             bound, by, _, _ = bound_ms(task, ins, outs, n_done)
             bound_us[name] = [bound * 1e3, by]
         torch.cuda.synchronize()
-        phase("kernel_scale", card=card, B=batch, device_us=dev_us, bound_us=bound_us)
+        phase("kernel_scale", card=card, B=batch, device_us=dev_us, bound_us=bound_us,
+              vss_route={"vss_full": vf.route(env, batch), "vss_physics": vp.route(env, batch)})
 
 
 def build_baseline(csrc_dir):
@@ -603,7 +650,9 @@ def build_baseline(csrc_dir):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vss_params_fields.restype = ctypes.c_char_p
     lib.ssl_params_fields.restype = ctypes.c_char_p
-    lib.vss_full_step.argtypes = [i, i, i, i] + [p] * 10 + [i, p]
+    # a tree before the one-thread VSS kernels: no exact_trig argument
+    n_int = 5 if hasattr(lib, "vss_full_step_one_thread") else 4
+    lib.vss_full_step.argtypes = [i] * n_int + [p] * 10 + [i, p]
     lib.vss_physics_step.argtypes = [p] * 6 + [i, i, p]
     for entry, n_ptr in SSL_ENTRIES.values():
         getattr(lib, entry).argtypes = [i, i] + [p] * n_ptr + [i, p]
@@ -689,7 +738,7 @@ def ssl_against_baseline(lib, tasks, card):
                     key.copy_(k0)
                     base = tuple(torch.full_like(t, float("nan")) for t in got)
                     ssl_entry_call(lib, entry, env, st, act, rows, key if rng else None, emit_final, base)
-                    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, base)):
+                    if not bit_equal(got, base):
                         raise AssertionError(f"{task.name} at {batch} envs (rng_kernel={rng}, "
                                              f"final={emit_final}): outputs differ from the baseline's")
             if task.name not in SSL_TIMED:
@@ -718,74 +767,152 @@ def ssl_against_baseline(lib, tasks, card):
                        for n, t in turns.items()})
 
 
-def vss_against_baseline(lib, card):
-    """This tree's VSS kernels against the baseline library's: every output
-    bit for bit, then device us per launch in turns (baseline, this, this,
-    baseline) at 8192, 32768 and 131072 envs, on the state after 20 VSS-v0
-    steps.  One phase per batch.  Raises if an output differs."""
+def vss_entry_call(lib, entry, env, st, act, rows, key, outs, emit_final=False):
+    """Launch the C entry ``entry`` of ``lib`` (a VSS fused step) on the
+    given operands into ``outs``, without advancing the key.  A library
+    built from a tree before the one-thread VSS kernels (no
+    ``vss_full_step_one_thread``) takes no ``exact_trig`` argument."""
     import ctypes
 
+    from rsoccer_tpu_torch.ops import vss_full as vf
+
+    rng = key is not None
+    ou, sp, th = (None, None, None) if rng else (r.data_ptr() for r in rows)
+    trig = (int(not vf.taylor_rotation_holds(env)),) if hasattr(lib, "vss_full_step_one_thread") else ()
+    err = getattr(lib, entry)(env.n_blue, env.n_yellow, int(emit_final), int(rng), *trig,
+                              ctypes.byref(vf._params_struct(env)), st.data_ptr(), act.data_ptr(), ou, sp, th,
+                              key.data_ptr() if rng else None, *(t.data_ptr() for t in outs), st.shape[-1],
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
+def vss_physics_entry_call(lib, entry, env, rb, bl, cmd, outs):
+    """Launch the C entry ``entry`` of ``lib`` (a VSS physics step)."""
+    import ctypes
+
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+
+    err = getattr(lib, entry)(ctypes.byref(vp._params_struct(env)), rb.data_ptr(), bl.data_ptr(), cmd.data_ptr(),
+                              *(t.data_ptr() for t in outs), env.n_robots, rb.shape[-1],
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
+def bit_equal(got, want) -> bool:
+    """Every output equal bit for bit (a -0 against a +0 counts)."""
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+
+
+def vss_operands(batch, **env_kwargs):
+    """VSS-v0 (with ``env_kwargs``) after 20 main-path steps at ``batch``
+    envs: (env, packed state, actions, key, the key's noise rows, robots,
+    ball, wheel commands)."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch import rollout as R
-    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops import vss_full as vf
     from rsoccer_tpu_torch.ops import vss_physics as vp
     from rsoccer_tpu_torch.ops.philox import make_key
 
-    for batch in (B, *SCALE_BATCHES):
-        env = rt.make("VSS-v0")
-        benv = BatchedEnv(env, batch, device="cuda", fused=True, fused_rng="kernel")
-        carry, _ = R.make_rollout_fn(benv, 20)(R.init_carry(benv, seed=0))
-        st = carry.state
-        gen = torch.Generator(device="cuda").manual_seed(7)
-        act = torch.rand((2, batch), generator=gen, device="cuda") * 2 - 1
-        key = make_key(3, device="cuda")
-        rows = vf.draw_step_rows(env, key.clone(), batch)
-        rb, bl = vp._stack(vf.unpack_vss_state(st, env.n_robots, env.field.rbt_wheel_radius).world)
-        cmd = (torch.rand((2, env.n_robots, batch), generator=gen, device="cuda") * 2 - 1) * 60.0
+    benv = rt.make_vec("VSS-v0", batch, device="cuda", fused=True, fused_rng="kernel", **env_kwargs)
+    env = benv.env
+    carry, _ = R.make_rollout_fn(benv, 20)(R.init_carry(benv, seed=0))
+    st = carry.state
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    act = torch.rand((2, batch), generator=gen, device="cuda") * 2 - 1
+    key = make_key(3, device="cuda")
+    rows = vf.draw_step_rows(env, key.clone(), batch)
+    rb, bl = vp._stack(vf.unpack_vss_state(st, env.n_robots, env.field.rbt_wheel_radius).world)
+    cmd = (torch.rand((2, env.n_robots, batch), generator=gen, device="cuda") * 2 - 1) * 60.0
+    return env, st, act, key, rows, rb, bl, cmd
+
+
+def check_thread_vs_group(batch: int = VSS_THREAD_B):
+    """At 3v3 the one-thread VSS kernels against the group kernels, through
+    their C entries on the same operands: K1 in both RNG modes, both obs
+    variants and both trig policies (the Taylor rotation at the default
+    time step, exact trig at 0.1 s), K2; every output bit for bit.  Returns
+    the number of comparisons."""
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+
+    lib = vf._library()
+    n_cmp = 0
+    for kwargs in ({}, VSS_CONFIGS["3v3_dt0.1"]):
+        env, st, act, key, rows, rb, bl, cmd = vss_operands(batch, **kwargs)
+        for rng in (False, True):
+            for emit_final in (False, True):
+                outs = {}
+                for entry in ("vss_full_step", "vss_full_step_one_thread"):
+                    outs[entry] = (torch.full_like(st, float("nan")),
+                                   torch.full((env.obs_size * (2 if emit_final else 1), batch), float("nan"),
+                                              device="cuda"),
+                                   torch.full((vf.N_AUX, batch), float("nan"), device="cuda"))
+                    vss_entry_call(lib, entry, env, st, act, rows, key if rng else None, outs[entry], emit_final)
+                if not bit_equal(*outs.values()):
+                    raise AssertionError(f"vss_full_step one-thread vs group kernel at {batch} envs {kwargs} "
+                                         f"(rng_kernel={rng}, final={emit_final}): outputs differ")
+                n_cmp += 1
+        if not kwargs:
+            outs = {}
+            for entry in ("vss_physics_step", "vss_physics_step_one_thread"):
+                outs[entry] = (torch.full_like(rb, float("nan")), torch.full_like(bl, float("nan")))
+                vss_physics_entry_call(lib, entry, env, rb, bl, cmd, outs[entry])
+            if not bit_equal(*outs.values()):
+                raise AssertionError(f"vss_physics one-thread vs group kernel at {batch} envs: outputs differ")
+            n_cmp += 1
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def vss_against_baseline(lib, card):
+    """This tree's 3v3 VSS group kernels against the baseline library's,
+    every output bit for bit, and this tree's one-thread kernels against
+    both; then device us per launch of each at each of
+    VSS_CROSSOVER_BATCHES, in turns (baseline, group, one thread, one
+    thread, group, baseline), on the state after 20 VSS-v0 steps: the
+    group-vs-one-thread crossover.  One phase per batch.  Raises if an
+    output differs."""
+    from rsoccer_tpu_torch.ops import vss_full as vf
+
+    this = vf._library()
+    for batch in VSS_CROSSOVER_BATCHES:
+        env, st, act, key, rows, rb, bl, cmd = vss_operands(batch)
         outs = (torch.empty_like(st), torch.empty((env.obs_size, batch), device="cuda"),
                 torch.empty((vf.N_AUX, batch), device="cuda"))
         phys_outs = (torch.empty_like(rb), torch.empty_like(bl))
-        prm, pprm = vf._params_struct(env), vp._params_struct(env)
 
-        def base_full(rng):
-            def call():
-                ou, sp, th = (None, None, None) if rng else (r.data_ptr() for r in rows)
-                err = lib.vss_full_step(3, 3, 0, int(rng), ctypes.byref(prm), st.data_ptr(), act.data_ptr(),
-                                        ou, sp, th, key.data_ptr() if rng else None,
-                                        *(t.data_ptr() for t in outs), batch,
-                                        torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"baseline vss_full_step launch failed: cudaError {err}")
-            return call
+        def full(lib_, entry, rng):
+            return lambda: vss_entry_call(lib_, entry, env, st, act, rows, key if rng else None, outs)
 
-        def base_phys():
-            err = lib.vss_physics_step(ctypes.byref(pprm), rb.data_ptr(), bl.data_ptr(), cmd.data_ptr(),
-                                       *(t.data_ptr() for t in phys_outs), env.n_robots, batch,
-                                       torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"baseline vss_physics_step launch failed: cudaError {err}")
+        def phys(lib_, entry):
+            return lambda: vss_physics_entry_call(lib_, entry, env, rb, bl, cmd, phys_outs)
 
-        pairs = {
-            "vss_full_kernel_rng": (base_full(True), lambda: vf.vss_full_step(env, st, act, key=key), outs,
-                                    "vss_full_kernel"),
-            "vss_full_input_rows": (base_full(False), lambda: vf.vss_full_step(env, st, act, *rows), outs,
-                                    "vss_full_kernel"),
-            "vss_physics": (base_phys, lambda: vp.vss_physics(env, rb, bl, cmd), phys_outs, "vss_physics_kernel"),
+        kernels = {  # name: (baseline, group, one thread, device kernel names, outputs)
+            "vss_full_kernel_rng": (full(lib, "vss_full_step", True), full(this, "vss_full_step", True),
+                                    full(this, "vss_full_step_one_thread", True), r"vss_(full|thread)_kernel", outs),
+            "vss_full_input_rows": (full(lib, "vss_full_step", False), full(this, "vss_full_step", False),
+                                    full(this, "vss_full_step_one_thread", False), r"vss_(full|thread)_kernel",
+                                    outs),
+            "vss_physics": (phys(lib, "vss_physics_step"), phys(this, "vss_physics_step"),
+                            phys(this, "vss_physics_step_one_thread"), r"vss_physics_(thread_)?kernel", phys_outs),
         }
         turns = {}
-        for name, (base, this, base_outs, match) in pairs.items():
-            k0 = key.clone()
-            got = this()
-            key.copy_(k0)
-            base()
-            key.copy_(k0)
-            if not all(torch.equal(a, b) for a, b in zip(got, base_outs)):
-                raise AssertionError(f"{name} at {batch} envs: outputs differ from the baseline's")
-            turns[name] = [device_us(fn, TIMED_LAUNCHES, match)[0] for fn in (base, this, this, base)]
+        for name, (base, group, thread, match, o) in kernels.items():
+            got = []
+            for fn in (base, group, thread):
+                fn()
+                got.append(tuple(t.clone() for t in o))
+            if not (bit_equal(got[1], got[0]) and bit_equal(got[2], got[1])):
+                raise AssertionError(f"{name} at {batch} envs: the baseline, group and one-thread outputs differ")
+            turns[name] = [device_us(fn, TIMED_LAUNCHES, match)[0]
+                           for fn in (base, group, thread, thread, group, base)]
         phase("vss_baseline_turns", card=card, B=batch, bit_equal=True,
-              baseline_this_this_baseline_us=turns,
-              mean_us={n: {"baseline": (t[0] + t[3]) / 2, "this": (t[1] + t[2]) / 2} for n, t in turns.items()})
+              baseline_group_thread_thread_group_baseline_us=turns,
+              mean_us={n: {"baseline": (t[0] + t[5]) / 2, "group": (t[1] + t[4]) / 2, "thread": (t[2] + t[3]) / 2}
+                       for n, t in turns.items()},
+              route={"vss_full": vf.route(env, batch)})
 
 
 def tensor_leaves(tree):
@@ -800,18 +927,20 @@ def main_path(task, tasks, card):
     before and read just after; time it, its kernel and its plain version.
     Returns the kernel's record for the final JSON line (without
     max_abs_err)."""
-    import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch import rollout as R
 
-    env = rt.make(task.env_id)
+    env = make_env(task)
     benv = task.make_benv(env)
     carry = R.init_carry(benv, seed=0)
     rollout = R.make_rollout_fn(benv, ROLLOUT_STEPS)
     for _ in range(2):  # warm-up
         carry, _ = rollout(carry)
     torch.cuda.synchronize()
-    for t in tasks:
-        t.wrapper.launches = 0
+    wrappers = list({id(t.wrapper): t.wrapper for t in tasks}.values())
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "entry_launches"):
+            w.entry_launches.clear()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     episodes = 0
@@ -823,12 +952,17 @@ def main_path(task, tasks, card):
     end.record()
     end.synchronize()
     host_s = time.perf_counter() - t_host
-    launches = {t.name: t.wrapper.launches for t in tasks}
+    launches = {w.__name__: w.launches for w in wrappers}
     roll_ms = start.elapsed_time(end)
     n_steps = TIMED_ROLLOUTS * ROLLOUT_STEPS
-    want = {t.name: (n_steps if t is task else 0) for t in tasks}
+    want = {w.__name__: (n_steps if w is task.wrapper else 0) for w in wrappers}
     if launches != want:
         raise AssertionError(f"{task.name} main path: launches {launches}, want {want}")
+    if task.entry is not None:  # the wrapper's kernel that the main path must run
+        by_entry = dict(task.wrapper.entry_launches)
+        if by_entry != {task.entry: n_steps}:
+            raise AssertionError(f"{task.name} main path: launches by C entry {by_entry}, "
+                                 f"want {task.entry} x {n_steps}")
     obs = carry.obs
     if tuple(obs.shape) != (env.obs_size, B) or not bool(torch.isfinite(obs).all()):
         raise AssertionError(f"{task.name}: main-path obs not finite or of the wrong shape")
@@ -868,8 +1002,9 @@ def main_path(task, tasks, card):
     if "ins_input" in calls:
         b_in = bound_ms(task, calls["ins_input"], outs, calls["n_done"](outs))
         extra = {"bound_input_rows_us": b_in[0] * 1e3, "bound_input_rows_by": b_in[1]}
-    phase(f"main_path_{task.name}", card=card, env=task.env_id, B=B, steps=n_steps,
-          launches=launches[task.name], episodes=episodes, rollout_ms=roll_ms, host_s=host_s,
+    phase(f"main_path_{task.name}", card=card, env=task.env_id, env_kwargs=task.env_kwargs, B=B,
+          steps=n_steps, launches=launches[task.wrapper.__name__], entry=task.entry,
+          episodes=episodes, rollout_ms=roll_ms, host_s=host_s,
           env_steps_per_s=env_steps_per_s, rollout_us_per_step=rollout_us_per_step)
     phase(f"kernel_vs_plain_time_{task.name}", card=card, B=B, call_us=call_us,
           device_us=dev_us, bound_us=bound * 1e3, bound_by=bound_by, bound_bytes_us=bytes_ms * 1e3,
@@ -879,11 +1014,11 @@ def main_path(task, tasks, card):
           device_busy_share=roll_dev_us / ROLLOUT_STEPS / rollout_us_per_step,
           top_kernels_us_per_rollout=roll_top)
     return {
-        "name": task.name,
+        "name": task.kernel,
         "route": "cuda",
         "source": task.source,
         "replaces": task.replaces,
-        "launches": launches[task.name],
+        "launches": launches[task.wrapper.__name__],
         "ms": kern_dev_us / 1e3,
         "plain_ms": plain_dev_us / 1e3,
         "bound_ms": bound,
@@ -906,6 +1041,7 @@ def main() -> int:
         return 1
     # the port is imported before anything is printed: without the repo
     # beside this script the run fails here and prints no result
+    import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops import _build
     from rsoccer_tpu_torch.ops import ssl_full as sf
@@ -914,6 +1050,8 @@ def main() -> int:
 
     if ONE_THREAD_B <= sf.GROUP_MAX_ENVS:
         raise AssertionError(f"ONE_THREAD_B {ONE_THREAD_B} must exceed GROUP_MAX_ENVS {sf.GROUP_MAX_ENVS}")
+    if not B <= min(vf.VSS_GROUP_MAX_ENVS, vp.VSS_GROUP_MAX_ENVS) < VSS_THREAD_B:
+        raise AssertionError("the VSS main path must run the group kernels and VSS_THREAD_B the one-thread ones")
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -929,20 +1067,15 @@ def main() -> int:
 
     fused = dict(make_benv=fused_benv, calls=fused_calls, prepare=None, events=None,
                  need_events=())
+    k1_ops, k1_ops_5v5 = vss_full_ops(6), vss_full_ops(10)
     tasks = [
         SimpleNamespace(
             name="vss_full_step", env_id="VSS-v0", wrapper=vf.vss_full_step,
             plain=vf.vss_full_step_plain, draw=vf.draw_step_rows,
-            actions=random_actions(2), warm_steps=0, kernel_match="vss_full_kernel",
+            actions=random_actions(2), warm_steps=0, kernel_match=r"vss_(full|thread)_kernel",
             source="rsoccer_tpu_torch/csrc/vss_full.cu",
             replaces="rsoccer_tpu/ops/pallas_vss_full.py:142",
-            # OU + wheels ~100 and the 7 Philox blocks of the OU slots, 5
-            # substeps x (6 robots x 30 + 15 pairs x 25 + walls 48 + ball 60
-            # + 6 contacts x 20), obs ~60; a reset: spawn placement ~900
-            # (7 entities x 8 candidates against the points placed before)
-            # and its 28 Philox blocks, the theta block
-            ops_env=100 + 7 * 40 + 5 * (180 + 375 + 48 + 60 + 120) + 60,
-            ops_reset=900 + 28 * 40 + 40,
+            entry="vss_full_step", ops_env=k1_ops[0], ops_reset=k1_ops[1],
             **fused,
         ),
         SimpleNamespace(
@@ -1002,16 +1135,39 @@ def main() -> int:
         ),
         SimpleNamespace(
             name="vss_physics", env_id="VSS-v0", wrapper=vp.vss_physics,
-            kernel_match="vss_physics_kernel", source="rsoccer_tpu_torch/csrc/vss_physics.cu",
-            replaces="rsoccer_tpu/ops/pallas_vss.py:37",
-            # commands and trig 6 x 12, 5 substeps x (6 robots x 35 + 15 pairs
-            # x 35 + apply 24 + walls 6 x 16 + ball 24 + 6 contacts x 28 +
-            # 4 + ball walls 20)
-            ops_env=72 + 5 * (210 + 525 + 24 + 96 + 24 + 168 + 4 + 20), ops_reset=0,
+            kernel_match=r"vss_physics_(thread_)?kernel", source="rsoccer_tpu_torch/csrc/vss_physics.cu",
+            replaces="rsoccer_tpu/ops/pallas_vss.py:37", entry="vss_physics_step",
+            ops_env=vss_physics_ops(6), ops_reset=0,
             make_benv=lambda env: BatchedEnv(env, B, device="cuda", fused_physics=True),
             calls=physics_calls,
         ),
+        # VSS's 5v5 division on its own field, through make_vec: the
+        # one-thread kernels
+        SimpleNamespace(
+            name="vss_5v5", kernel="vss_thread_kernel", env_id="VSS-v0", env_kwargs=VSS_CONFIGS["5v5"],
+            wrapper=vf.vss_full_step, plain=vf.vss_full_step_plain, draw=vf.draw_step_rows,
+            actions=random_actions(2), warm_steps=0, kernel_match="vss_thread_kernel",
+            source="rsoccer_tpu_torch/csrc/vss_full.cu", replaces="rsoccer_tpu/ops/pallas_vss_full.py:142",
+            entry="vss_full_step_one_thread", ops_env=k1_ops_5v5[0], ops_reset=k1_ops_5v5[1],
+            make_benv=lambda env: rt.make_vec("VSS-v0", B, device="cuda", fused=True, fused_rng="kernel",
+                                              **VSS_CONFIGS["5v5"]),
+            calls=fused_calls, prepare=None, events=None, need_events=(),
+        ),
+        SimpleNamespace(
+            name="vss_5v5_fused_physics", kernel="vss_physics_thread_kernel", env_id="VSS-v0",
+            env_kwargs=VSS_CONFIGS["5v5"], wrapper=vp.vss_physics, kernel_match="vss_physics_thread_kernel",
+            source="rsoccer_tpu_torch/csrc/vss_physics.cu", replaces="rsoccer_tpu/ops/pallas_vss.py:37",
+            entry="vss_physics_step_one_thread", ops_env=vss_physics_ops(10), ops_reset=0,
+            make_benv=lambda env: rt.make_vec("VSS-v0", B, device="cuda", fused_physics=True,
+                                              **VSS_CONFIGS["5v5"]),
+            calls=physics_calls,
+        ),
     ]
+    for t in tasks:  # the SSL tasks: the reference configuration, one kernel behind the wrapper
+        for k, v in (("kernel", t.name), ("env_kwargs", {}), ("entry", None)):
+            if not hasattr(t, k):
+                setattr(t, k, v)
+    new_vss = ("vss_5v5", "vss_5v5_fused_physics")  # checked by configuration below
 
     # ---- 2. build: one nvcc per source, all at once, then one link
     t0 = time.perf_counter()
@@ -1038,6 +1194,8 @@ def main() -> int:
     # ---- 3. each kernel vs its plain version, both RNG modes
     errs = {}
     for task in tasks:
+        if task.name in new_vss:
+            continue
         if task.name == "vss_physics":
             errs[task.name], dones = check_physics_vs_plain()
             phase(f"kernel_vs_plain_{task.name}", B=B, steps=N_CHECK_STEPS,
@@ -1075,9 +1233,30 @@ def main() -> int:
                       max_abs_err=err, worst_at=at, atol=ATOL, dones=dones)
                 errs[task.name] = max(errs[task.name], err)
 
-    # ---- 3c. the VSS kernels, K4 and K6 at larger batches, timed
-    time_at_scale(card, tasks[0], next(t for t in tasks if t.name == "vss_physics"),
-                  [t for t in ssl_tasks if t.name in SSL_TIMED])
+    # ---- 3c. VSS-v0 at the other team sizes and beyond the Taylor bound,
+    # each error charged to the kernel that ran (the route)
+    k1, k2 = tasks[0], next(t for t in tasks if t.name == "vss_physics")
+    errs.update({n: 0.0 for n in new_vss})
+    for cname, kwargs in VSS_CONFIGS.items():
+        task = SimpleNamespace(**{**vars(k1), "env_kwargs": kwargs})
+        for batch in (B, RAGGED_B):
+            route = vf.route(make_env(task), batch)
+            for rng_mode in ("input", "kernel"):
+                err, at, dones, _ = check_kernel_vs_plain(task, rng_mode, batch)
+                phase(f"kernel_vs_plain_{cname}_{rng_mode}_vss_full_step", B=batch, route=route,
+                      steps=N_CHECK_STEPS, max_abs_err=err, worst_at=at, atol=ATOL, dones=dones)
+                name = "vss_full_step" if route == "group" else "vss_5v5"
+                errs[name] = max(errs[name], err)
+    for cname in ("5v5", "1v0"):
+        for batch in (B, RAGGED_B):
+            err, dones = check_physics_vs_plain(batch, VSS_CONFIGS[cname])
+            phase(f"kernel_vs_plain_{cname}_vss_physics", B=batch, steps=N_CHECK_STEPS, max_abs_err=err,
+                  atol=ATOL, dones=dones)
+            errs["vss_5v5_fused_physics"] = max(errs["vss_5v5_fused_physics"], err)
+    phase("thread_vs_group_bit_equal", B=VSS_THREAD_B, comparisons=check_thread_vs_group())
+
+    # ---- 3d. the VSS kernels, K4 and K6 at larger batches, timed
+    time_at_scale(card, k1, k2, [t for t in ssl_tasks if t.name in SSL_TIMED])
 
     # ---- 4. each main path, through its kernel, timed
     kernels = []

@@ -3,10 +3,12 @@
 Same layout and names as the JAX package; batch-last tensors, NamedTuples
 of tensors for state, an explicit ``device`` everywhere, and explicit keys
 (``ops/philox.py``) instead of any global RNG.  Entry points run on the
-card (``device="cuda"``) unless the caller asks for the CPU.  The VSS-v0,
-SSLStaticDefenders-v0 and SSLContestedPossession-v0 steps each run as one
-hand-written CUDA kernel per step on an NVIDIA card (``ops/vss_full.py``,
-``ops/ssl_full.py``).  Imports ``torch`` and never ``jax``.
+card (``device="cuda"``) unless the caller asks for the CPU.  With
+``fused=True`` the VSS-v0 step (every team size from 1v0 to 5v5) and the
+four SSL tasks' steps each run as one hand-written CUDA kernel per step on
+an NVIDIA card (``ops/vss_full.py``, ``ops/ssl_full.py``); with
+``fused_physics=True`` VSS-v0's physics does (``ops/vss_physics.py``).
+Imports ``torch`` and never ``jax``.
 """
 
 from rsoccer_tpu_torch.registry import make, registered_ids
@@ -15,14 +17,14 @@ __version__ = "0.1.0"
 
 
 def make_vec(env_id: str, n_envs: int, device="cuda", fused: bool = False,
-             fused_rng: str = "input", **kwargs):
+             fused_rng: str = "input", fused_physics: bool = False, **kwargs):
     """Create a :class:`~rsoccer_tpu_torch.batch.vecenv.BatchedEnv`
     directly; ``kwargs`` go to the env constructor."""
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 
     return BatchedEnv(
         make(env_id, **kwargs), n_envs, device=device, fused=fused,
-        fused_rng=fused_rng,
+        fused_rng=fused_rng, fused_physics=fused_physics,
     )
 
 

@@ -1,5 +1,6 @@
 // VSS physics only: one control step (5 substeps) of the differential-drive
-// world, one env on a group of 8 lanes.
+// world, one env on a group of 8 lanes (vss_physics_kernel, N = 6) or on one
+// thread (vss_physics_thread_kernel, N = 1..10).
 //
 // Replaces the TPU kernel rsoccer_tpu/ops/pallas_vss.py:37
 // (make_pallas_vss_physics, pallas_call :194), which BatchedEnv's
@@ -11,8 +12,10 @@
 // (the dense N x N sums) -> robot wall clamp -> ball friction (divided by
 // the speed), vertical axis, integrate -> ball-robot contacts -> ball
 // walls with goal pockets.  The substep is vss_world.cuh's, under its
-// ExactTrig policy; lane k < 6 owns robot k and reads its own command rows,
-// lane l evaluates robot pairs l and l + 8.
+// ExactTrig policy; in the group kernel lane k < 6 owns robot k and reads
+// its own command rows, lane l evaluates robot pairs l and l + 8; the
+// one-thread kernel runs the same operations on one thread
+// (vss_thread_substep), so at N = 6 both give the same bits.
 //
 // Layout: robots (6, N, B) rows [x, y, theta, v_x, v_y, v_theta], ball
 // (6, B) [x, y, z, v_x, v_y, v_z], wheel commands (2, N, B) [left, right],
@@ -25,9 +28,11 @@
 // substeps x (6 robots + 15 pairs + 6 ball contacts) with 12 sinf/cosf per
 // substep as one dependent chain on 256 warps: latency bound.  Eight lanes
 // per env give 2048 warps, each lane running one robot's chain and two of
-// the 15 pairs.  From ~32768 envs on, where the card is full, the eight
-// lanes issue more instructions per env than one thread did, and the
-// kernel is slower than one thread per env was (PERF.md).
+// the 15 pairs.  At large batches, where the card is full, the eight lanes
+// issue more instructions per env than one thread does, and the wrapper
+// launches the one-thread kernel (64 threads per block, the env in
+// registers, every row access coalesced) instead
+// (ops/vss_physics.VSS_GROUP_MAX_ENVS, measured in PERF.md).
 //
 // Numerics: --fmad=false and no fast math (ops/_build.py), and sqrtf with
 // true division where physics/vss.py divides, so the kernel rounds as its
@@ -50,6 +55,7 @@ struct VssPhysParams {
 namespace {
 
 constexpr int kSubsteps = 5;  // PhysicsConfig.n_substeps (the wrapper checks)
+constexpr int kThreadBlock = 64;  // the one-thread kernel's block
 
 template <int N>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -121,6 +127,53 @@ __global__ void __launch_bounds__(kThreads, 2)
   store_rows<6>(tile, 6 * N, ball_out, b0, B);
 }
 
+template <int N>
+__global__ void __launch_bounds__(kThreadBlock)
+    vss_physics_thread_kernel(const VssPhysParams p, const float* __restrict__ rb_in,
+                              const float* __restrict__ ball_in, const float* __restrict__ cmd,
+                              float* __restrict__ rb_out, float* __restrict__ ball_out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+#define LD(ptr, row) ((ptr)[(size_t)(row) * (size_t)B + b])
+  VssRobot r[N];
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    r[q].x = LD(rb_in, q);
+    r[q].y = LD(rb_in, N + q);
+    r[q].th = LD(rb_in, 2 * N + q);
+    r[q].vx = LD(rb_in, 3 * N + q);
+    r[q].vy = LD(rb_in, 4 * N + q);
+    r[q].w = LD(rb_in, 5 * N + q);
+    const float wl = clampf(LD(cmd, q), -p.max_wheel, p.max_wheel);
+    const float wr = clampf(LD(cmd, N + q), -p.max_wheel, p.max_wheel);
+    r[q].v_tgt = p.wheel_r * (wl + wr) / 2.0f;
+    r[q].w_tgt = p.wheel_r * (wr - wl) / p.two_half_axle;
+    r[q].c = cosf(r[q].th);
+    r[q].s = sinf(r[q].th);
+  }
+  VssBall ball{LD(ball_in, 0), LD(ball_in, 1), LD(ball_in, 2), LD(ball_in, 3), LD(ball_in, 4), LD(ball_in, 5)};
+
+#pragma unroll 1  // kept rolled: the unrolled body would be 5x the code
+  for (int sub = 0; sub < kSubsteps; ++sub) vss_thread_substep<N>(p, ExactTrig{}, r, ball);
+
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    LD(rb_out, q) = r[q].x;
+    LD(rb_out, N + q) = r[q].y;
+    LD(rb_out, 2 * N + q) = r[q].th;
+    LD(rb_out, 3 * N + q) = r[q].vx;
+    LD(rb_out, 4 * N + q) = r[q].vy;
+    LD(rb_out, 5 * N + q) = r[q].w;
+  }
+  LD(ball_out, 0) = ball.x;
+  LD(ball_out, 1) = ball.y;
+  LD(ball_out, 2) = ball.z;
+  LD(ball_out, 3) = ball.vx;
+  LD(ball_out, 4) = ball.vy;
+  LD(ball_out, 5) = ball.vz;
+#undef LD
+}
+
 }  // namespace
 
 extern "C" {
@@ -133,14 +186,41 @@ const char* vss_physics_params_fields() {
 #undef VSS_PHYS_NAME
 }
 
-// One physics step of B VSS worlds.  n_robots compiled: 6 (VSS-v0's 3v3).
-// Returns a cudaError_t (cudaErrorInvalidValue for another n_robots).
+// One physics step of B VSS worlds on the group kernel: n_robots = 6
+// (VSS-v0's 3v3).  Returns a cudaError_t (cudaErrorInvalidValue for another
+// n_robots).
 int vss_physics_step(const VssPhysParams* p, const float* robots, const float* ball, const float* cmd,
                      float* robots_out, float* ball_out, int n_robots, int B, void* stream) {
   if (n_robots != 6) return (int)cudaErrorInvalidValue;
   const dim3 grid((B + kEnvsPerBlock - 1) / kEnvsPerBlock), block(kThreads);
   vss_physics_kernel<6><<<grid, block, 0, (cudaStream_t)stream>>>(*p, robots, ball, cmd, robots_out, ball_out, B);
   return (int)cudaGetLastError();
+}
+
+// The same step on the one-thread kernel, n_robots = 1..10
+// (cudaErrorInvalidValue outside).
+int vss_physics_step_one_thread(const VssPhysParams* p, const float* robots, const float* ball, const float* cmd,
+                                float* robots_out, float* ball_out, int n_robots, int B, void* stream) {
+  const dim3 grid((B + kThreadBlock - 1) / kThreadBlock), block(kThreadBlock);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define VSS_PHYS_THREAD(N)                                                                                      \
+  case N:                                                                                                       \
+    vss_physics_thread_kernel<N><<<grid, block, 0, s>>>(*p, robots, ball, cmd, robots_out, ball_out, B);        \
+    return (int)cudaGetLastError()
+  switch (n_robots) {
+    VSS_PHYS_THREAD(1);
+    VSS_PHYS_THREAD(2);
+    VSS_PHYS_THREAD(3);
+    VSS_PHYS_THREAD(4);
+    VSS_PHYS_THREAD(5);
+    VSS_PHYS_THREAD(6);
+    VSS_PHYS_THREAD(7);
+    VSS_PHYS_THREAD(8);
+    VSS_PHYS_THREAD(9);
+    VSS_PHYS_THREAD(10);
+  }
+#undef VSS_PHYS_THREAD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -30,14 +30,23 @@
 // x_k - x_q; IEEE subtraction and division are sign-symmetric, so those
 // terms are the exact negations: tests/test_torch_vss_pair_order.py.)
 //
-// Numerics are a compile-time policy:
+// The one-thread kernels (K1's vss_thread_kernel, K2's
+// vss_physics_thread_kernel) step an env on one thread with
+// vss_thread_substep: the same operations on the same values, each pair
+// once from the lower robot's side, each robot's terms in partner order, so
+// at 3v3 the two designs agree to the bit.
+//
+// Numerics are a policy:
 //   TaylorRsqrt (K1): the TPU kernel's reduced-range Taylor rotation of a
 //     carried (cos, sin) and rsqrt normals; pair terms added straight into
 //     x, y, v_x, v_y (pair_collide.cuh's form).
+//   ExactRsqrt (K1 beyond the Taylor bound): as TaylorRsqrt, with exact
+//     cosf/sinf of the wrapped heading each substep (the TPU kernel's
+//     `else` branch, pallas_vss_full.py:307-309).
 //   ExactTrig (K2): physics/vss.py's sinf/cosf of the wrapped heading,
 //     sqrtf and true division; pair terms summed, then added (the dense
 //     row sums' form).
-// Both build with --fmad=false and no fast math (ops/_build.py).
+// All build with --fmad=false and no fast math (ops/_build.py).
 #pragma once
 #include "lane_group.cuh"
 
@@ -186,32 +195,48 @@ struct ExactTrig {
   }
 };
 
-// One substep of the env on this lane's group: k is the lane in the group,
-// grp the group's VssLayout::kSlots slots, desc the block's pair table
-// (pair_desc, one int4 per pair).  Called by every lane of the warp (it
-// synchronises the warp).
-template <class Pol, int N, class P>
-__device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, const int4* desc, VssRobot& r,
-                                            VssBall& b) {
-  using L = VssLayout<N>;
-  float4* xs = grp + L::kXs;
-  float4* pt = grp + L::kPt;
-  float4* ct = grp + L::kCt;
+struct ExactRsqrt : TaylorRsqrt {
+  template <class P>
+  static __device__ __forceinline__ void turn(const P& p, VssRobot& r) {
+    ExactTrig::turn(p, r);
+  }
+};
 
-  // ---- 1. drive (c, s: the heading trig carried from the last substep)
+// K1's numerics with the turn picked per launch (the one-thread kernel,
+// which would otherwise be built twice for every robot count): a
+// warp-uniform branch between the two turns
+struct RsqrtPickedTurn : TaylorRsqrt {
+  bool exact;
+
+  template <class P>
+  __device__ __forceinline__ void turn(const P& p, VssRobot& r) const {
+    if (exact) ExactRsqrt::turn(p, r);
+    else TaylorRsqrt::turn(p, r);
+  }
+};
+
+// ---- pieces of a substep shared by both designs
+
+// drive, turn and integrate a robot (c, s: the heading trig carried from
+// the last substep)
+template <class Pol, class P>
+__device__ __forceinline__ void vss_drive(const P& p, const Pol& pol, VssRobot& r) {
   float u = r.vx * r.c + r.vy * r.s;
   float sl = -r.vx * r.s + r.vy * r.c;
   u = u + clampf(r.v_tgt - u, -p.a_lin, p.a_lin);
   sl = sl * p.lat_keep;
   r.w = r.w + clampf(r.w_tgt - r.w, -p.a_ang, p.a_ang);
-  Pol::turn(p, r);
+  pol.turn(p, r);
   r.vx = u * r.c - sl * r.s;
   r.vy = u * r.s + sl * r.c;
   r.x = r.x + r.vx * p.dts;
   r.y = r.y + r.vy * p.dts;
-  xs[k] = make_float4(r.x, r.y, r.vx, r.vy);
+}
 
-  // ---- the ball: rolling friction while grounded, vertical axis, integrate
+// the ball before its contacts: rolling friction while grounded, vertical
+// axis, integrate (none of it depends on the robots)
+template <class Pol, class P>
+__device__ __forceinline__ void vss_ball_flight(const P& p, VssBall& b) {
   const bool on_ground = b.z <= p.ground_z;
   const float scale = Pol::friction_scale(p, b.vx, b.vy);
   if (on_ground) {
@@ -226,6 +251,63 @@ __device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, cons
   if (hit_floor) b.z = p.r_ball;
   b.x = b.x + b.vx * p.dts;
   b.y = b.y + b.vy * p.dts;
+}
+
+// robots clamp dead against the walls
+template <class P>
+__device__ __forceinline__ void vss_robot_walls(const P& p, VssRobot& r) {
+  r.vx = (fabsf(r.x) > p.xl && r.vx * signf(r.x) > 0.0f) ? 0.0f : r.vx;
+  r.vy = (fabsf(r.y) > p.yl && r.vy * signf(r.y) > 0.0f) ? 0.0f : r.vy;
+  r.x = clampf(r.x, -p.xl, p.xl);
+  r.y = clampf(r.y, -p.yl, p.yl);
+}
+
+// robot r's ball-contact term: push x, y, impulse x, y (a ball above the
+// robots' top plate flies over)
+template <class Pol, class P>
+__device__ __forceinline__ float4 vss_ball_contact(const P& p, const VssBall& b, const VssRobot& r,
+                                                   bool below_top) {
+  float overlap, nx, ny;
+  Pol::contact(p, b.x - r.x, b.y - r.y, overlap, nx, ny);
+  const bool col = overlap > 0.0f && below_top;
+  const float vn = (b.vx - r.vx) * nx + (b.vy - r.vy) * ny;
+  const float jn = (col && vn < 0.0f) ? p.ball_gain * vn : 0.0f;
+  return make_float4((col ? overlap : 0.0f) * nx, (col ? overlap : 0.0f) * ny, jn * nx, jn * ny);
+}
+
+// ball walls, with goal pockets behind the end lines
+template <class P>
+__device__ __forceinline__ void vss_ball_walls(const P& p, VssBall& b) {
+  const bool in_mouth = fabsf(b.y) < p.goal_half;
+  const float x_wall = (in_mouth ? p.hl_goal : p.half_len) - p.r_ball;
+  const float sx = signf(b.x);
+  const bool hit_x = fabsf(b.x) > x_wall;
+  if (hit_x) b.x = sx * x_wall;
+  if (hit_x && b.vx * sx > 0.0f) b.vx = p.neg_rest_wall * b.vx;
+  const bool in_pocket = fabsf(b.x) > p.half_len;
+  const float y_wall = (in_pocket ? p.goal_half : p.half_wid) - p.r_ball;
+  const float sy = signf(b.y);
+  const bool hit_y = fabsf(b.y) > y_wall;
+  if (hit_y) b.y = sy * y_wall;
+  if (hit_y && b.vy * sy > 0.0f) b.vy = p.neg_rest_wall * b.vy;
+}
+
+// One substep of the env on this lane's group: k is the lane in the group,
+// grp the group's VssLayout::kSlots slots, desc the block's pair table
+// (pair_desc, one int4 per pair).  Called by every lane of the warp (it
+// synchronises the warp).
+template <class Pol, int N, class P>
+__device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, const int4* desc, VssRobot& r,
+                                            VssBall& b) {
+  using L = VssLayout<N>;
+  float4* xs = grp + L::kXs;
+  float4* pt = grp + L::kPt;
+  float4* ct = grp + L::kCt;
+
+  // ---- 1. drive; the ball's flight
+  vss_drive(p, Pol{}, r);
+  xs[k] = make_float4(r.x, r.y, r.vx, r.vy);
+  vss_ball_flight<Pol>(p, b);
   __syncwarp();
 
   // ---- 2. this lane's pairs, each once, from the pre-pass values
@@ -264,22 +346,10 @@ __device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, cons
       r.vy = r.vy + dvy;
     }
   }
-  // robots clamp dead against the walls
-  r.vx = (fabsf(r.x) > p.xl && r.vx * signf(r.x) > 0.0f) ? 0.0f : r.vx;
-  r.vy = (fabsf(r.y) > p.yl && r.vy * signf(r.y) > 0.0f) ? 0.0f : r.vy;
-  r.x = clampf(r.x, -p.xl, p.xl);
-  r.y = clampf(r.y, -p.yl, p.yl);
+  vss_robot_walls(p, r);
 
-  // ---- 4. ball vs robots (a ball above the robots' top plate flies over)
-  const bool below_top = (b.z - p.r_ball) < p.rbt_height;
-  {
-    float overlap, nx, ny;
-    Pol::contact(p, b.x - r.x, b.y - r.y, overlap, nx, ny);
-    const bool col = overlap > 0.0f && below_top;
-    const float vn = (b.vx - r.vx) * nx + (b.vy - r.vy) * ny;
-    const float jn = (col && vn < 0.0f) ? p.ball_gain * vn : 0.0f;
-    ct[k] = make_float4((col ? overlap : 0.0f) * nx, (col ? overlap : 0.0f) * ny, jn * nx, jn * ny);
-  }
+  // ---- 4. ball vs robots
+  ct[k] = vss_ball_contact<Pol>(p, b, r, (b.z - p.r_ball) < p.rbt_height);
   __syncwarp();
   float push_x = 0.0f, push_y = 0.0f, imp_x = 0.0f, imp_y = 0.0f;
 #pragma unroll
@@ -295,17 +365,69 @@ __device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, cons
   b.vx = b.vx + imp_x;
   b.vy = b.vy + imp_y;
 
-  // ---- ball walls, with goal pockets behind the end lines
-  const bool in_mouth = fabsf(b.y) < p.goal_half;
-  const float x_wall = (in_mouth ? p.hl_goal : p.half_len) - p.r_ball;
-  const float sx = signf(b.x);
-  const bool hit_x = fabsf(b.x) > x_wall;
-  if (hit_x) b.x = sx * x_wall;
-  if (hit_x && b.vx * sx > 0.0f) b.vx = p.neg_rest_wall * b.vx;
-  const bool in_pocket = fabsf(b.x) > p.half_len;
-  const float y_wall = (in_pocket ? p.goal_half : p.half_wid) - p.r_ball;
-  const float sy = signf(b.y);
-  const bool hit_y = fabsf(b.y) > y_wall;
-  if (hit_y) b.y = sy * y_wall;
-  if (hit_y && b.vy * sy > 0.0f) b.vy = p.neg_rest_wall * b.vy;
+  vss_ball_walls(p, b);
+}
+
+// One substep of one env on one thread, the operations of vss_substep: each
+// pair once from the lower robot's side on the pre-pass values, robot q's
+// terms in partner order 0..N-1 (the pair loop visits them so).
+template <int N, class Pol, class P>
+__device__ __forceinline__ void vss_thread_substep(const P& p, const Pol& pol, VssRobot (&r)[N], VssBall& b) {
+  float4 xs[N];
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    vss_drive(p, pol, r[q]);
+    xs[q] = make_float4(r[q].x, r[q].y, r[q].vx, r[q].vy);
+  }
+  vss_ball_flight<Pol>(p, b);
+
+  float4 d[N];  // the summed terms (kSumThenAdd)
+#pragma unroll
+  for (int q = 0; q < N; ++q) d[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) {
+      const float4 t = Pol::pair_term(p, xs[i], xs[j]);
+      if constexpr (Pol::kSumThenAdd) {
+        d[i] = make_float4(d[i].x + t.x, d[i].y + t.y, d[i].z + t.z, d[i].w + t.w);
+        d[j] = make_float4(d[j].x - t.x, d[j].y - t.y, d[j].z - t.z, d[j].w - t.w);
+      } else {
+        r[i].x = r[i].x + t.x;
+        r[i].y = r[i].y + t.y;
+        r[i].vx = r[i].vx + t.z;
+        r[i].vy = r[i].vy + t.w;
+        r[j].x = r[j].x - t.x;
+        r[j].y = r[j].y - t.y;
+        r[j].vx = r[j].vx - t.z;
+        r[j].vy = r[j].vy - t.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    if constexpr (Pol::kSumThenAdd) {
+      r[q].x = r[q].x + d[q].x;
+      r[q].y = r[q].y + d[q].y;
+      r[q].vx = r[q].vx + d[q].z;
+      r[q].vy = r[q].vy + d[q].w;
+    }
+    vss_robot_walls(p, r[q]);
+  }
+
+  const bool below_top = (b.z - p.r_ball) < p.rbt_height;
+  float push_x = 0.0f, push_y = 0.0f, imp_x = 0.0f, imp_y = 0.0f;
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    const float4 c = vss_ball_contact<Pol>(p, b, r[q], below_top);
+    push_x = push_x + c.x;
+    push_y = push_y + c.y;
+    imp_x = imp_x + c.z;
+    imp_y = imp_y + c.w;
+  }
+  b.x = b.x + push_x;
+  b.y = b.y + push_y;
+  b.vx = b.vx + imp_x;
+  b.vy = b.vy + imp_y;
+  vss_ball_walls(p, b);
 }

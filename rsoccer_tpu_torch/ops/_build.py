@@ -142,10 +142,12 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vss_params_fields.argtypes = []
     lib.vss_params_fields.restype = ctypes.c_char_p
-    # n_blue, n_yellow, emit_final, rng_kernel, params*, st, act, ou, sp,
-    # th, key, st_out, obs_out, aux_out, B, stream
-    lib.vss_full_step.argtypes = [i, i, i, i] + [p] * 10 + [i, p]
+    # n_blue, n_yellow, emit_final, rng_kernel, exact_trig, params*, st,
+    # act, ou, sp, th, key, st_out, obs_out, aux_out, B, stream
+    lib.vss_full_step.argtypes = [i] * 5 + [p] * 10 + [i, p]
     lib.vss_full_step.restype = i
+    lib.vss_full_step_one_thread.argtypes = lib.vss_full_step.argtypes
+    lib.vss_full_step_one_thread.restype = i
     # key, out, n_blk, B, stream
     lib.philox_words.argtypes = [p, p, i, i, p]
     lib.philox_words.restype = i
@@ -176,4 +178,6 @@ def load() -> ctypes.CDLL:
     # params*, robots, ball, cmd, robots_out, ball_out, n_robots, B, stream
     lib.vss_physics_step.argtypes = [p] * 6 + [i, i, p]
     lib.vss_physics_step.restype = i
+    lib.vss_physics_step_one_thread.argtypes = lib.vss_physics_step.argtypes
+    lib.vss_physics_step_one_thread.restype = i
     return lib

@@ -1,20 +1,28 @@
 """Fused VSS-v0 step: the whole env step as ONE CUDA kernel launch.
 
 Replaces the TPU kernel ``rsoccer_tpu/ops/pallas_vss_full.py:142``
-(``make_pallas_vss_full_step``).  The kernel is ``csrc/vss_full.cu`` (with
-the VSS substep of ``csrc/vss_world.cuh`` and ``csrc/philox.cuh``), one env
-on a group of 8 lanes, one robot per lane: OU update -> wheel commands with
-the deadzone -> 5 physics substeps -> reward/termination -> on done envs
-only, spawn placement -> auto-reset select -> obs.
+(``make_pallas_vss_full_step``), at every team size it runs: from 1v0 to
+5v5, in and beyond the Taylor bound of its heading rotation.  The kernels
+are in ``csrc/vss_full.cu`` (with the VSS substep of ``csrc/vss_world.cuh``
+and ``csrc/philox.cuh``): OU update -> wheel commands with the deadzone ->
+5 physics substeps -> reward/termination -> on done envs only, spawn
+placement -> auto-reset select -> obs.  :func:`route` picks one of two
+designs per launch:
 
-What bounds it on the card: at 8192 envs a step moves ~5.8 MB, about 2 us
-of HBM time, while the env's work is a dependent scalar chain.  Eight
-lanes per env split that chain by robot and put 2048 warps on 132 SMs;
-each block stages its 32 envs' rows through shared memory, so every input
-and output row is touched once in coalesced accesses; ``rng="kernel"``
-draws the random words in registers, the reset's only on done envs.  The
-state stays in the packed ``(S, B)`` layout across a whole rollout, so
-there is no per-step pack/unpack.
+- ``"group"`` (``vss_full_kernel``, 3v3 only): one env on a group of 8
+  lanes, one robot per lane.  At 8192 envs a step moves ~5.8 MB, about 2 us
+  of HBM time, while the env's work is a dependent scalar chain; eight
+  lanes per env split that chain by robot and put 2048 warps on 132 SMs;
+  each block stages its 32 envs' rows through shared memory.
+- ``"thread"`` (``vss_thread_kernel``, every team size): one env per
+  thread, the whole env in registers.  Above ``VSS_GROUP_MAX_ENVS`` envs the
+  card is full and the group's replicated ball work costs more than its
+  lanes save, so 3v3 runs here too; every other team size always does.
+
+Both give the same bits at 3v3.  ``rng="kernel"`` draws the random words
+in registers, the reset's only on done envs.  The state stays in the
+packed ``(S, B)`` layout across a whole rollout, so there is no per-step
+pack/unpack.
 
 State row layout (N = n_robots), identical to the TPU kernel's:
     0:6         ball x, y, z, v_x, v_y, v_z
@@ -38,11 +46,14 @@ its plain version and, through the input rows, against the JAX kernel.
 
 :func:`vss_full_step` runs the plain version :func:`vss_full_step_plain`
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``vss_full_step.launches`` counts kernel launches.
+raises.  ``vss_full_step.launches`` counts kernel launches, and
+``vss_full_step.entry_launches`` counts them by C entry (``vss_full_step``:
+the group kernel, ``vss_full_step_one_thread``: the one-thread kernel).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -58,8 +69,14 @@ from rsoccer_tpu_torch.ops import _build
 from rsoccer_tpu_torch.physics.vss import HALF_AXLE, achieved_wheel_speeds
 
 N_AUX = 3 + len(_SHAPING_KEYS)
-TEAM_SIZES = ((3, 3),)  # (blue, yellow) compiled into the kernel
-N_SUBSTEPS = 5  # compiled into the kernel
+N_BLUE = range(1, 6)  # team sizes the kernels run: 1v0 to 5v5
+N_YELLOW = range(0, 6)
+GROUP_TEAM_SIZE = (3, 3)  # (blue, yellow): the 8-lane group kernel's
+N_SUBSTEPS = 5  # compiled into the kernels
+# Up to this many envs 3v3 launches the 8-lane group kernel, above it the
+# one-thread kernel: measured in turns on the card, the group kernel wins
+# at 16384 envs and loses from 24576 on (PERF.md, section 6).
+VSS_GROUP_MAX_ENVS = 16384
 
 
 def state_size(n_robots: int) -> int:
@@ -210,12 +227,31 @@ def kernel_params(env: VSSEnv) -> dict:
 
 
 def taylor_rotation_holds(env: VSSEnv) -> bool:
-    """The kernel rotates each heading by Taylor terms; they are exact in
-    f32 while a substep turns by at most 0.35 rad.  |w| never exceeds the
-    wheel-limited target, so a substep turns by at most w_max * dts."""
+    """Whether the kernels may rotate each heading by Taylor terms: they are
+    exact in f32 while a substep turns by at most 0.35 rad, and |w| never
+    exceeds the wheel-limited target, so a substep turns by at most
+    w_max * dts.  Beyond it (``time_step`` > 0.0584 s on the VSS fields)
+    they take exact ``cosf``/``sinf`` each substep, as the TPU kernel's
+    fallback does."""
     f = env.field
     w_max = f.rbt_wheel_radius * f.max_wheel_rad_s / HALF_AXLE
     return w_max * env.time_step / env.physics_cfg.n_substeps <= 0.35
+
+
+def route(env: VSSEnv, batch: int) -> str:
+    """Which kernel a step of ``batch`` envs launches: ``"group"`` (8 lanes
+    per env; 3v3 up to ``VSS_GROUP_MAX_ENVS`` envs) or ``"thread"`` (one
+    thread per env).  Raises ``NotImplementedError`` outside the team sizes
+    the kernels run."""
+    nb, ny = env.n_blue, env.n_yellow
+    if nb not in N_BLUE or ny not in N_YELLOW or env.physics_cfg.n_substeps != N_SUBSTEPS:
+        raise NotImplementedError(
+            f"the CUDA kernels run {N_BLUE.start}-{N_BLUE.stop - 1} blue and "
+            f"{N_YELLOW.start}-{N_YELLOW.stop - 1} yellow robots with "
+            f"{N_SUBSTEPS} substeps; got ({nb}, {ny}), "
+            f"{env.physics_cfg.n_substeps} substeps"
+        )
+    return "group" if (nb, ny) == GROUP_TEAM_SIZE and batch <= VSS_GROUP_MAX_ENVS else "thread"
 
 
 _PARAMS_CACHE: dict = {}
@@ -244,16 +280,9 @@ def _library():
 
 def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
     n, nb = env.n_robots, env.n_blue
-    if ((nb, n - nb) not in TEAM_SIZES or env.physics_cfg.n_substeps != N_SUBSTEPS
-            or not taylor_rotation_holds(env)):
-        raise NotImplementedError(
-            f"the CUDA kernel is compiled for team sizes {TEAM_SIZES}, "
-            f"{N_SUBSTEPS} substeps and a per-substep turn <= 0.35 rad; got "
-            f"({nb}, {n - nb}), {env.physics_cfg.n_substeps} substeps, "
-            f"time_step {env.time_step}"
-        )
     dev = state.device
     b = state.shape[-1]
+    entry = "vss_full_step" if route(env, b) == "group" else "vss_full_step_one_thread"
     _build.check_operand(state, "state", state_size(n), b, dev)
     _build.check_operand(action, "action", env.action_size, b, dev)
     rng_kernel = key is not None
@@ -275,15 +304,17 @@ def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        err = lib.vss_full_step(
-            nb, n - nb, int(emit_final), int(rng_kernel), ctypes.byref(params),
+        err = getattr(lib, entry)(
+            nb, n - nb, int(emit_final), int(rng_kernel),
+            int(not taylor_rotation_holds(env)), ctypes.byref(params),
             ptr(state), ptr(action), ptr(ou_noise), ptr(spawn_u), ptr(theta_u),
             ptr(key), st_out.data_ptr(), obs.data_ptr(), aux.data_ptr(), b,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"vss_full_step kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
     vss_full_step.launches += 1
+    vss_full_step.entry_launches[entry] += 1
     if rng_kernel:
         key[2:].add_(1)  # in-stream: the next step reads the next counter
     return st_out, obs, aux
@@ -315,3 +346,4 @@ def vss_full_step(env: VSSEnv, state, action, ou_noise=None, spawn_u=None,
 
 
 vss_full_step.launches = 0
+vss_full_step.entry_launches = collections.Counter()

@@ -3,11 +3,12 @@
 Replaces the TPU kernel ``rsoccer_tpu/ops/pallas_vss.py:37``
 (``make_pallas_vss_physics``): 5 substeps of the differential-drive world
 (drive, dense robot contacts, wall clamp, ball friction and vertical axis,
-ball-robot contacts, goal-pocket walls) on stacked arrays.  The kernel is
-``csrc/vss_physics.cu``, one env on a group of 8 lanes (the VSS substep of
-``csrc/vss_world.cuh``, shared with the fused VSS step), with N = 6
-compiled in (other team sizes raise on the card, as the fused VSS step
-does).
+ball-robot contacts, goal-pocket walls) on stacked arrays, for N = 1..10
+robots.  The kernels are in ``csrc/vss_physics.cu`` (the VSS substep of
+``csrc/vss_world.cuh``, shared with the fused VSS step); :func:`route`
+picks one per launch, as ``ops/vss_full.route`` does: one env on a group
+of 8 lanes (N = 6 up to ``VSS_GROUP_MAX_ENVS`` envs) or one env per thread
+(every other N, and N = 6 above it).  Both give the same bits at N = 6.
 
 Arrays, as the TPU kernel's: robots ``(6, N, B)`` rows [x, y, theta, v_x,
 v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands
@@ -16,13 +17,17 @@ v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands
 :func:`vss_physics` runs the plain version :func:`vss_physics_plain`
 (``physics/vss.make_vss_step`` on the same arrays) only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
-``vss_physics.launches`` counts kernel launches.  :func:`world_step` is the
-``physics/vss`` step's signature over it, which ``BatchedEnv(...,
-fused_physics=True)`` runs between the task's pre- and post-physics.
+``vss_physics.launches`` counts kernel launches,
+``vss_physics.entry_launches`` counts them by C entry (``vss_physics_step``:
+the group kernel, ``vss_physics_step_one_thread``: the one-thread kernel).
+:func:`world_step` is the ``physics/vss`` step's signature over it, which
+``BatchedEnv(..., fused_physics=True)`` runs between the task's pre- and
+post-physics.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -33,8 +38,13 @@ from rsoccer_tpu_torch.core.state import BallState, RobotsState, VSSCommands, Wo
 from rsoccer_tpu_torch.ops import _build
 from rsoccer_tpu_torch.physics.vss import HALF_AXLE, achieved_wheel_speeds, make_vss_step
 
-N_ROBOTS = 6  # compiled into the kernel
-N_SUBSTEPS = 5  # compiled into the kernel
+N_ROBOTS = range(1, 11)  # robot counts the kernels run
+GROUP_N_ROBOTS = 6  # the 8-lane group kernel's
+N_SUBSTEPS = 5  # compiled into the kernels
+# Up to this many envs N = 6 launches the group kernel, above it the
+# one-thread kernel: measured in turns on the card, the group kernel wins
+# at 24576 envs and loses at 32768 (PERF.md, section 6).
+VSS_GROUP_MAX_ENVS = 24576
 
 PARAM_FIELDS = (
     "dts lat_keep a_lin a_ang max_wheel wheel_r two_half_axle half_len half_wid "
@@ -115,15 +125,25 @@ def vss_physics_plain(env, robots, ball, cmd):
     return _stack(world)
 
 
-def _launch(env, robots, ball, cmd):
-    n = robots.shape[1]
-    if n != N_ROBOTS or env.physics_cfg.n_substeps != N_SUBSTEPS:
+def route(env, batch: int) -> str:
+    """Which kernel a physics step of ``batch`` envs of ``env`` launches:
+    ``"group"`` (8 lanes per env; N = 6 up to ``VSS_GROUP_MAX_ENVS`` envs) or
+    ``"thread"`` (one thread per env).  Raises ``NotImplementedError``
+    outside the robot counts the kernels run."""
+    n = env.n_robots
+    if n not in N_ROBOTS or env.physics_cfg.n_substeps != N_SUBSTEPS:
         raise NotImplementedError(
-            f"the CUDA kernel vss_physics is compiled for {N_ROBOTS} robots and "
-            f"{N_SUBSTEPS} substeps; got {n} robots, {env.physics_cfg.n_substeps} substeps"
+            f"the CUDA kernels vss_physics run {N_ROBOTS.start}-{N_ROBOTS.stop - 1} robots "
+            f"with {N_SUBSTEPS} substeps; got {n} robots, {env.physics_cfg.n_substeps} substeps"
         )
+    return "group" if n == GROUP_N_ROBOTS and batch <= VSS_GROUP_MAX_ENVS else "thread"
+
+
+def _launch(env, robots, ball, cmd):
+    n = env.n_robots
     dev = robots.device
     b = robots.shape[-1]
+    entry = "vss_physics_step" if route(env, b) == "group" else "vss_physics_step_one_thread"
     _build.check_operand(robots, "robots", (6, n), b, dev)
     _build.check_operand(ball, "ball", 6, b, dev)
     _build.check_operand(cmd, "cmd", (2, n), b, dev)
@@ -131,12 +151,14 @@ def _launch(env, robots, ball, cmd):
     rb_out = torch.empty_like(robots)
     ball_out = torch.empty_like(ball)
     with torch.cuda.device(dev):
-        err = lib.vss_physics_step(
+        err = getattr(lib, entry)(
             ctypes.byref(_params_struct(env)), robots.data_ptr(), ball.data_ptr(), cmd.data_ptr(),
             rb_out.data_ptr(), ball_out.data_ptr(), n, b, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"vss_physics kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    vss_physics.launches += 1
+    vss_physics.entry_launches[entry] += 1
     return rb_out, ball_out
 
 
@@ -144,9 +166,7 @@ def vss_physics(env, robots, ball, cmd):
     """One physics step of B VSS worlds: ``robots (6,N,B), ball (6,B),
     cmd (2,N,B) -> (robots, ball)``."""
     if robots.device.type == "cuda":
-        out = _launch(env, robots, ball, cmd)
-        vss_physics.launches += 1
-        return out
+        return _launch(env, robots, ball, cmd)
     if robots.device.type != "cpu":
         raise NotImplementedError(
             f"vss_physics runs on CUDA (kernel) or CPU (plain version), not {robots.device.type}"
@@ -155,6 +175,7 @@ def vss_physics(env, robots, ball, cmd):
 
 
 vss_physics.launches = 0
+vss_physics.entry_launches = collections.Counter()
 
 
 def world_step(env, world: WorldState, commands) -> WorldState:

@@ -7,6 +7,7 @@ so it runs on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 """
 
+import ctypes
 import dataclasses
 import math
 
@@ -26,6 +27,14 @@ pytestmark = pytest.mark.cuda
 B = 256
 ATOL = 5e-5
 RAGGED = [1, 37, 8191, 8193]  # batches that leave the last 32-env block part empty
+# VSS-v0 beyond 3v3 and the Taylor bound: what the one-thread kernel (and,
+# at 3v3, the group kernel's exact-trig policy) runs
+VSS_CONFIGS = {
+    "5v5": dict(field_type=1, n_robots_blue=5, n_robots_yellow=5),
+    "1v0": dict(n_robots_blue=1, n_robots_yellow=0),
+    "3v3_dt0.2": dict(time_step=0.2),
+    "2v5_dt0.1": dict(n_robots_blue=2, n_robots_yellow=5, time_step=0.1),
+}
 
 
 @pytest.fixture()
@@ -143,11 +152,76 @@ def test_bad_operands_raise(cuda):
         vf.vss_full_step(env, st, torch.zeros((3, B), device=cuda), key=key)
     with pytest.raises(ValueError):
         vf.vss_full_step(env, st, torch.zeros((2, B), device=cuda), key=key.cpu())
-    for odd in (rsoccer_tpu_torch.make("VSS-v0", n_robots_blue=5, n_robots_yellow=5),
-                rsoccer_tpu_torch.make("VSS-v0", time_step=0.2)):
-        with pytest.raises(NotImplementedError):
-            vf.vss_full_step(odd, torch.zeros((vf.state_size(odd.n_robots), B), device=cuda),
-                             torch.zeros((2, B), device=cuda), key=key)
+    odd = rsoccer_tpu_torch.make("VSS-v0", n_robots_blue=6, n_robots_yellow=6)  # past 5v5
+    with pytest.raises(NotImplementedError):
+        vf.vss_full_step(odd, torch.zeros((vf.state_size(odd.n_robots), B), device=cuda),
+                         torch.zeros((2, B), device=cuda), key=key)
+
+
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+@pytest.mark.parametrize("batch", [B, 8191])
+@pytest.mark.parametrize("config", list(VSS_CONFIGS))
+def test_kernel_matches_plain_configs(cuda, config, batch, rng_mode, emit_final):
+    """VSS-v0 at other team sizes and beyond the Taylor bound (the
+    one-thread kernel; at 3v3 the group kernel's exact-trig policy up to
+    VSS_GROUP_MAX_ENVS), through auto-resets that fall on different steps
+    in one warp."""
+    env = rsoccer_tpu_torch.make("VSS-v0", **VSS_CONFIGS[config])
+    env.max_episode_steps = 3
+    key = make_key(8, device=cuda)
+    st_k, _ = BatchedEnv(env, batch, device=cuda, fused=True).reset(key)
+    dones = check_vss_steps(env, stagger(st_k, env.n_robots), key, rng_mode, emit_final,
+                            torch.Generator(device=cuda).manual_seed(9))
+    assert dones >= batch
+
+
+def vss_entry(entry, env, st, act, rows, key, emit_final):
+    """The outputs of the C entry ``entry`` (``vss_full_step`` or
+    ``vss_full_step_one_thread``) on these operands; the key is not
+    advanced."""
+    b = st.shape[-1]
+    outs = (torch.full_like(st, float("nan")),
+            torch.full((env.obs_size * (2 if emit_final else 1), b), float("nan"), device=st.device),
+            torch.full((vf.N_AUX, b), float("nan"), device=st.device))
+    rng = key is not None
+    ou, sp, th = (None, None, None) if rng else (r.data_ptr() for r in rows)
+    err = getattr(vf._library(), entry)(
+        env.n_blue, env.n_yellow, int(emit_final), int(rng), int(not vf.taylor_rotation_holds(env)),
+        ctypes.byref(vf._params_struct(env)), st.data_ptr(), act.data_ptr(), ou, sp, th,
+        key.data_ptr() if rng else None, *(t.data_ptr() for t in outs), b,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, entry
+    torch.cuda.synchronize()
+    return outs
+
+
+def bit_equal(got, want):
+    """Every output equal bit for bit (a -0 against a +0 counts)."""
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("time_step", [0.025, 0.1], ids=["taylor", "exact_trig"])
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+def test_one_thread_kernel_bit_equal_to_group_kernel(cuda, time_step, rng_mode, emit_final):
+    """At 3v3 the one-thread kernel gives the group kernel's bits, through
+    auto-resets, in both trig policies."""
+    env = rsoccer_tpu_torch.make("VSS-v0", time_step=time_step)
+    env.max_episode_steps = 3
+    key = make_key(2, device=cuda)
+    st, _ = BatchedEnv(env, B, device=cuda, fused=True).reset(key)
+    st = stagger(st)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for t in range(5):
+        act = torch.rand((2, B), generator=gen, device=cuda) * 2 - 1
+        rows = vf.draw_step_rows(env, key.clone(), B)
+        k = key if rng_mode == "kernel" else None
+        group = vss_entry("vss_full_step", env, st, act, rows, k, emit_final)
+        thread = vss_entry("vss_full_step_one_thread", env, st, act, rows, k, emit_final)
+        assert bit_equal(thread, group), f"step {t}"
+        key[2:].add_(1)
+        st = group[0]
 
 
 SSL = {  # env id -> (wrapper, plain, draw)
@@ -292,12 +366,12 @@ def random_vss_arrays(gen, dev, n=6, batch=B):
     return rb.contiguous(), ball.contiguous(), u((2, n, batch), -40, 40)
 
 
-def check_vss_physics(cuda, batch, trials=5):
-    env = rsoccer_tpu_torch.make("VSS-v0")
+def check_vss_physics(cuda, batch, trials=5, **env_kwargs):
+    env = rsoccer_tpu_torch.make("VSS-v0", **env_kwargs)
     gen = torch.Generator(device=cuda).manual_seed(3)
     launches = vp.vss_physics.launches
     for trial in range(trials):
-        rb, ball, cmd = random_vss_arrays(gen, cuda, batch=batch)
+        rb, ball, cmd = random_vss_arrays(gen, cuda, n=env.n_robots, batch=batch)
         k_rb, k_ball = vp.vss_physics(env, rb, ball, cmd)
         p_rb, p_ball = vp.vss_physics_plain(env, rb, ball, cmd)
         d_th = (torch.remainder(k_rb[2] - p_rb[2] + math.pi, 2 * math.pi) - math.pi).abs()
@@ -314,6 +388,46 @@ def test_vss_physics_kernel_matches_plain(cuda):
 @pytest.mark.parametrize("batch", RAGGED)
 def test_vss_physics_kernel_matches_plain_ragged(cuda, batch):
     check_vss_physics(cuda, batch)
+
+
+@pytest.mark.parametrize("batch", [B, 8191])
+@pytest.mark.parametrize("config", ["5v5", "1v0"])
+def test_vss_physics_kernel_matches_plain_configs(cuda, config, batch):
+    """The one-thread physics kernel at N = 10 and N = 1."""
+    check_vss_physics(cuda, batch, **VSS_CONFIGS[config])
+
+
+def test_vss_physics_one_thread_kernel_bit_equal_to_group_kernel(cuda):
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    lib = vp._library()
+    for trial in range(5):
+        rb, ball, cmd = random_vss_arrays(gen, cuda)
+        outs = {}
+        for entry in ("vss_physics_step", "vss_physics_step_one_thread"):
+            outs[entry] = (torch.full_like(rb, float("nan")), torch.full_like(ball, float("nan")))
+            assert getattr(lib, entry)(
+                ctypes.byref(vp._params_struct(env)), rb.data_ptr(), ball.data_ptr(), cmd.data_ptr(),
+                *(t.data_ptr() for t in outs[entry]), env.n_robots, B,
+                torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert bit_equal(*outs.values()), trial
+
+
+@pytest.mark.parametrize("physics", [False, True], ids=["fused", "fused_physics"])
+def test_5v5_main_path_goes_through_the_kernel(cuda, physics):
+    """make_vec's 5v5 path: its kernel launches once per step, no other
+    kernel launches, and the outputs stay finite and inside the obs bounds."""
+    wrapper = vp.vss_physics if physics else vf.vss_full_step
+    benv = rsoccer_tpu_torch.make_vec("VSS-v0", B, device=cuda, fused=not physics, fused_rng="kernel",
+                                      fused_physics=physics, **VSS_CONFIGS["5v5"])
+    benv.env.max_episode_steps = 8
+    launches = launch_counts()
+    carry, ms = R.make_rollout_fn(benv, 20)(R.init_carry(benv, seed=0))
+    assert launch_counts() == [n + 20 * (w is wrapper) for n, w in zip(launches, WRAPPERS)]
+    assert tuple(carry.obs.shape) == (64, B) and bool(torch.isfinite(carry.obs).all())
+    assert bool((carry.obs.abs() <= torch.tensor(1.2)).all())
+    assert int(ms.episodes) > 0
 
 
 def test_fused_physics_main_path_goes_through_the_kernel(cuda):
@@ -341,7 +455,9 @@ def test_vss_physics_bad_operands_raise(cuda):
         vp.vss_physics(env, rb, ball, cmd.cpu())
     with pytest.raises(ValueError):
         vp.vss_physics(env, rb.transpose(1, 2).contiguous().transpose(1, 2), ball, cmd)  # strided
-    odd = rsoccer_tpu_torch.make("VSS-v0", n_robots_blue=5, n_robots_yellow=5)
-    rb10, ball10, cmd10 = random_vss_arrays(torch.Generator(device=cuda).manual_seed(0), cuda, n=10)
+    with pytest.raises(ValueError):  # the arrays' robots are not the env's
+        vp.vss_physics(rsoccer_tpu_torch.make("VSS-v0", **VSS_CONFIGS["5v5"]), rb, ball, cmd)
+    odd = rsoccer_tpu_torch.make("VSS-v0", n_robots_blue=6, n_robots_yellow=6)  # past 10 robots
+    rb12, ball12, cmd12 = random_vss_arrays(torch.Generator(device=cuda).manual_seed(0), cuda, n=12)
     with pytest.raises(NotImplementedError):
-        vp.vss_physics(odd, rb10, ball10, cmd10)
+        vp.vss_physics(odd, rb12, ball12, cmd12)

@@ -1,5 +1,6 @@
 """The fused VSS step's plain version vs the JAX package's Pallas kernel
-(interpret mode), and the port's Philox stream: known answers, slot
+(interpret mode) at 3v3, 5v5, 1v0 and beyond the Taylor bound, the
+wrappers' kernel routes, and the port's Philox stream: known answers, slot
 layout, moments, and its kernel-RNG mode held against the JAX kernel."""
 
 import jax.numpy as jnp
@@ -19,13 +20,18 @@ torch.set_num_threads(1)
 
 B = 16
 ATOL = 5e-5
-N = 6
-STEPS_ROW = 6 + 6 * N
-THETA = slice(6 + 2 * N, 6 + 3 * N)
+# team sizes and time steps the kernels run: 3v3, VSS's 5v5 division on its
+# own field, 1v0 (no robot pairs), 3v3 beyond the Taylor bound (exact trig)
+CONFIGS = {
+    "3v3": {},
+    "5v5": dict(field_type=1, n_robots_blue=5, n_robots_yellow=5),
+    "1v0": dict(n_robots_blue=1, n_robots_yellow=0),
+    "3v3_dt0.1": dict(time_step=0.1),
+}
 
 
-def pair(max_steps=None):
-    jenv, tenv = rsoccer_tpu.make("VSS-v0"), rsoccer_tpu_torch.make("VSS-v0")
+def pair(max_steps=None, **kwargs):
+    jenv, tenv = rsoccer_tpu.make("VSS-v0", **kwargs), rsoccer_tpu_torch.make("VSS-v0", **kwargs)
     if max_steps is not None:
         jenv.max_episode_steps = tenv.max_episode_steps = max_steps
     return jenv, tenv
@@ -35,15 +41,17 @@ def reset_packed(tenv, seed):
     return BatchedEnv(tenv, B, device="cpu", fused=True).reset(philox.make_key(seed, device="cpu"))[0]
 
 
-def assert_step_close(got, want, tag):
-    """(state, obs, aux) of the port vs the JAX kernel's, as numpy."""
+def assert_step_close(got, want, tag, n=6):
+    """(state, obs, aux) of the port vs the JAX kernel's, as numpy, for n
+    robots."""
     st, obs, aux = (np.asarray(a) for a in got)
     w_st, w_obs, w_aux = (np.asarray(a) for a in want)
-    d_th = np.remainder(st[THETA] - w_st[THETA] + np.pi, 2 * np.pi) - np.pi
+    steps_row, theta = 6 + 6 * n, slice(6 + 2 * n, 6 + 3 * n)
+    d_th = np.remainder(st[theta] - w_st[theta] + np.pi, 2 * np.pi) - np.pi
     np.testing.assert_allclose(d_th, 0.0, atol=ATOL, err_msg=f"{tag} theta")
-    rows = [r for r in range(st.shape[0]) if r != STEPS_ROW and not 6 + 2 * N <= r < 6 + 3 * N]
+    rows = [r for r in range(st.shape[0]) if r != steps_row and not 6 + 2 * n <= r < 6 + 3 * n]
     np.testing.assert_allclose(st[rows], w_st[rows], atol=ATOL, err_msg=f"{tag} state")
-    np.testing.assert_array_equal(st[STEPS_ROW], w_st[STEPS_ROW], err_msg=f"{tag} steps")
+    np.testing.assert_array_equal(st[steps_row], w_st[steps_row], err_msg=f"{tag} steps")
     np.testing.assert_allclose(obs, w_obs, atol=ATOL, err_msg=f"{tag} obs")
     np.testing.assert_allclose(aux[0], w_aux[0], atol=ATOL, err_msg=f"{tag} reward")
     np.testing.assert_array_equal(aux[1:3], w_aux[1:3], err_msg=f"{tag} term/trunc")
@@ -52,36 +60,39 @@ def assert_step_close(got, want, tag):
 
 @pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
 @pytest.mark.parametrize("max_steps", [None, 3], ids=["limit1200", "limit3"])
-def test_plain_matches_jax_kernel(emit_final, max_steps):
-    jenv, tenv = pair(max_steps)
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_plain_matches_jax_kernel(config, emit_final, max_steps):
+    jenv, tenv = pair(max_steps, **CONFIGS[config])
+    n = tenv.n_robots
     jstep = make_pallas_vss_full_step(jenv, B, tile=B, interpret=True, emit_final_obs=emit_final)
     rng = np.random.default_rng(21 + (max_steps or 0))
     st_t = reset_packed(tenv, seed=4)
     st_j = jnp.asarray(st_t.numpy())
-    n_sp = (1 + N) * 2 * 8
+    n_sp = (1 + n) * 2 * 8
     dones = 0
     for t in range(6):
         act = rng.uniform(-1, 1, (2, B)).astype(np.float32)
-        ou = rng.normal(size=(2 * N, B)).astype(np.float32)
+        ou = rng.normal(size=(2 * n, B)).astype(np.float32)
         sp = rng.uniform(size=(n_sp, B)).astype(np.float32)
-        th = rng.uniform(size=(N, B)).astype(np.float32)
+        th = rng.uniform(size=(n, B)).astype(np.float32)
         want = jstep(st_j, *(jnp.asarray(a) for a in (act, ou, sp, th)))
         got = vf.vss_full_step_plain(
             tenv, st_t, *(torch.from_numpy(a) for a in (act, ou, sp, th)), emit_final
         )
         assert got[1].shape == (tenv.obs_size * (2 if emit_final else 1), B)
-        assert_step_close(got, want, f"step {t}")
+        assert_step_close(got, want, f"step {t}", n)
         dones += int(got[2][1:3].sum())
         st_t, st_j = got[0], want[0]
     if max_steps is not None:
         assert dones > 0
 
 
-def test_kernel_rng_mode_matches_jax_kernel():
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_kernel_rng_mode_matches_jax_kernel(config):
     """The port's in-kernel-RNG stream, repacked as the JAX kernel's input
     rows, gives the JAX kernel's outputs: the kernel-RNG mode held to the
     reference (which the TPU's hardware PRNG never allowed)."""
-    jenv, tenv = pair(max_steps=4)
+    jenv, tenv = pair(max_steps=4, **CONFIGS[config])
     jstep = make_pallas_vss_full_step(jenv, B, tile=B, interpret=True)
     key = philox.make_key(77, device="cpu")
     st_t = reset_packed(tenv, seed=5)
@@ -94,7 +105,7 @@ def test_kernel_rng_mode_matches_jax_kernel():
         step_before = int(key[2])
         got = vf.vss_full_step(tenv, st_t, act, key=key)
         assert int(key[2]) == step_before + 1
-        assert_step_close(got, want, f"step {t}")
+        assert_step_close(got, want, f"step {t}", tenv.n_robots)
         st_t, st_j = got[0], want[0]
 
 
@@ -186,3 +197,54 @@ def test_wrapper_dispatch_on_cpu():
         vf.vss_full_step(tenv, st, act)
     with pytest.raises(NotImplementedError):
         vf.vss_full_step(tenv, st.to("meta"), act.to("meta"), key=key)
+
+
+@pytest.mark.parametrize(
+    "kwargs, route",
+    [
+        ({}, "group"),
+        (CONFIGS["3v3_dt0.1"], "group"),  # the group kernel's exact-trig policy
+        (CONFIGS["5v5"], "thread"),
+        (CONFIGS["1v0"], "thread"),
+        (dict(n_robots_blue=5, n_robots_yellow=0), "thread"),
+        (dict(n_robots_blue=2, n_robots_yellow=4), "thread"),  # 6 robots, not 3v3
+    ],
+    ids=["3v3", "3v3_dt0.1", "5v5", "1v0", "5v0", "2v4"],
+)
+def test_route_by_team_size(kwargs, route):
+    """Only 3v3 runs on the 8-lane group kernel; every other team size on
+    the one-thread kernel, at any batch."""
+    env = rsoccer_tpu_torch.make("VSS-v0", **kwargs)
+    assert vf.route(env, B) == route
+    assert vf.route(env, vf.VSS_GROUP_MAX_ENVS + 1) == "thread"
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1, 4096])
+def test_route_at_the_crossover(delta):
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    want = "group" if delta <= 0 else "thread"
+    assert vf.route(env, vf.VSS_GROUP_MAX_ENVS + delta) == want
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(n_robots_blue=6, n_robots_yellow=6), dict(n_robots_blue=5, n_robots_yellow=6),
+     dict(n_robots_blue=0, n_robots_yellow=3)],
+    ids=["6v6", "5v6", "0v3"],
+)
+def test_route_refuses_outside_the_range(kwargs):
+    """Outside 1-5 blue and 0-5 yellow robots there is no kernel: the
+    wrapper refuses, naming the range, and never falls back."""
+    env = rsoccer_tpu_torch.make("VSS-v0", **kwargs)
+    with pytest.raises(NotImplementedError, match="1-5 blue and 0-5 yellow"):
+        vf.route(env, B)
+
+
+def test_trig_policy_follows_the_taylor_bound():
+    """The kernels keep the Taylor rotation up to a 0.35 rad turn per
+    substep (time_step 0.0584 s on the VSS fields) and take exact trig
+    beyond it; every config of the tests is on the side it names."""
+    assert vf.taylor_rotation_holds(rsoccer_tpu_torch.make("VSS-v0", time_step=0.0584))
+    assert not vf.taylor_rotation_holds(rsoccer_tpu_torch.make("VSS-v0", time_step=0.0585))
+    for name, kwargs in CONFIGS.items():
+        assert vf.taylor_rotation_holds(rsoccer_tpu_torch.make("VSS-v0", **kwargs)) == ("dt" not in name)

@@ -1,8 +1,9 @@
 """The VSS physics-only step (``ops/vss_physics``): its plain version vs the
-JAX package's Pallas kernel (interpret mode) and XLA step on the same
-arrays, the kernel's parameter struct, the wrapper's dispatch, and
-``BatchedEnv(..., fused_physics=True)`` vs the unfused env step and the
-JAX package's ``pallas_physics`` step fed the same noise."""
+JAX package's Pallas kernel (interpret mode, N = 1, 6 and 10 robots) and
+XLA step on the same arrays, the kernel's parameter struct, the wrapper's
+dispatch and kernel routes, and ``BatchedEnv(..., fused_physics=True)`` vs
+the unfused env step and the JAX package's ``pallas_physics`` step fed the
+same noise, at 3v3 and 5v5."""
 
 import os
 import re
@@ -30,6 +31,9 @@ torch.set_num_threads(1)
 
 ATOL = 5e-5
 PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "rsoccer_tpu_torch")
+# env kwargs by robot count: 1v0, 3v3, VSS's 5v5 division on its own field
+TEAMS = {1: dict(n_robots_blue=1, n_robots_yellow=0), 6: {},
+         10: dict(field_type=1, n_robots_blue=5, n_robots_yellow=5)}
 
 
 def assert_arrays_close(got, want, tag):
@@ -46,20 +50,47 @@ def port_arrays(rb, ball, cmds):
     return (torch.from_numpy(np.asarray(a).copy()) for a in (rb, ball, cmds))
 
 
-@pytest.mark.parametrize("reference", ["pallas_interpret", "xla"])
-def test_plain_matches_jax_physics(reference):
+def random_world(rng, n):
+    """tests/test_pallas_vss.random_batched_world for n robots: robots
+    overlapping, half the balls airborne, wheel commands past the clamp."""
+    if n == N:
+        return random_batched_world(rng)
+    rb = np.zeros((6, n, B), np.float32)
+    rb[0] = rng.uniform(-0.6, 0.6, (n, B))
+    rb[1] = rng.uniform(-0.5, 0.5, (n, B))
+    rb[2] = rng.uniform(-np.pi, np.pi, (n, B))
+    rb[3:5] = rng.uniform(-0.5, 0.5, (2, n, B))
+    rb[5] = rng.uniform(-5, 5, (n, B))
+    ball = np.zeros((6, B), np.float32)
+    ball[0] = rng.uniform(-0.6, 0.6, B)
+    ball[1] = rng.uniform(-0.5, 0.5, B)
+    airborne = rng.uniform(size=B) < 0.5
+    ball[2] = FIELD.ball_radius + np.where(airborne, rng.uniform(0, 0.3, B), 0.0)
+    ball[3:5] = rng.uniform(-1, 1, (2, B))
+    ball[5] = np.where(airborne, rng.uniform(-1, 2, B), 0.0)
+    cmds = rng.uniform(-40, 40, (2, n, B)).astype(np.float32)
+    return jnp.asarray(rb), jnp.asarray(ball), jnp.asarray(cmds)
+
+
+@pytest.mark.parametrize(
+    "reference, n",
+    [("pallas_interpret", 6), ("xla", 6), ("pallas_interpret", 1), ("pallas_interpret", 10)],
+    ids=["pallas_interpret", "xla", "pallas_interpret-n1", "pallas_interpret-n10"],
+)
+def test_plain_matches_jax_physics(reference, n):
     """Random worlds (half the balls airborne, robots overlapping) one
     control step: the port's plain version vs the JAX Pallas kernel and
     the JAX XLA step, to 5e-5."""
-    tenv = rsoccer_tpu_torch.make("VSS-v0")
+    tenv = rsoccer_tpu_torch.make("VSS-v0", **TEAMS[n])
     if reference == "xla":
         step = xla_reference
     else:
-        step = jpv.make_pallas_vss_physics(FIELD, rsoccer_tpu.make("VSS-v0").physics_cfg, DT,
-                                           n_robots=N, batch=B, tile=B, interpret=True)
+        jenv = rsoccer_tpu.make("VSS-v0", **TEAMS[n])
+        step = jpv.make_pallas_vss_physics(jenv.field, jenv.physics_cfg, DT,
+                                           n_robots=n, batch=B, tile=B, interpret=True)
     rng = np.random.default_rng(0)
     for trial in range(5):
-        rb, ball, cmds = random_batched_world(rng)
+        rb, ball, cmds = random_world(rng, n)
         got = vp.vss_physics_plain(tenv, *port_arrays(rb, ball, cmds))
         assert_arrays_close(got, step(rb, ball, cmds), f"trial {trial}")
 
@@ -102,11 +133,12 @@ def test_wrapper_dispatch_on_cpu():
 
 @pytest.mark.parametrize("final", [False, True], ids=["step", "step_final"])
 @pytest.mark.parametrize("max_steps", [None, 3], ids=["limit1200", "limit3"])
-def test_fused_physics_step_matches_unfused_and_jax(max_steps, final):
+@pytest.mark.parametrize("n", [6, 10], ids=["3v3", "5v5"])
+def test_fused_physics_step_matches_unfused_and_jax(n, max_steps, final):
     """BatchedEnv(fused_physics=True) vs the unfused BatchedEnv and vs the
     JAX package's pallas_physics step (its kernel in interpret mode), fed
     the same noise through auto-resets."""
-    jenv, tenv = rsoccer_tpu.make("VSS-v0"), rsoccer_tpu_torch.make("VSS-v0")
+    jenv, tenv = rsoccer_tpu.make("VSS-v0", **TEAMS[n]), rsoccer_tpu_torch.make("VSS-v0", **TEAMS[n])
     if max_steps is not None:
         jenv.max_episode_steps = tenv.max_episode_steps = max_steps
     fused = BatchedEnv(tenv, B, device="cpu", fused_physics=True)
@@ -158,3 +190,39 @@ def test_fused_physics_rollout_matches_unfused():
     for a, b in zip(m_f, m_t):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     torch.testing.assert_close(c_f.obs, c_t.obs, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("n, route", [(6, "group"), (1, "thread"), (10, "thread")])
+def test_route_by_robot_count(n, route):
+    """N = 6 runs on the 8-lane group kernel up to VSS_GROUP_MAX_ENVS envs,
+    every other N on the one-thread kernel; above the crossover every N
+    runs one thread per env."""
+    env = rsoccer_tpu_torch.make("VSS-v0", **TEAMS[n])
+    assert vp.route(env, B) == route
+    assert vp.route(env, vp.VSS_GROUP_MAX_ENVS) == route
+    assert vp.route(env, vp.VSS_GROUP_MAX_ENVS + 1) == "thread"
+
+
+def test_route_refuses_outside_the_range():
+    env = rsoccer_tpu_torch.make("VSS-v0", n_robots_blue=6, n_robots_yellow=5)
+    with pytest.raises(NotImplementedError, match="1-10 robots"):
+        vp.route(env, B)
+
+
+def test_make_vec_5v5_fused_physics_rollout_matches_unfused():
+    """make_vec passes fused_physics through: the 5v5 rollout through the
+    physics kernel's plain version here gives the unfused rollout's metrics
+    and final obs."""
+    benvs = [rsoccer_tpu_torch.make_vec("VSS-v0", B, device="cpu", fused_physics=fp, **TEAMS[10])
+             for fp in (True, False)]
+    assert benvs[0].fused_physics and not benvs[1].fused_physics
+    out = []
+    for benv in benvs:
+        benv.env.max_episode_steps = 4
+        out.append(R.make_rollout_fn(benv, 10)(R.init_carry(benv, seed=3)))
+    (c_f, m_f), (c_t, m_t) = out
+    assert int(m_f.episodes) > 0 and int(m_f.episodes) == int(m_t.episodes)
+    for a, b in zip(m_f, m_t):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    torch.testing.assert_close(c_f.obs, c_t.obs, rtol=0, atol=ATOL)
+    assert tuple(c_f.obs.shape) == (64, B)
