@@ -18,13 +18,14 @@ to its plain version on every step of a ``fused_physics`` rollout, and that
 rollout to the unfused one.  The VSS fused step, the physics kernel and the
 StaticDefenders and Dribbling steps (both RNG modes) are held to their
 plain versions again at a ragged batch (8191 envs: the last block part
-empty), the StaticDefenders and Dribbling steps also at 16384 envs, where
-their wrappers launch the one-thread kernels.  VSS-v0 at 5v5 on its own
+empty), as are the ContestedPossession and PassEndurance steps, and the
+StaticDefenders and Dribbling steps also at 16384 envs, where their
+wrappers launch the one-thread kernels.  VSS-v0 at 5v5 on its own
 field, at 1v0 and at 3v3 beyond the Taylor bound (``time_step`` 0.1) is
 held the same way at 8192 and 8191 envs (the one-thread VSS kernels; at
 3v3 the group kernel's exact-trig policy), the physics kernel at 5v5 and
 1v0, and at 3v3 the one-thread VSS kernels are held bit for bit to the
-group kernels at 32768 envs.  The VSS kernels, K4 and K6 are timed at
+group kernels at 32768 envs.  The VSS kernels and K4-K7 are timed at
 32768 and 131072 envs through their wrappers' routes.  Then it drives each
 main path —
 ``BatchedEnv(<id>, 8192, device="cuda", fused=True, fused_rng="kernel")``,
@@ -32,9 +33,11 @@ main path —
 ``make_vec("VSS-v0", 8192, ..., field_type=1, n_robots_blue=5,
 n_robots_yellow=5)`` fused and ``fused_physics`` —
 through ``make_rollout_fn`` with every launch count set to 0 just before and
-read just after, and times it.  Each phase prints one line; any failure
-exits non-zero.  The last two lines are the kernels' JSON record and
-``{"ok": true, ...}``.
+read just after (the SSL steps and 5v5 also by C entry), and times it;
+for the ContestedPossession and PassEndurance paths it prints the share of
+envs, and of 32-env warps, that hold a done env per step.  Each phase
+prints one line; any failure exits non-zero.  The last two lines are the
+kernels' JSON record and ``{"ok": true, ...}``.
 
 With ``--baseline DIR`` it runs instead one comparison against the kernels
 built from another tree's sources in DIR (its ``rsoccer_tpu_torch/csrc``,
@@ -43,9 +46,10 @@ VSS kernels bit for bit, this tree's one-thread VSS kernels with them, all
 timed in turns (baseline, group, one thread, one thread, group, baseline)
 from 8192 to 131072 envs (the group-vs-one-thread crossover); all four SSL
 steps, outputs bit for bit at 8192 to 131072 envs (in both RNG modes and
-both obs variants), then the StaticDefenders and Dribbling steps timed in
-turns (baseline, this, this, baseline) with this tree's one-thread kernels
-beside them.
+both obs variants), then each timed in turns (baseline, this, this,
+baseline), the StaticDefenders and Dribbling steps with this tree's
+one-thread kernels beside their group kernels, and the route at each batch
+beside the faster design.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -575,7 +579,7 @@ def physics_calls(task, env, carry):
 def time_at_scale(card, k1, k2, ssl_tasks):
     """Device time per launch of the VSS fused step (task ``k1``, both RNG
     modes), the physics kernel (task ``k2``) and the SSL steps of
-    ``ssl_tasks`` (K4 in both RNG modes, K6) at each of SCALE_BATCHES envs,
+    ``ssl_tasks`` (K4-K7, each in its RNG modes) at each of SCALE_BATCHES envs,
     on the state after 20 main-path steps, through the wrappers (so through
     each one's ``route``), with each call's bound.  One phase per batch."""
     import rsoccer_tpu_torch as rt
@@ -671,7 +675,6 @@ SSL_ENTRIES = {
     "ssl_dr_full_step": ("ssl_dr_full_step", 6),
     "ssl_pe_full_step": ("ssl_pe_full_step", 9),
 }
-SSL_TIMED = ("ssl_sd_full_step", "ssl_dr_full_step")  # the kernels this tree redesigned
 CROSSOVER_BATCHES = (B, 8448, 10240, 16384, 32768, 131072)
 
 
@@ -716,9 +719,11 @@ def ssl_against_baseline(lib, tasks, card):
     """This tree's SSL steps (K4-K7, through their wrappers) against the
     baseline library's on the same operands: every output bit for bit in
     both RNG modes and both obs variants, at each of CROSSOVER_BATCHES.
-    Then K4 (both RNG modes) and K6 timed in turns (baseline, this tree's
-    group kernel, the same, baseline) with this tree's one-thread kernel
-    beside them.  One phase per batch.  Raises if an output differs."""
+    Then each step's C entry (K4, K5 and K7 in both RNG modes) timed in
+    turns (baseline, this tree's, the same, baseline), with this tree's
+    one-thread kernel beside K4's and K6's group kernels, and the route
+    beside the design that measured faster.  One phase per batch.  Raises
+    if an output differs."""
     from rsoccer_tpu_torch.ops import ssl_full as sf
     from rsoccer_tpu_torch.ops.philox import make_key
 
@@ -741,8 +746,6 @@ def ssl_against_baseline(lib, tasks, card):
                     if not bit_equal(got, base):
                         raise AssertionError(f"{task.name} at {batch} envs (rng_kernel={rng}, "
                                              f"final={emit_final}): outputs differ from the baseline's")
-            if task.name not in SSL_TIMED:
-                continue
             outs = tuple(torch.empty_like(t) for t in got[:1]) + (
                 torch.empty((env.obs_size, batch), device="cuda"), torch.empty_like(got[2]))
             modes = {"kernel_rng": True, "input_rows": False} if rows else {"kernel_rng": True}
@@ -755,16 +758,50 @@ def ssl_against_baseline(lib, tasks, card):
                 for mode, rng in modes.items():
                     def run(lib_, ent, rng=rng, x=x, a=a):
                         return lambda: ssl_entry_call(lib_, ent, env, x, a, rows, key if rng else None, False, outs)
-                    base_fn, group_fn = run(lib, entry), run(this, entry)
+                    base_fn, this_fn = run(lib, entry), run(this, entry)
                     name = f"{task.name}_{mode}{tag}"
                     turns[name] = [device_us(fn, TIMED_LAUNCHES, task.kernel_match)[0]
-                                   for fn in (base_fn, group_fn, group_fn, base_fn)]
-                    one_thread[name] = device_us(run(this, entry + "_one_thread"), TIMED_LAUNCHES,
-                                                 task.kernel_match)[0]
+                                   for fn in (base_fn, this_fn, this_fn, base_fn)]
+                    if entry in sf.GROUP_ENTRIES:  # beside the group kernel, this tree's one-thread kernel
+                        one_thread[name] = device_us(run(this, entry + "_one_thread"), TIMED_LAUNCHES,
+                                                     task.kernel_match)[0]
+        mean_us = {n: {"baseline": (t[0] + t[3]) / 2, "this": (t[1] + t[2]) / 2} for n, t in turns.items()}
         phase("ssl_baseline_turns", card=card, B=batch, bit_equal=[t.name for t in tasks],
-              baseline_group_group_baseline_us=turns, this_one_thread_us=one_thread,
-              mean_us={n: {"baseline": (t[0] + t[3]) / 2, "group": (t[1] + t[2]) / 2}
-                       for n, t in turns.items()})
+              baseline_this_this_baseline_us=turns, this_one_thread_us=one_thread, mean_us=mean_us,
+              route={t.name: sf.route(t.name, batch) for t in tasks},
+              faster={n: "group" if mean_us[n]["this"] <= t else "thread" for n, t in one_thread.items()})
+
+
+def routed_entry(task, batch: int) -> str:
+    """The C entry that ``task``'s wrapper launches at ``batch`` envs: the
+    SSL steps by their route, the others their one entry."""
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+
+    return sf.routed_entry(task.entry, batch) if task.name in SSL_ENTRIES else task.entry
+
+
+def done_shares(task, steps: int = ROLLOUT_STEPS) -> dict:
+    """The share of envs, and of warps, that hold a done env per step of
+    the task's main path (uniform random policy, after 2 * ``steps`` warm-up
+    steps): what a reset costs where it makes a whole warp of the one-thread
+    kernel (32 envs) wait."""
+    from rsoccer_tpu_torch.batch.rollout import init_carry
+
+    env = make_env(task)
+    benv = task.make_benv(env)
+    carry = init_carry(benv, seed=0)
+    st, key = carry.state, carry.key
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dones = []
+    for t in range(3 * steps):
+        act = torch.rand((env.action_size, B), generator=gen, device="cuda") * 2 - 1
+        st, _, _, term, trunc, _ = benv.step(st, act, key)
+        if t >= 2 * steps:
+            dones.append(term | trunc)
+    d = torch.stack(dones)  # (steps, B)
+    share = {"envs": d.float().mean(1), "warps": d.view(steps, -1, 32).any(2).float().mean(1)}
+    return {"steps": steps, **{f"{k}_mean": float(v.mean()) for k, v in share.items()},
+            **{f"{k}_max": float(v.max()) for k, v in share.items()}}
 
 
 def vss_entry_call(lib, entry, env, st, act, rows, key, outs, emit_final=False):
@@ -960,9 +997,10 @@ def main_path(task, tasks, card):
         raise AssertionError(f"{task.name} main path: launches {launches}, want {want}")
     if task.entry is not None:  # the wrapper's kernel that the main path must run
         by_entry = dict(task.wrapper.entry_launches)
-        if by_entry != {task.entry: n_steps}:
+        entry = routed_entry(task, B)
+        if by_entry != {entry: n_steps}:
             raise AssertionError(f"{task.name} main path: launches by C entry {by_entry}, "
-                                 f"want {task.entry} x {n_steps}")
+                                 f"want {entry} x {n_steps}")
     obs = carry.obs
     if tuple(obs.shape) != (env.obs_size, B) or not bool(torch.isfinite(obs).all()):
         raise AssertionError(f"{task.name}: main-path obs not finite or of the wrong shape")
@@ -1003,7 +1041,7 @@ def main_path(task, tasks, card):
         b_in = bound_ms(task, calls["ins_input"], outs, calls["n_done"](outs))
         extra = {"bound_input_rows_us": b_in[0] * 1e3, "bound_input_rows_by": b_in[1]}
     phase(f"main_path_{task.name}", card=card, env=task.env_id, env_kwargs=task.env_kwargs, B=B,
-          steps=n_steps, launches=launches[task.wrapper.__name__], entry=task.entry,
+          steps=n_steps, launches=launches[task.wrapper.__name__], entry=routed_entry(task, B),
           episodes=episodes, rollout_ms=roll_ms, host_s=host_s,
           env_steps_per_s=env_steps_per_s, rollout_us_per_step=rollout_us_per_step)
     phase(f"kernel_vs_plain_time_{task.name}", card=card, B=B, call_us=call_us,
@@ -1082,6 +1120,7 @@ def main() -> int:
             name="ssl_sd_full_step", env_id="SSLStaticDefenders-v0", wrapper=sf.sd_full_step,
             plain=sf.sd_full_step_plain, draw=sf.sd_draw_step_rows,
             actions=chase_actions, warm_steps=WARM_STEPS, kernel_match=r"sd_(full|thread)_kernel",
+            entry="ssl_sd_full_step",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:456",
             # trig + actions ~40, 5 substeps x (7 robots x 20 + 21 pairs x 25
@@ -1096,6 +1135,7 @@ def main() -> int:
             name="ssl_cp_full_step", env_id="SSLContestedPossession-v0", wrapper=sf.cp_full_step,
             plain=sf.cp_full_step_plain, draw=sf.cp_draw_step_rows,
             actions=chase_actions, warm_steps=WARM_STEPS, kernel_match="cp_full_kernel",
+            entry="ssl_cp_full_step",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:824",
             # trig + actions ~25, 5 substeps x (2 robots x 20 + 1 pair x 25
@@ -1108,6 +1148,7 @@ def main() -> int:
             name="ssl_dr_full_step", env_id="SSLDribbling-v0", wrapper=sf.dr_full_step,
             plain=sf.dr_full_step_plain, draw=sf.dr_draw_step_rows,
             actions=dribble_actions, warm_steps=WARM_STEPS, kernel_match=r"dr_(full|thread)_kernel",
+            entry="ssl_dr_full_step",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:1086",
             # trig 10 + actions ~20, 5 substeps x (5 robots x 20 + 10 pairs
@@ -1122,6 +1163,7 @@ def main() -> int:
             name="ssl_pe_full_step", env_id="SSLPassEndurance-v0", wrapper=sf.pe_full_step,
             plain=sf.pe_full_step_plain, draw=sf.pe_draw_step_rows,
             actions=pass_actions, warm_steps=WARM_STEPS, kernel_match="pe_full_kernel",
+            entry="ssl_pe_full_step",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:1327",
             # trig 4 + actions ~5, 5 substeps x (2 robots x 20 + 1 pair x 25
@@ -1163,7 +1205,7 @@ def main() -> int:
             calls=physics_calls,
         ),
     ]
-    for t in tasks:  # the SSL tasks: the reference configuration, one kernel behind the wrapper
+    for t in tasks:  # the SSL tasks: the reference configuration
         for k, v in (("kernel", t.name), ("env_kwargs", {}), ("entry", None)):
             if not hasattr(t, k):
                 setattr(t, k, v)
@@ -1223,14 +1265,16 @@ def main() -> int:
     phase("kernel_vs_plain_ragged_vss_physics", B=RAGGED_B, steps=N_CHECK_STEPS, max_abs_err=err,
           atol=ATOL, dones=dones)
     errs["vss_physics"] = max(errs["vss_physics"], err)
-    # K4 and K6: their group kernels at the ragged batch, their one-thread
-    # kernels (which the wrappers launch above GROUP_MAX_ENVS) at ONE_THREAD_B
-    for task in (t for t in ssl_tasks if t.name in SSL_TIMED):
-        for batch, tag in ((RAGGED_B, "ragged"), (ONE_THREAD_B, "one_thread")):
+    # K4-K7 through their routes at the ragged batch; K4 and K6 also past
+    # their crossover, where they launch their one-thread kernels
+    for task in ssl_tasks:
+        batches = ((RAGGED_B, "ragged"), (ONE_THREAD_B, "one_thread")) if task.name in sf.GROUP_ENTRIES else (
+            (RAGGED_B, "ragged"),)
+        for batch, tag in batches:
             for rng_mode in ("input", "kernel"):
                 err, at, dones, _ = check_kernel_vs_plain(task, rng_mode, batch)
-                phase(f"kernel_vs_plain_{tag}_{rng_mode}_{task.name}", B=batch, steps=N_CHECK_STEPS,
-                      max_abs_err=err, worst_at=at, atol=ATOL, dones=dones)
+                phase(f"kernel_vs_plain_{tag}_{rng_mode}_{task.name}", B=batch, route=sf.route(task.entry, batch),
+                      steps=N_CHECK_STEPS, max_abs_err=err, worst_at=at, atol=ATOL, dones=dones)
                 errs[task.name] = max(errs[task.name], err)
 
     # ---- 3c. VSS-v0 at the other team sizes and beyond the Taylor bound,
@@ -1255,8 +1299,8 @@ def main() -> int:
             errs["vss_5v5_fused_physics"] = max(errs["vss_5v5_fused_physics"], err)
     phase("thread_vs_group_bit_equal", B=VSS_THREAD_B, comparisons=check_thread_vs_group())
 
-    # ---- 3d. the VSS kernels, K4 and K6 at larger batches, timed
-    time_at_scale(card, k1, k2, [t for t in ssl_tasks if t.name in SSL_TIMED])
+    # ---- 3d. the VSS kernels and K4-K7 at larger batches, timed
+    time_at_scale(card, k1, k2, ssl_tasks)
 
     # ---- 4. each main path, through its kernel, timed
     kernels = []
@@ -1264,6 +1308,8 @@ def main() -> int:
         rec = main_path(task, tasks, card)
         rec["max_abs_err"] = errs[task.name]
         kernels.append(rec)
+        if task.name in ("ssl_cp_full_step", "ssl_pe_full_step"):
+            phase(f"done_share_{task.name}", card=card, B=B, **done_shares(task))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,15 @@ Replaces the TPU kernels ``rsoccer_tpu/ops/pallas_ssl_full.py:456``
 kernels are ``csrc/ssl_full.cu``: action conversion -> 5 SSL substeps
 (omni drive, robot contacts, dribbler, vertical ball, ball-robot with the
 dribbler face, kick, infrared) -> the task's termination and reward -> on
-done envs only, the reset -> auto-reset select -> obs.  The
-StaticDefenders and Dribbling steps run one env on a group of 8 lanes, one
-robot per lane, on the cooperative world step ``csrc/ssl_world.cuh``, up to
-``GROUP_MAX_ENVS`` envs, and one env per thread above it; the
-ContestedPossession and PassEndurance steps run one env per thread.  The
-one-thread kernels step the world with ``csrc/ssl_body.cuh`` (and
-``pair_collide.cuh``); ``philox.cuh`` serves the in-kernel draws.
+done envs only, the reset -> auto-reset select -> obs.  :func:`route`
+picks the design per launch, by batch: the StaticDefenders and Dribbling
+steps run one env on a group of 8 lanes, one robot per lane, on the
+cooperative world step ``csrc/ssl_world.cuh``, up to ``GROUP_MAX_ENVS``
+envs (``"group"``), and one env per thread above it (``"thread"``); the
+ContestedPossession and PassEndurance steps run one env per thread at
+every batch.  The one-thread kernels step the world with
+``csrc/ssl_body.cuh`` (and ``pair_collide.cuh``); ``philox.cuh`` serves
+the in-kernel draws.
 
 State row layout (N robots), identical to the TPU kernels':
     0:6          ball x, y, z, v_x, v_y, v_z
@@ -38,11 +40,13 @@ enemy 0-1; PE: ball 0-1, recv_x 2-17; DR draws nothing), and advances
 
 The ``*_full_step`` wrappers run the plain versions ``*_full_step_plain``
 only for tensors on the CPU; for CUDA tensors they launch the kernel or
-raise.  Each counts its launches in ``.launches``.
+raise.  Each counts its launches in ``.launches``, and by C entry
+(:func:`routed_entry`) in ``.entry_launches``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -76,6 +80,9 @@ SD_ROBOTS, CP_ROBOTS, DR_ROBOTS, PE_ROBOTS = 7, 2, 5, 2  # compiled into the ker
 # card the group kernels win at 8192 envs and lose from 10240 on (PERF.md,
 # section 6).
 GROUP_MAX_ENVS = 8448
+# the fused steps' C entries; the first two also have a group kernel
+GROUP_ENTRIES = ("ssl_sd_full_step", "ssl_dr_full_step")
+ENTRIES = GROUP_ENTRIES + ("ssl_cp_full_step", "ssl_pe_full_step")
 K = spawn_mod.N_CANDIDATES
 DR_KEYS = ()  # the reference's Dribbling step has no info keys
 
@@ -354,9 +361,29 @@ def _library():
     return lib
 
 
-def _launch(entry: str, env, n_robots: int, state_rows: int, n_aux: int, state, action,
+def route(entry: str, batch: int) -> str:
+    """Which kernel the fused step of C entry ``entry`` (one of
+    ``ENTRIES``) launches at ``batch`` envs: ``"group"`` (8 lanes per env;
+    SD and DR up to ``GROUP_MAX_ENVS``) or ``"thread"`` (one env per
+    thread; CP and PE at every batch)."""
+    if entry not in ENTRIES:
+        raise ValueError(f"no fused SSL step {entry!r}; one of {sorted(ENTRIES)}")
+    return "group" if entry in GROUP_ENTRIES and batch <= GROUP_MAX_ENVS else "thread"
+
+
+def routed_entry(entry: str, batch: int) -> str:
+    """The C entry that the fused step of ``entry`` calls at ``batch`` envs:
+    ``entry`` itself (SD's and DR's group kernel; CP's and PE's one kernel),
+    or ``entry + "_one_thread"`` (SD's and DR's one-thread kernel)."""
+    if route(entry, batch) == "thread" and entry in GROUP_ENTRIES:
+        return entry + "_one_thread"
+    return entry
+
+
+def _launch(wrapper, entry: str, env, n_robots: int, state_rows: int, n_aux: int, state, action,
             noise, noise_rows, key, emit_final):
-    """Check the operands, allocate the outputs and launch ``entry``."""
+    """Check the operands, allocate the outputs and launch ``entry``'s
+    kernel for the batch (:func:`route`); count the launch on ``wrapper``."""
     if env.n_robots != n_robots or env.physics_cfg.n_substeps != N_SUBSTEPS:
         raise NotImplementedError(
             f"the CUDA kernel {entry} is compiled for {n_robots} robots and "
@@ -374,8 +401,7 @@ def _launch(entry: str, env, n_robots: int, state_rows: int, n_aux: int, state, 
         for i, (t, rows) in enumerate(zip(noise, noise_rows)):
             _build.check_operand(t, f"noise[{i}]", rows, b, dev)
 
-    if b > GROUP_MAX_ENVS and entry in ("ssl_sd_full_step", "ssl_dr_full_step"):
-        entry += "_one_thread"
+    entry = routed_entry(entry, b)
     lib = _library()
     st_out = torch.empty_like(state)
     obs = torch.empty((env.obs_size * (2 if emit_final else 1), b), dtype=torch.float32, device=dev)
@@ -393,6 +419,8 @@ def _launch(entry: str, env, n_robots: int, state_rows: int, n_aux: int, state, 
         )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    wrapper.launches += 1
+    wrapper.entry_launches[entry] += 1
     if rng_kernel:
         key[2:].add_(1)  # in-stream: the next step reads the next counter
     return st_out, obs, aux
@@ -420,15 +448,14 @@ def sd_full_step(env, state, action, ball_u=None, spawn_u=None, theta_u=None, *,
     drawn from ``key`` (int64 ``[k0, k1, step]``, advanced by one).
     Returns ``(state, obs, aux)``.  On the card it launches the 8-lane group
     kernel up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel
-    above: the crossover the H100 measured (PERF.md, section 6).
+    above (:func:`route`): the crossover the H100 measured (PERF.md,
+    section 6).
     """
     noise = (ball_u, spawn_u, theta_u)
     if _dispatch("sd_full_step", env, state, noise, key):
-        out = _launch("ssl_sd_full_step", env, SD_ROBOTS, sd_state_size(), 3 + len(SD_KEYS),
-                      state, action, noise, (2 * K, env.n_yellow * 2 * K, env.n_yellow), key,
-                      emit_final)
-        sd_full_step.launches += 1
-        return out
+        return _launch(sd_full_step, "ssl_sd_full_step", env, SD_ROBOTS, sd_state_size(),
+                       3 + len(SD_KEYS), state, action, noise,
+                       (2 * K, env.n_yellow * 2 * K, env.n_yellow), key, emit_final)
     if key is not None:
         noise = sd_draw_step_rows(env, key, state.shape[-1])
     return sd_full_step_plain(env, state, action, *noise, emit_final)
@@ -442,10 +469,8 @@ def cp_full_step(env, state, action, enemy_u=None, *, key=None, emit_final: bool
     """
     noise = (enemy_u,)
     if _dispatch("cp_full_step", env, state, noise, key):
-        out = _launch("ssl_cp_full_step", env, CP_ROBOTS, cp_state_size(), 3 + len(CP_KEYS),
-                      state, action, noise, (2,), key, emit_final)
-        cp_full_step.launches += 1
-        return out
+        return _launch(cp_full_step, "ssl_cp_full_step", env, CP_ROBOTS, cp_state_size(),
+                       3 + len(CP_KEYS), state, action, noise, (2,), key, emit_final)
     if key is not None:
         noise = cp_draw_step_rows(env, key, state.shape[-1])
     return cp_full_step_plain(env, state, action, *noise, emit_final)
@@ -455,13 +480,11 @@ def dr_full_step(env, state, action, *, key=None, emit_final: bool = False):
     """One fused SSLDribbling-v0 step.  It draws no noise; ``key``, where
     given (the kernel-RNG mode), is advanced by one all the same.  Returns
     ``(state, obs, aux)``.  On the card it launches the 8-lane group kernel
-    up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel above:
-    the crossover the H100 measured (PERF.md, section 6)."""
+    up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel above
+    (:func:`route`): the crossover the H100 measured (PERF.md, section 6)."""
     if _dispatch("dr_full_step", env, state, (), key):
-        out = _launch("ssl_dr_full_step", env, DR_ROBOTS, dr_state_size(), 3, state, action,
-                      (), (), key, emit_final)
-        dr_full_step.launches += 1
-        return out
+        return _launch(dr_full_step, "ssl_dr_full_step", env, DR_ROBOTS, dr_state_size(), 3,
+                       state, action, (), (), key, emit_final)
     if key is not None:
         dr_draw_step_rows(env, key, state.shape[-1])
     return dr_full_step_plain(env, state, action, emit_final)
@@ -476,16 +499,13 @@ def pe_full_step(env, state, action, ball_u=None, recv_u=None, *, key=None,
     """
     noise = (ball_u, recv_u)
     if _dispatch("pe_full_step", env, state, noise, key):
-        out = _launch("ssl_pe_full_step", env, PE_ROBOTS, pe_state_size(), 3 + len(PE_KEYS),
-                      state, action, noise, (2, N_CAND), key, emit_final)
-        pe_full_step.launches += 1
-        return out
+        return _launch(pe_full_step, "ssl_pe_full_step", env, PE_ROBOTS, pe_state_size(),
+                       3 + len(PE_KEYS), state, action, noise, (2, N_CAND), key, emit_final)
     if key is not None:
         noise = pe_draw_step_rows(env, key, state.shape[-1])
     return pe_full_step_plain(env, state, action, *noise, emit_final)
 
 
-sd_full_step.launches = 0
-cp_full_step.launches = 0
-dr_full_step.launches = 0
-pe_full_step.launches = 0
+for _wrapper in (sd_full_step, cp_full_step, dr_full_step, pe_full_step):
+    _wrapper.launches = 0
+    _wrapper.entry_launches = collections.Counter()

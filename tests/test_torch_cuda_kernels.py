@@ -231,6 +231,10 @@ SSL = {  # env id -> (wrapper, plain, draw)
     "SSLPassEndurance-v0": (sf.pe_full_step, sf.pe_full_step_plain, sf.pe_draw_step_rows),
 }
 WRAPPERS = [vf.vss_full_step, vp.vss_physics] + [w for w, _, _ in SSL.values()]
+ENTRY = {  # env id -> the fused step's C entry
+    "SSLStaticDefenders-v0": "ssl_sd_full_step", "SSLContestedPossession-v0": "ssl_cp_full_step",
+    "SSLDribbling-v0": "ssl_dr_full_step", "SSLPassEndurance-v0": "ssl_pe_full_step",
+}
 
 
 def launch_counts():
@@ -289,6 +293,7 @@ def test_ssl_group_kernel_matches_plain_ragged(cuda, env_id, batch, rng_mode, em
     part empty, through auto-resets that fall on different steps in one
     warp."""
     wrapper, plain, draw = SSL[env_id]
+    wrapper.entry_launches.clear()
     env = rsoccer_tpu_torch.make(env_id)
     env.max_episode_steps = 3
     key = make_key(4, device=cuda)
@@ -296,15 +301,18 @@ def test_ssl_group_kernel_matches_plain_ragged(cuda, env_id, batch, rng_mode, em
     dones = check_ssl_steps(env, wrapper, plain, draw, stagger(st_k, env.n_robots), key, rng_mode, emit_final,
                             torch.Generator(device=cuda).manual_seed(6))
     assert dones >= batch  # every env reset at least once
+    assert dict(wrapper.entry_launches) == {ENTRY[env_id]: 5}
 
 
 @pytest.mark.parametrize("rng_mode", ["input", "kernel"])
 @pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
-@pytest.mark.parametrize("env_id", ["SSLStaticDefenders-v0", "SSLDribbling-v0"])
+@pytest.mark.parametrize("env_id", list(SSL))
 def test_ssl_one_thread_kernel_matches_plain(cuda, env_id, rng_mode, emit_final):
-    """Above GROUP_MAX_ENVS the SD and DR wrappers launch their one-thread
-    kernels: held to the plain versions there, through auto-resets."""
+    """Above GROUP_MAX_ENVS every SSL wrapper launches its one-thread
+    kernel (CP and PE at every batch): held to the plain versions there, at
+    a batch that leaves a block part empty, through auto-resets."""
     wrapper, plain, draw = SSL[env_id]
+    wrapper.entry_launches.clear()
     env = rsoccer_tpu_torch.make(env_id)
     env.max_episode_steps = 3
     batch = sf.GROUP_MAX_ENVS + 1
@@ -313,11 +321,13 @@ def test_ssl_one_thread_kernel_matches_plain(cuda, env_id, rng_mode, emit_final)
     dones = check_ssl_steps(env, wrapper, plain, draw, stagger(st_k, env.n_robots), key, rng_mode, emit_final,
                             torch.Generator(device=cuda).manual_seed(7))
     assert dones >= batch
+    assert dict(wrapper.entry_launches) == {sf.routed_entry(ENTRY[env_id], batch): 5}
 
 
 @pytest.mark.parametrize("env_id", list(SSL))
 def test_ssl_main_path_goes_through_the_kernel(cuda, env_id):
-    """Its kernel launches once per step, no other kernel launches."""
+    """Its kernel launches once per step, through the C entry its route
+    names, and no other kernel launches."""
     wrapper = SSL[env_id][0]
     env = rsoccer_tpu_torch.make(env_id)
     if env_id == "SSLDribbling-v0":
@@ -325,8 +335,10 @@ def test_ssl_main_path_goes_through_the_kernel(cuda, env_id):
     benv = BatchedEnv(env, B, device=cuda, fused=True, fused_rng="kernel")
     carry = R.init_carry(benv, seed=0)
     launches = launch_counts()
+    wrapper.entry_launches.clear()
     carry, ms = R.make_rollout_fn(benv, 20)(carry)
     assert launch_counts() == [n + 20 * (w is wrapper) for n, w in zip(launches, WRAPPERS)]
+    assert dict(wrapper.entry_launches) == {sf.routed_entry(ENTRY[env_id], B): 20}
     assert bool(torch.isfinite(carry.obs).all()) and bool(torch.isfinite(carry.state).all())
     assert bool((carry.obs.abs() <= torch.tensor(1.2)).all())
     assert int(ms.episodes) > 0

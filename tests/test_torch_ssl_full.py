@@ -379,3 +379,50 @@ def test_entry_points_default_to_the_card(env_id):
     cpu = rsoccer_tpu_torch.make_vec(env_id, 8, device="cpu", fused=True)
     with pytest.raises(ValueError, match="key is on"):
         cpu.reset(philox.make_key(0, device="meta"))
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1, 4096])
+@pytest.mark.parametrize("entry", ["ssl_sd_full_step", "ssl_dr_full_step"])
+def test_route_at_the_crossover(entry, delta):
+    """SD and DR run their 8-lane group kernels up to GROUP_MAX_ENVS and
+    their one-thread kernels above it."""
+    want = "group" if delta <= 0 else "thread"
+    assert sf.route(entry, sf.GROUP_MAX_ENVS + delta) == want
+
+
+@pytest.mark.parametrize("batch", [1, 8191, 8192, 16384, 131072])
+@pytest.mark.parametrize("entry", ["ssl_cp_full_step", "ssl_pe_full_step"])
+def test_route_runs_cp_and_pe_on_one_thread(entry, batch):
+    """CP and PE have one kernel, one env per thread, behind their own C
+    entry at every batch."""
+    assert sf.route(entry, batch) == "thread"
+    assert sf.routed_entry(entry, batch) == entry
+
+
+@pytest.mark.parametrize("entry", ["ssl_sd_full_step", "ssl_dr_full_step"])
+def test_routed_entry_of_sd_and_dr(entry):
+    """SD's and DR's group kernel is behind their C entry, their one-thread
+    kernel behind ``_one_thread``."""
+    assert sf.routed_entry(entry, sf.GROUP_MAX_ENVS) == entry
+    assert sf.routed_entry(entry, sf.GROUP_MAX_ENVS + 1) == entry + "_one_thread"
+
+
+def test_route_constants():
+    """The crossover the card measured (PERF.md, section 6); the four fused
+    steps' C entries route, and no other name does."""
+    assert sf.GROUP_MAX_ENVS == 8448
+    assert set(sf.ENTRIES) == {"ssl_sd_full_step", "ssl_cp_full_step", "ssl_dr_full_step",
+                               "ssl_pe_full_step"}
+    with pytest.raises(ValueError, match="no fused SSL step"):
+        sf.route("ssl_xx_full_step", 8192)
+
+
+@pytest.mark.parametrize("env_id", [SD, CP, DR, PE])
+def test_cpu_steps_count_no_entry(env_id):
+    """The plain version on the CPU launches nothing: no C entry counts."""
+    _, _, wrapper, draw = TASKS[env_id]
+    tenv = rsoccer_tpu_torch.make(env_id)
+    before = dict(wrapper.entry_launches)
+    wrapper(tenv, reset_packed(tenv, seed=2), torch.zeros((tenv.action_size, B)),
+            key=philox.make_key(6, device="cpu"))
+    assert dict(wrapper.entry_launches) == before
