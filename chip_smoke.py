@@ -50,6 +50,19 @@ both obs variants), then each timed in turns (baseline, this, this,
 baseline), the StaticDefenders and Dribbling steps with this tree's
 one-thread kernels beside their group kernels, and the route at each batch
 beside the faster design.
+Then the learner of the main path (``rsoccer_tpu_torch/models/ppo.py``):
+``ppo_train`` trains PPO on VSS-v0 at 8192 envs through K1's
+``emit_final`` variant (towers (256, 256) in bf16, 128 steps x 4 epochs x
+8 minibatches, 10 updates from a fresh init, counts zeroed before and read
+after), printing each update's reward, loss, entropy and collect / update
+ms; ``ppo_resume`` saves and restores the whole training state and holds
+one more update from each bit for bit; ``ppo_profile`` gives K1's share of
+the collect step and times the variant against its plain version;
+``ppo_checkpoint`` loads the shipped ``artifacts/vss_ppo.ckpt.npz``
+without jax and holds its VSS anchor (1024 envs x 4800 steps) to the
+two-sample 3-sigma band around ``artifacts/README.md``'s numbers;
+``ppo_ssl_checkpoints`` does the same for the SSL PPO checkpoints on K4,
+K5 and K6.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -505,10 +518,13 @@ def device_us(fn, n: int, match: str = "", table: str = "") -> tuple[float, dict
             fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     # a named kernel launches once per call: its time per call is its time
     # per launch the profiler saw (a window that misses events stays right)
+    # a user annotation's range on the device (``Optimizer.step#Adam.step``)
+    # spans kernels counted on their own: left out
     kernels = {
         e.key: e.self_device_time_total / (e.count if match else n)
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and re.search(match, e.key)
+        and not getattr(e, "is_user_annotation", False)
     }
     total = sum(kernels.values())
     if total <= 0:
@@ -974,10 +990,7 @@ def main_path(task, tasks, card):
         carry, _ = rollout(carry)
     torch.cuda.synchronize()
     wrappers = list({id(t.wrapper): t.wrapper for t in tasks}.values())
-    for w in wrappers:
-        w.launches = 0
-        if hasattr(w, "entry_launches"):
-            w.entry_launches.clear()
+    zero_counts(wrappers)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     episodes = 0
@@ -1063,6 +1076,269 @@ def main_path(task, tasks, card):
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes an env step or its physics
     }
+
+
+# ---- PPO on the card: the learner of the main path
+PPO_UPDATES = 10
+PPO_CONFIG = dict(hidden=(256, 256), rollout_steps=128, num_epochs=4, num_minibatches=8,
+                  minibatch_mode="shuffle")
+ARTIFACTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts")
+# artifacts/README.md: vss_ppo on the absolute VSS anchor (1024 envs x 4800
+# steps, deterministic policy), and the SSL PPO checkpoints' deterministic
+# eval (env id, success rate, episodes, floor where the band is empty)
+VSS_ANCHOR_REF = {"episodes": 9142, "blue_goal_rate": 0.729, "yellow_goal_rate": 0.068,
+                  "mean_goal_diff": 0.66}
+SSL_PPO_REFS = {
+    "cp_ppo2": ("SSLContestedPossession-v0", 0.989, 2285, None),
+    "sd_ppo3": ("SSLStaticDefenders-v0", 0.871, 22188, None),
+    "drb_ppo": ("SSLDribbling-v0", 1.000, 5632, 0.990),
+}
+
+
+def two_sample_band(ref: float, var: float, n_ref: int, n: int) -> list:
+    """ref +- 3 sigma of the difference of two independent sample means of
+    a quantity of per-episode variance ``var``, over n_ref and n episodes."""
+    half = 3.0 * math.sqrt(var * (1.0 / n_ref + 1.0 / max(n, 1)))
+    return [ref - half, ref + half]
+
+
+def zero_counts(wrappers):
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "entry_launches"):
+            w.entry_launches.clear()
+        if hasattr(w, "final_launches"):
+            w.final_launches = 0
+
+
+def check_launches(tag, wrappers, wrapper, entry, n, final=None):
+    """After a run that began with ``zero_counts(wrappers)``: ``wrapper``
+    launched ``n`` times, all through the C entry ``entry`` (and ``final``
+    of them its ``emit_final`` variant, where given), every other wrapper
+    never.  Returns the launch counts."""
+    launches = {w.__name__: w.launches for w in wrappers}
+    want = {w.__name__: (n if w is wrapper else 0) for w in wrappers}
+    by_entry = dict(wrapper.entry_launches)
+    finals = getattr(wrapper, "final_launches", None)
+    if launches != want or by_entry != {entry: n} or (final is not None and finals != final):
+        raise AssertionError(f"{tag}: launches {launches} by entry {by_entry}, emit_final {finals}; "
+                             f"want {want}, all through {entry}, emit_final {final}")
+    return launches
+
+
+def vss_entry(benv):
+    """The C entry of K1 that a fused VSS ``benv`` launches."""
+    from rsoccer_tpu_torch.ops import vss_full as vf
+
+    return "vss_full_step" if vf.route(benv.env, benv.n_envs) == "group" else "vss_full_step_one_thread"
+
+
+def ppo_train(card, wrappers):
+    """The PPO main path: VSS-v0 at B envs on the fused kernel-RNG path (K1's
+    group kernel, ``emit_final``), towers (256, 256) in bf16, PPO_UPDATES
+    updates from a fresh init through ``PPOTrainer.train_step``, every launch
+    count zeroed just before and read just after.  Fails on a non-finite
+    loss, on params that do not move, or on launches other than K1's
+    emit_final variant once per env step.  Returns (trainer, state, the
+    phase's numbers)."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.models.ppo import PPOConfig, PPOTrainer
+    from rsoccer_tpu_torch.ops import vss_full as vf
+
+    benv = rt.make_vec("VSS-v0", B, device="cuda", fused=True, fused_rng="kernel")
+    cfg = PPOConfig(**PPO_CONFIG)
+    trainer = PPOTrainer(benv, cfg)
+    state = trainer.init(0)
+    p0 = [p.detach().clone() for p in state.net.parameters()]
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    rows = []
+    t_prev = time.perf_counter()
+    for i in range(PPO_UPDATES):
+        state, m = trainer.train_step(state)
+        row = {"update": i, **{k: float(m[k]) for k in ("mean_reward", "loss", "entropy", "value_loss")},
+               **trainer.phase_ms()}
+        now = time.perf_counter()
+        row["wall_ms"] = (now - t_prev) * 1e3
+        t_prev = now
+        if not all(math.isfinite(row[k]) for k in ("loss", "entropy", "value_loss")):
+            raise AssertionError(f"ppo_train: non-finite loss at update {i}: {row}")
+        rows.append(row)
+        phase("ppo_update", **row)
+    n_steps = PPO_UPDATES * cfg.rollout_steps
+    entry = vss_entry(benv)
+    launches = check_launches("ppo_train", wrappers, vf.vss_full_step, entry, n_steps, final=n_steps)
+    moved = [not torch.equal(a, b) for a, b in zip(p0, state.net.parameters())]
+    if not all(moved):
+        raise AssertionError(f"ppo_train: parameters that did not move: {moved}")
+    steady = rows[1:]  # the first update carries one-time set-up (cuBLAS, allocator)
+    mean = {k: sum(r[k] for r in steady) / len(steady) for k in ("collect_ms", "update_ms", "wall_ms")}
+    out = {
+        "B": B, "config": {**PPO_CONFIG, "hidden": list(cfg.hidden)}, "updates": PPO_UPDATES,
+        "launches": launches["vss_full_step"], "entry": entry,
+        "final_launches": vf.vss_full_step.final_launches,
+        "env_steps_per_s": cfg.rollout_steps * B / (mean["wall_ms"] / 1e3),
+        "collect_ms_per_update": mean["collect_ms"], "update_ms_per_update": mean["update_ms"],
+        "collect_ms_per_step": mean["collect_ms"] / cfg.rollout_steps,
+        "wall_ms_per_update": mean["wall_ms"], "first_update_wall_ms": rows[0]["wall_ms"],
+        "reward_per_step": [r["mean_reward"] for r in rows],
+    }
+    phase("ppo_train", card=card, **out)
+    return trainer, state, out
+
+
+def ppo_resume(trainer, state):
+    """Save the whole training state, restore it, hold the params bit for
+    bit, then one more update from each: equal params, env state and key.
+    Returns the restored state after its update."""
+    from rsoccer_tpu_torch.utils import checkpoint
+
+    path = os.path.join(OUT_DIR, "ppo_resume.ckpt")
+    checkpoint.save(path, trainer.state_tree(state))
+    back = trainer.state_from_tree(checkpoint.restore(path, like=trainer.state_tree(state)))
+    restored = bit_equal(list(state.net.parameters()), list(back.net.parameters()))
+    s1, m1 = trainer.train_step(state)
+    s2, m2 = trainer.train_step(back)
+    torch.cuda.synchronize()
+    same = {
+        "params": bit_equal(list(s1.net.parameters()), list(s2.net.parameters())),
+        "env_state": torch.equal(s1.env_state, s2.env_state),
+        "env_key": torch.equal(s1.env_key, s2.env_key),
+        "loss": bool(torch.equal(m1["loss"], m2["loss"])),
+    }
+    phase("ppo_resume", file=path + ".npz", bytes=os.path.getsize(path + ".npz"),
+          restored_bit_equal=restored, after_one_update_equal=same, update_step=s2.update_step)
+    if not (restored and all(same.values())):
+        raise AssertionError(f"ppo_resume: restored {restored}, after one more update {same}")
+    return trainer, s2
+
+
+def ppo_profile(card, trainer, state, k1, train_out):
+    """One train step under the profiler: K1's device time per launch on
+    the PPO path and its share of the collect step, and the step's top
+    kernels; then K1's emit_final variant alone against its plain version
+    on the path's last state.  Returns the kernel's record for the final
+    JSON line (without max_abs_err) and the variant's largest error against
+    its plain version on that state."""
+    from rsoccer_tpu_torch.models.ppo import make_policy
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    box = [state]
+
+    def one_update():
+        box[0], _ = trainer.train_step(box[0])
+
+    k1_us, _ = device_us(one_update, 1, k1.kernel_match)
+    step_us, top = device_us(one_update, 1, table="profile_ppo_train_step.txt")
+    env, st = trainer.benv.env, box[0].env_state
+    act = make_policy(box[0].net, box[0].obs_norm, deterministic=False)(
+        torch.Generator(device="cuda").manual_seed(7), box[0].obs)
+    key = make_key(3, device="cuda")
+    outs = vf.vss_full_step(env, st, act, key=key.clone(), emit_final=True)
+    err, _ = compare_step(env.n_robots, outs, vf.vss_full_step_plain(
+        env, st, act, *vf.draw_step_rows(env, key.clone(), B), True), "ppo_profile emit_final")
+
+    def kernel():
+        return vf.vss_full_step(env, st, act, key=key, emit_final=True)
+
+    def plain():
+        return vf.vss_full_step_plain(env, st, act, *vf.draw_step_rows(env, key, B), True)
+
+    kern_dev_us, _ = device_us(kernel, TIMED_LAUNCHES, k1.kernel_match)
+    plain_dev_us, _ = device_us(plain, 10)
+    n_done = int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum())
+    bound, by, _, _ = bound_ms(k1, (st, act, key), outs, n_done)
+    share = k1_us * PPO_CONFIG["rollout_steps"] / (train_out["collect_ms_per_update"] * 1e3)
+    phase("ppo_profile", card=card, k1_emit_final_device_us_per_launch_in_train_step=k1_us,
+          train_step_device_ms=step_us / 1e3, k1_share_of_collect=share,
+          k1_emit_final_alone_device_us=kern_dev_us, plain_emit_final_device_us=plain_dev_us,
+          bound_us=bound * 1e3, bound_by=by, max_abs_err_vs_plain=err,
+          top_kernels_us_per_train_step=top)
+    return {
+        "name": "vss_full_kernel (emit_final, PPO collect)",
+        "route": "cuda",
+        "source": k1.source,
+        "replaces": k1.replaces,
+        "launches": train_out["final_launches"],
+        "ms": kern_dev_us / 1e3,
+        "plain_ms": plain_dev_us / 1e3,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,  # no single PyTorch call computes an env step
+    }, err
+
+
+def ppo_checkpoint(card, wrappers):
+    """artifacts/vss_ppo.ckpt.npz through convert (no jax) on the absolute
+    VSS anchor (tools/vss_anchor_eval) on the fused kernel-RNG path: blue
+    goal rate and goal diff inside the two-sample 3-sigma band around the
+    reference's, with every step one launch of K1 without ``emit_final``
+    and no other kernel launched."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch import convert
+    from rsoccer_tpu_torch.models.ppo import make_policy
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.tools.vss_anchor_eval import anchor_eval
+
+    net, obs_norm = convert.load_ppo_checkpoint(os.path.join(ARTIFACTS, "vss_ppo.ckpt.npz"), device="cuda")
+    benv = rt.make_vec("VSS-v0", 1024, device="cuda", fused=True, fused_rng="kernel")
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    out = anchor_eval(benv, make_policy(net, obs_norm, deterministic=True), 4800, seed=123)
+    secs = time.perf_counter() - t0
+    launches = check_launches("ppo_checkpoint", wrappers, vf.vss_full_step, vss_entry(benv), 4800, final=0)
+    ref = VSS_ANCHOR_REF
+    p_b, p_y = ref["blue_goal_rate"], ref["yellow_goal_rate"]
+    bands = {
+        "blue_goal_rate": two_sample_band(p_b, p_b * (1 - p_b), ref["episodes"], out["episodes"]),
+        # a per-episode goal diff of +1, -1 or 0: variance p_b + p_y - (p_b - p_y)^2
+        "mean_goal_diff": two_sample_band(ref["mean_goal_diff"], p_b + p_y - (p_b - p_y) ** 2,
+                                          ref["episodes"], out["episodes"]),
+    }
+    inside = {k: lo <= out[k] <= hi for k, (lo, hi) in bands.items()}
+    phase("ppo_checkpoint", card=card, checkpoint="artifacts/vss_ppo.ckpt.npz", envs=1024, steps=4800,
+          **out, reference=ref, band_3sigma=bands, inside=inside, launches=launches, entry=vss_entry(benv),
+          seconds=secs)
+    if not all(inside.values()):
+        raise AssertionError(f"ppo_checkpoint: vss_ppo outside the band: {out} against {bands}")
+
+
+def ppo_ssl_checkpoints(card, wrappers, ssl_tasks):
+    """The shipped SSL PPO checkpoints through eval.evaluate_policy (default
+    envs and steps, deterministic policy) on the fused kernel-RNG path (K4,
+    K5, K6): each success rate inside the two-sample 3-sigma band around
+    artifacts/README.md's, or above its floor where the band is empty, with
+    every step one launch of the env's kernel and no other kernel launched."""
+    from rsoccer_tpu_torch import convert
+    from rsoccer_tpu_torch.eval import evaluate_policy
+    from rsoccer_tpu_torch.models.ppo import make_policy
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+
+    task_of = {t.env_id: t for t in ssl_tasks}
+    misses = {}
+    for name, (env_id, p_ref, n_ref, floor) in SSL_PPO_REFS.items():
+        net, obs_norm = convert.load_ppo_checkpoint(os.path.join(ARTIFACTS, f"{name}.ckpt.npz"), device="cuda")
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        out = evaluate_policy(env_id, make_policy(net, obs_norm, deterministic=True), device="cuda",
+                              fused=True)
+        secs = time.perf_counter() - t0
+        task = task_of[env_id]
+        entry = sf.routed_entry(task.entry, out["n_envs"])
+        check_launches(f"ppo_ssl_checkpoint {name}", wrappers, task.wrapper, entry, out["n_steps"])
+        lo, hi = two_sample_band(p_ref, p_ref * (1 - p_ref), n_ref, out["episodes"])
+        if floor is not None:
+            lo = min(lo, floor)
+        inside = lo <= out["success_rate"] <= hi
+        launches = {task.wrapper.__name__: dict(task.wrapper.entry_launches)}
+        phase("ppo_ssl_checkpoint", card=card, checkpoint=f"artifacts/{name}.ckpt.npz", **out,
+              reference={"success_rate": p_ref, "episodes": n_ref}, band_3sigma=[lo, hi], floor=floor,
+              inside=inside, launches=launches, seconds=secs)
+        if not inside:
+            misses[name] = (out["success_rate"], [lo, hi])
+    if misses:
+        raise AssertionError(f"ppo_ssl_checkpoints: outside the band: {misses}")
 
 
 def main() -> int:
@@ -1310,6 +1586,16 @@ def main() -> int:
         kernels.append(rec)
         if task.name in ("ssl_cp_full_step", "ssl_pe_full_step"):
             phase(f"done_share_{task.name}", card=card, B=B, **done_shares(task))
+
+    # ---- 5. PPO: train on the main path, resume, score the shipped policies
+    wrappers = list({id(t.wrapper): t.wrapper for t in tasks}.values())
+    trainer, state, train_out = ppo_train(card, wrappers)
+    trainer, state = ppo_resume(trainer, state)
+    rec, err = ppo_profile(card, trainer, state, k1, train_out)
+    rec["max_abs_err"] = max(err, errs["vss_full_step"])  # and both obs variants, section 3
+    kernels.append(rec)
+    ppo_checkpoint(card, wrappers)
+    ppo_ssl_checkpoints(card, wrappers, ssl_tasks)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,12 @@ card (``device="cuda"``) unless the caller asks for the CPU.  With
 four SSL tasks' steps each run as one hand-written CUDA kernel per step on
 an NVIDIA card (``ops/vss_full.py``, ``ops/ssl_full.py``); with
 ``fused_physics=True`` VSS-v0's physics does (``ops/vss_physics.py``).
+The learner: PPO (``models/networks.py``, ``models/ppo.py``) trains on
+the batched envs, collecting through ``BatchedEnv.step_final``; the
+JAX package's ``{params, obs_norm}`` checkpoints load through
+``convert.load_ppo_checkpoint`` (``utils/checkpoint.py`` reads and writes
+its ``.npz`` format); ``eval.py`` scores a policy
+(``examples/train_ppo_vss.py``, ``tools/vss_anchor_eval.py``).
 Imports ``torch`` and never ``jax``.
 """
 

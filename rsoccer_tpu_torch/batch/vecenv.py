@@ -206,6 +206,13 @@ class BatchedEnv:
         Returns (state, obs, reward, terminated, truncated, info)."""
         return self._step(state, actions, key, final=False)
 
+    @property
+    def supports_step_final(self) -> bool:
+        """Whether :meth:`step_final` is available on this path: on every
+        path (the fused kernels' ``emit_final`` variant, the physics kernel
+        and the unfused env step)."""
+        return True
+
     def step_final(self, state, actions, key):
         """Like :meth:`step`, plus the final pre-reset obs (gymnasium's
         same-step autoreset convention).  Returns

@@ -6,8 +6,26 @@
 tree — and builds the port's state of the class it is given on ``device``
 (the card unless the caller asks for the CPU).  ``state_to_numpy`` goes
 back: the port's state with numpy leaves, whose fields flatten in the JAX
-package's leaf order.  The same pair exists for noise dicts.  The ported
-slices have no model weights to carry.
+package's leaf order.  The same pair exists for noise dicts.
+
+The PPO policy crosses as the JAX package's ``{params, obs_norm}``
+checkpoint tree (``examples/train_ppo_vss.py``): ``ppo_to_numpy`` builds
+that tree from an :class:`~rsoccer_tpu_torch.models.networks.ActorCritic`
+and an :class:`~rsoccer_tpu_torch.models.ppo.ObsNorm`, ``ppo_from_leaves``
+and ``load_ppo_checkpoint`` go back from its positional leaves, with no
+jax.  The leaves, in the JAX leaf order (dict keys sorted; the flax
+``Dense`` kernels stored ``(in, out)``, transposed into ``Linear.weight``)::
+
+    0, 1, 2   obs_norm.mean (O,), .var (O,), .count ()
+    3, 4      actor_0 bias, kernel      (hidden towers: bias, kernel
+    5, 6      actor_1 bias, kernel       per layer, actor_0 .. actor_{L-1})
+    7, 8      actor_out bias (A,), kernel
+    9 .. 12   critic_0, critic_1
+    13, 14    critic_out bias (1,), kernel
+    15        log_std (A,)
+
+(for the shipped towers of L = 2 hidden layers; ``hidden``, ``O`` and
+``A`` come from the shapes).
 """
 
 from __future__ import annotations
@@ -53,3 +71,90 @@ def noise_from_numpy(noise: dict, device="cuda") -> dict:
 
 def noise_to_numpy(noise: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in noise.items()}
+
+
+def _ppo_names(n_hidden: int) -> list[str]:
+    """The flax ActorCritic's parameter names in the JAX leaf order."""
+    return sorted(
+        [f"actor_{i}" for i in range(n_hidden)] + ["actor_out"]
+        + [f"critic_{i}" for i in range(n_hidden)] + ["critic_out", "log_std"]
+    )
+
+
+def _ppo_layer(net, name: str):
+    tower, _, idx = name.partition("_")
+    return getattr(net, name) if idx == "out" else getattr(net, tower)[int(idx)]
+
+
+def ppo_to_numpy(net, obs_norm) -> dict:
+    """ActorCritic + ObsNorm -> the JAX package's ``{params, obs_norm}``
+    checkpoint tree with numpy leaves (flax names, kernels ``(in, out)``)."""
+    from rsoccer_tpu_torch.models.ppo import ObsNorm
+
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    params = {}
+    for name in _ppo_names(len(net.hidden)):
+        if name == "log_std":
+            params[name] = np_(net.log_std)
+        else:
+            layer = _ppo_layer(net, name)
+            params[name] = {"bias": np_(layer.bias), "kernel": np_(layer.weight).T.copy()}
+    return {"obs_norm": ObsNorm(*(np_(t) for t in obs_norm)), "params": {"params": params}}
+
+
+def ppo_from_leaves(leaves, device="cuda", compute_dtype=torch.bfloat16):
+    """A PPO checkpoint's positional leaves (numpy, the table above) ->
+    (ActorCritic, ObsNorm) on ``device``.  Raises, naming the leaf, where
+    the layout differs."""
+    from rsoccer_tpu_torch.models.networks import ActorCritic, check_device
+    from rsoccer_tpu_torch.models.ppo import ObsNorm
+
+    device = check_device(device)
+    leaves = [np.array(a) for a in leaves]  # writable copies
+    n = len(leaves)
+    if n < 8 or (n - 8) % 4:
+        raise ValueError(
+            f"a PPO {{params, obs_norm}} checkpoint has 8 + 4 x (hidden layers) "
+            f"leaves; this one has {n}"
+        )
+    n_hidden = (n - 8) // 4
+    names = _ppo_names(n_hidden)
+    obs_size, action_size = leaves[0].shape[-1], leaves[-1].shape[-1]
+    hidden = tuple(leaves[3 + 2 * i].shape[-1] for i in range(n_hidden))  # actor_i biases
+    widths = (obs_size, *hidden)
+    want = [("obs_norm.mean", (obs_size,)), ("obs_norm.var", (obs_size,)), ("obs_norm.count", ())]
+    for name in names:
+        if name == "log_std":
+            want.append((name, (action_size,)))
+            continue
+        tower, _, idx = name.partition("_")
+        n_out = {"actor": action_size, "critic": 1}[tower] if idx == "out" else widths[int(idx) + 1]
+        n_in = widths[-1] if idx == "out" else widths[int(idx)]
+        want += [(f"{name}.bias", (n_out,)), (f"{name}.kernel", (n_in, n_out))]
+    for i, (arr, (field, shape)) in enumerate(zip(leaves, want)):
+        if arr.shape != shape or arr.dtype != np.float32:
+            raise ValueError(
+                f"leaf_{i} ({field}): want float32 {shape}, got {arr.dtype} {arr.shape}"
+            )
+    net = ActorCritic(obs_size, action_size, hidden, compute_dtype=compute_dtype, device="cpu")
+    it = iter(leaves[3:])
+    with torch.no_grad():
+        for name in names:
+            if name == "log_std":
+                net.log_std.copy_(torch.from_numpy(next(it)))
+            else:
+                layer = _ppo_layer(net, name)
+                layer.bias.copy_(torch.from_numpy(next(it)))
+                layer.weight.copy_(torch.from_numpy(next(it).T))
+    obs_norm = ObsNorm(*(torch.from_numpy(a).to(device) for a in leaves[:3]))
+    return net.to(device), obs_norm
+
+
+def load_ppo_checkpoint(path: str, device="cuda"):
+    """A shipped ``{params, obs_norm}`` ``.npz`` (e.g.
+    ``artifacts/vss_ppo.ckpt.npz``) -> (ActorCritic, ObsNorm), no jax."""
+    from rsoccer_tpu_torch.utils.checkpoint import load_leaves
+
+    return ppo_from_leaves(load_leaves(path), device=device)

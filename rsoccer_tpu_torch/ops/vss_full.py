@@ -48,7 +48,8 @@ its plain version and, through the input rows, against the JAX kernel.
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``vss_full_step.launches`` counts kernel launches, and
 ``vss_full_step.entry_launches`` counts them by C entry (``vss_full_step``:
-the group kernel, ``vss_full_step_one_thread``: the one-thread kernel).
+the group kernel, ``vss_full_step_one_thread``: the one-thread kernel),
+``vss_full_step.final_launches`` those of the ``emit_final`` variant.
 """
 
 from __future__ import annotations
@@ -315,6 +316,7 @@ def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
     vss_full_step.launches += 1
     vss_full_step.entry_launches[entry] += 1
+    vss_full_step.final_launches += int(emit_final)
     if rng_kernel:
         key[2:].add_(1)  # in-stream: the next step reads the next counter
     return st_out, obs, aux
@@ -347,3 +349,4 @@ def vss_full_step(env: VSSEnv, state, action, ou_noise=None, spawn_u=None,
 
 vss_full_step.launches = 0
 vss_full_step.entry_launches = collections.Counter()
+vss_full_step.final_launches = 0  # of those, the emit_final variant's

@@ -30,13 +30,19 @@ _NOT_PORTED = {
 }
 
 
-def make(env_id: str, **kwargs):
-    """Create a functional env by reference id (e.g. ``"VSS-v0"``)."""
+def not_ported(env_id: str) -> None:
+    """Raise ``NotImplementedError`` for an id of the JAX package that the
+    port has not carried yet, naming its ROADMAP item."""
     if env_id in _NOT_PORTED:
         raise NotImplementedError(
             f"{env_id} is not ported to rsoccer_tpu_torch yet: "
             f"ROADMAP.md, {_NOT_PORTED[env_id]}"
         )
+
+
+def make(env_id: str, **kwargs):
+    """Create a functional env by reference id (e.g. ``"VSS-v0"``)."""
+    not_ported(env_id)
     if env_id not in _REGISTRY:
         raise KeyError(
             f"Unknown env id {env_id!r}; available: {sorted(_REGISTRY)}"

@@ -473,3 +473,53 @@ def test_vss_physics_bad_operands_raise(cuda):
     rb12, ball12, cmd12 = random_vss_arrays(torch.Generator(device=cuda).manual_seed(0), cuda, n=12)
     with pytest.raises(NotImplementedError):
         vp.vss_physics(odd, rb12, ball12, cmd12)
+
+
+def test_ppo_rollout_on_the_card_matches_the_cpu(cuda):
+    """PPOTrainer._rollout through K1's emit_final variant against the same
+    rollout on the CPU (the plain version), fed the same draws: an f32 net,
+    max steps 4 so lanes truncate inside the rollout."""
+    from rsoccer_tpu_torch.models.networks import ActorCritic
+    from rsoccer_tpu_torch.models.ppo import ObsNorm, PPOConfig, PPOTrainer
+
+    n_t, b = 8, 256
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    env.max_episode_steps = 4
+    cpu_benv = BatchedEnv(env, b, device="cpu", fused=True)
+    state, obs = cpu_benv.reset(make_key(7, device="cpu"))
+    key = make_key(8, device="cpu")
+    env_noise = [cpu_benv._draw(key) for _ in range(n_t)]
+    action_noise = torch.randn((n_t, b, env.action_size), generator=torch.Generator().manual_seed(9))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        trainer = PPOTrainer(BatchedEnv(env, b, device=dev, fused=True), PPOConfig(rollout_steps=n_t))
+        net = ActorCritic(env.obs_size, env.action_size, (64, 64), compute_dtype=torch.float32,
+                          device=dev, seed=3)
+        draws = (action_noise.to(dev),
+                 [tuple({k: v.to(dev) for k, v in d.items()} for d in nz) for nz in env_noise])
+        vf.vss_full_step.final_launches = 0
+        *_, out[dev] = trainer._rollout(net, state.to(dev), obs.to(dev), None,
+                                        ObsNorm.init(env.obs_size, dev), None, draws)
+    assert vf.vss_full_step.final_launches == n_t  # the card's rollout
+    assert float(out["cpu"].trunc.sum()) >= b
+    for name in ("obs", "action", "logp", "value", "reward", "boot_value"):
+        got, want = getattr(out["cuda"], name).cpu(), getattr(out["cpu"], name)
+        assert float((got - want).abs().max()) <= 2e-4, name
+    assert torch.equal(out["cuda"].term.cpu(), out["cpu"].term)
+    assert torch.equal(out["cuda"].trunc.cpu(), out["cpu"].trunc)
+
+
+def test_ppo_train_step_on_the_card(cuda):
+    """A PPO update on the card: K1's emit_final variant once per step,
+    finite metrics, every parameter moved."""
+    from rsoccer_tpu_torch.models.ppo import PPOConfig, PPOTrainer
+
+    benv = rsoccer_tpu_torch.make_vec("VSS-v0", B, fused=True, fused_rng="kernel")
+    trainer = PPOTrainer(benv, PPOConfig(rollout_steps=16, hidden=(64, 64), num_epochs=2, num_minibatches=4))
+    state = trainer.init(0)
+    p0 = [p.detach().clone() for p in state.net.parameters()]
+    vf.vss_full_step.final_launches = 0
+    state, metrics = trainer.train_step(state)
+    assert vf.vss_full_step.final_launches == 16
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(not torch.equal(a, b) for a, b in zip(p0, state.net.parameters()))
