@@ -63,6 +63,18 @@ without jax and holds its VSS anchor (1024 envs x 4800 steps) to the
 two-sample 3-sigma band around ``artifacts/README.md``'s numbers;
 ``ppo_ssl_checkpoints`` does the same for the SSL PPO checkpoints on K4,
 K5 and K6.
+Then SAC (``rsoccer_tpu_torch/models/sac.py``): ``sac_train`` trains it on
+SSLStaticDefenders-v0 at 512 envs through K4's group kernel and its
+``emit_final`` variant (the SD recipe: towers (256, 256) f32, batch 512, 2
+grad steps, a ring of 1 << 18, n-step 8; 2000 iterations from a fresh
+init, counts zeroed before and read after), printing iterations/s,
+env-steps/s and collect / update ms; ``sac_resume`` saves and restores
+the whole state, replay ring included, and holds one more iteration from
+each bit for bit; ``sac_profile`` gives K4's device time per launch in an
+iteration and alone at 512 envs, with its bound and its share of the
+collect, and the iteration's device time and top kernels;
+``sac_checkpoint`` scores the shipped ``sac_sd_best2`` (K4) and
+``sac_cp_nstep`` (K5) against their 3-sigma bands.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -1341,6 +1353,216 @@ def ppo_ssl_checkpoints(card, wrappers, ssl_tasks):
         raise AssertionError(f"ppo_ssl_checkpoints: outside the band: {misses}")
 
 
+# ---- SAC on the card: the learner of the StaticDefenders path
+SAC_ENVS = 512
+SAC_ITERS = 2000
+SAC_STEADY_FROM = 100  # the first iterations carry one-time set-up (cuBLAS, allocator)
+SAC_SAMPLE_EVERY = 100  # phase_ms (a sync) at every 100th iteration only
+# artifacts/README.md "SD best": 512 envs, reward scale 10, n-step 8, gamma
+# 0.995, target entropy 0.5 x A, f32 towers (256, 256), batch 512, 2 grad
+# steps per iteration, a ring of 1 << 18, warmup 50
+SAC_CONFIG = dict(buffer_size=1 << 18, batch_size=512, grad_steps_per_iter=2, n_step=8, gamma=0.995,
+                  reward_scale=10.0, target_entropy_scale=0.5, warmup_steps=50, hidden=(256, 256))
+# artifacts/README.md: the shipped SAC actors' deterministic eval (env id,
+# success rate, episodes), scored here at 1024 envs for the steps given
+SAC_REFS = {
+    "sac_sd_best2": ("SSLStaticDefenders-v0", 0.938, 14633, 2000),
+    "sac_cp_nstep": ("SSLContestedPossession-v0", 0.977, 22306, 2400),
+}
+SAC_EVAL_ENVS = 1024
+
+
+def sac_train(card, wrappers):
+    """The SAC main path: SSLStaticDefenders-v0 at SAC_ENVS envs on the fused
+    kernel-RNG path (K4's group kernel, ``emit_final``), the SD recipe
+    (SAC_CONFIG), SAC_ITERS iterations from a fresh init through
+    ``SACTrainer.train_step``, every launch count zeroed just before and
+    read just after.  Fails on a non-finite loss, on actor or critic params
+    that did not move, or on launches other than K4's emit_final variant
+    once per iteration through ``ssl_sd_full_step``.  Returns (trainer,
+    state, the phase's numbers)."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.models.sac import SACConfig, SACTrainer, iteration_generator
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+
+    benv = rt.make_vec("SSLStaticDefenders-v0", SAC_ENVS, device="cuda", fused=True, fused_rng="kernel")
+    entry = sf.routed_entry("ssl_sd_full_step", SAC_ENVS)
+    if entry != "ssl_sd_full_step" or sf.route("ssl_sd_full_step", SAC_ENVS) != "group":
+        raise AssertionError(f"sac_train: {SAC_ENVS} envs route to {entry}, not the group kernel")
+    trainer = SACTrainer(benv, SACConfig(**SAC_CONFIG))
+    state = trainer.init(0)
+    p0 = [p.detach().clone() for m in (state.actor, state.qs) for p in m.parameters()]
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    samples = []
+    t0 = time.perf_counter()
+    for i in range(SAC_ITERS):
+        state, m = trainer.train_step(state, iteration_generator(0, i))
+        if i == 0:
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        if i == SAC_STEADY_FROM - 1:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        if (i + 1) % SAC_SAMPLE_EVERY == 0:
+            row = {"iter": i, **{k: float(v) for k, v in m.items()}, **trainer.phase_ms()}
+            if not all(math.isfinite(row[k]) for k in ("q_loss", "actor_loss", "alpha", "mean_reward")):
+                raise AssertionError(f"sac_train: non-finite metrics at iteration {i}: {row}")
+            samples.append(row)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t_steady
+    launches = check_launches("sac_train", wrappers, sf.sd_full_step, entry, SAC_ITERS, final=SAC_ITERS)
+    moved = [not torch.equal(a, b) for a, b in zip(p0, (p for m in (state.actor, state.qs) for p in m.parameters()))]
+    if not all(moved):
+        raise AssertionError(f"sac_train: actor or critic parameters that did not move: {moved}")
+    steady = [r for r in samples if r["iter"] >= SAC_STEADY_FROM]
+    iters_per_s = (SAC_ITERS - SAC_STEADY_FROM) / steady_s
+    out = {
+        "B": SAC_ENVS, "config": {**SAC_CONFIG, "hidden": list(SAC_CONFIG["hidden"])}, "iters": SAC_ITERS,
+        "launches": launches["sd_full_step"], "entry": entry, "final_launches": sf.sd_full_step.final_launches,
+        "iters_per_s": iters_per_s, "env_steps_per_s": iters_per_s * SAC_ENVS,
+        "wall_ms_per_iter": 1e3 / iters_per_s,
+        "collect_ms_per_iter": sum(r["collect_ms"] for r in steady) / len(steady),
+        "update_ms_per_iter": sum(r["update_ms"] for r in steady) / len(steady),
+        "first_iter_wall_ms": first_ms,
+        "samples": [{k: r[k] for k in ("iter", "mean_reward", "q_loss", "actor_loss", "alpha")} for r in samples],
+    }
+    phase("sac_train", card=card, **out)
+    return trainer, state, out
+
+
+def sac_resume(trainer, state):
+    """Save the whole SAC state (replay ring included), restore it, hold
+    it bit for bit, then one more iteration from each with the same draws:
+    params, ring, env state, key, log_alpha, Adam and metrics equal bit for
+    bit.  The file (~60 MB, mostly the ring) is deleted after the check.
+    Returns the restored state after its iteration."""
+    from rsoccer_tpu_torch.models.sac import iteration_generator
+    from rsoccer_tpu_torch.utils import checkpoint
+
+    def flat(s):
+        return [torch.as_tensor(x) for x in checkpoint.flatten(trainer.state_tree(s))]
+
+    path = os.path.join(OUT_DIR, "sac_resume.ckpt")
+    checkpoint.save(path, trainer.state_tree(state))
+    n_bytes = os.path.getsize(path + ".npz")
+    back = trainer.state_from_tree(checkpoint.restore(path, like=trainer.state_tree(state)))
+    os.remove(path + ".npz")
+    restored = all(torch.equal(a, b.to(a.device)) for a, b in zip(flat(state), flat(back)))
+    s1, m1 = trainer.train_step(state, iteration_generator(0, SAC_ITERS))
+    s2, m2 = trainer.train_step(back, iteration_generator(0, SAC_ITERS))
+    torch.cuda.synchronize()
+    t1, t2 = trainer.state_tree(s1), trainer.state_tree(s2)
+
+    def same(k):
+        return all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                   for a, b in zip(checkpoint.flatten(t1[k]), checkpoint.flatten(t2[k])))
+
+    eq = {k: same(k) for k in ("actor", "qs", "qs_target", "log_alpha", "adam", "buffer", "env_state",
+                               "env_key", "obs", "total_steps", "iteration")}
+    eq["metrics"] = all(torch.equal(m1[k], m2[k]) for k in m1)
+    phase("sac_resume", bytes=n_bytes, restored_bit_equal=restored, after_one_iteration_equal=eq,
+          iteration=s2.iteration, ring_filled=s2.buffer.filled)
+    if not (restored and all(eq.values())):
+        raise AssertionError(f"sac_resume: restored {restored}, after one more iteration {eq}")
+    return trainer, s2
+
+
+def sac_profile(card, trainer, state, k4, train_out):
+    """Train iterations under the profiler: K4's emit_final device time
+    per launch on the SAC path, its share of the collect, the device time
+    per iteration and the busy share, and the top kernels
+    (chiprun_out/profile_sac_train_step.txt); then the variant alone at
+    SAC_ENVS envs against its plain version on the path's last state.
+    Returns the kernel's record for the final JSON line (without
+    max_abs_err) and the variant's largest error against its plain
+    version on that state."""
+    from rsoccer_tpu_torch.models.sac import iteration_generator, make_policy
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    box = [state]
+    n_iter = 20
+
+    def one_iter():
+        box[0], _ = trainer.train_step(box[0], iteration_generator(0, box[0].iteration))
+
+    k4_us, _ = device_us(one_iter, n_iter, k4.kernel_match)
+    iter_us, top = device_us(one_iter, n_iter, table="profile_sac_train_step.txt")
+    env, st = trainer.benv.env, box[0].env_state
+    act = make_policy(box[0].actor, deterministic=False)(torch.Generator(device="cuda").manual_seed(7),
+                                                         box[0].obs)
+    key = make_key(3, device="cuda")
+    outs = sf.sd_full_step(env, st, act, key=key.clone(), emit_final=True)
+    err, _ = compare_step(env.n_robots, outs, sf.sd_full_step_plain(
+        env, st, act, *sf.sd_draw_step_rows(env, key.clone(), SAC_ENVS), True), "sac_profile emit_final")
+
+    def kernel():
+        return sf.sd_full_step(env, st, act, key=key, emit_final=True)
+
+    def plain():
+        return sf.sd_full_step_plain(env, st, act, *sf.sd_draw_step_rows(env, key, SAC_ENVS), True)
+
+    kern_dev_us, _ = device_us(kernel, TIMED_LAUNCHES, k4.kernel_match)
+    plain_dev_us, _ = device_us(plain, 10)
+    n_done = int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum())
+    bound, by, bytes_ms, ops_ms = bound_ms(k4, (st, act, key), outs, n_done)
+    phase("sac_profile", card=card, B=SAC_ENVS, k4_emit_final_device_us_per_launch_in_train_step=k4_us,
+          k4_share_of_collect=k4_us / (train_out["collect_ms_per_iter"] * 1e3),
+          train_iter_device_ms=iter_us / 1e3,
+          device_busy_share=iter_us / 1e3 / train_out["wall_ms_per_iter"],
+          k4_emit_final_alone_device_us=kern_dev_us, plain_emit_final_device_us=plain_dev_us,
+          bound_us=bound * 1e3, bound_by=by, bound_bytes_us=bytes_ms * 1e3, bound_ops_us=ops_ms * 1e3,
+          max_abs_err_vs_plain=err, top_kernels_us_per_train_iter=top)
+    return {
+        "name": "sd_full_kernel (emit_final, SAC collect, 512 envs)",
+        "route": "cuda",
+        "source": k4.source,
+        "replaces": k4.replaces,
+        "launches": train_out["final_launches"],
+        "ms": kern_dev_us / 1e3,
+        "plain_ms": plain_dev_us / 1e3,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,  # no single PyTorch call computes an env step
+    }, err
+
+
+def sac_checkpoint(card, wrappers, ssl_tasks):
+    """The shipped SAC actors through convert.load_sac_checkpoint (no jax)
+    and eval.evaluate_policy (deterministic policy, default env) at
+    SAC_EVAL_ENVS envs on the fused kernel-RNG path: each success rate
+    inside the two-sample 3-sigma band around artifacts/README.md's, with
+    every step one launch of the env's kernel without emit_final and no
+    other kernel launched."""
+    from rsoccer_tpu_torch import convert
+    from rsoccer_tpu_torch.eval import evaluate_policy
+    from rsoccer_tpu_torch.models.sac import make_policy
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+
+    task_of = {t.env_id: t for t in ssl_tasks}
+    misses = {}
+    for name, (env_id, p_ref, n_ref, n_steps) in SAC_REFS.items():
+        actor = convert.load_sac_checkpoint(os.path.join(ARTIFACTS, f"{name}.ckpt.npz"), device="cuda")
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        out = evaluate_policy(env_id, make_policy(actor), n_envs=SAC_EVAL_ENVS, n_steps=n_steps, device="cuda",
+                              fused=True)
+        secs = time.perf_counter() - t0
+        task = task_of[env_id]
+        entry = sf.routed_entry(task.entry, SAC_EVAL_ENVS)
+        check_launches(f"sac_checkpoint {name}", wrappers, task.wrapper, entry, n_steps, final=0)
+        lo, hi = two_sample_band(p_ref, p_ref * (1 - p_ref), n_ref, out["episodes"])
+        inside = lo <= out["success_rate"] <= hi
+        phase("sac_checkpoint", card=card, checkpoint=f"artifacts/{name}.ckpt.npz", **out,
+              reference={"success_rate": p_ref, "episodes": n_ref}, band_3sigma=[lo, hi], inside=inside,
+              launches={task.wrapper.__name__: dict(task.wrapper.entry_launches)}, seconds=secs)
+        if not inside:
+            misses[name] = (out["success_rate"], [lo, hi])
+    if misses:
+        raise AssertionError(f"sac_checkpoint: outside the band: {misses}")
+
+
 def main() -> int:
     baseline = None
     if sys.argv[1:2] == ["--baseline"] and len(sys.argv) == 3:
@@ -1596,6 +1818,15 @@ def main() -> int:
     kernels.append(rec)
     ppo_checkpoint(card, wrappers)
     ppo_ssl_checkpoints(card, wrappers, ssl_tasks)
+
+    # ---- 6. SAC: train on StaticDefenders, resume, profile, score the shipped actors
+    k4 = next(t for t in tasks if t.name == "ssl_sd_full_step")
+    sac_trainer, sac_state, sac_out = sac_train(card, wrappers)
+    sac_trainer, sac_state = sac_resume(sac_trainer, sac_state)
+    rec, err = sac_profile(card, sac_trainer, sac_state, k4, sac_out)
+    rec["max_abs_err"] = max(err, errs["ssl_sd_full_step"])  # and both obs variants, section 3
+    kernels.append(rec)
+    sac_checkpoint(card, wrappers, ssl_tasks)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,23 @@ jax.  The leaves, in the JAX leaf order (dict keys sorted; the flax
 
 (for the shipped towers of L = 2 hidden layers; ``hidden``, ``O`` and
 ``A`` come from the shapes).
+
+A SAC actor crosses as the JAX package's ``actor_params`` tree (what
+``examples/train_sac_vss.py --save`` writes, e.g.
+``artifacts/sac_sd_best2.ckpt.npz``): ``sac_actor_to_numpy`` builds it
+from a :class:`~rsoccer_tpu_torch.models.sac.SquashedGaussianActor`,
+``sac_actor_from_leaves`` and ``load_sac_checkpoint`` go back, with no
+jax.  Its leaves, in the JAX leaf order::
+
+    0, 1      fc0 bias (h0,), kernel (O, h0)
+    2, 3      fc1 bias (h1,), kernel (h0, h1)      (fc0 .. fc{L-1})
+    4, 5      log_std bias (A,), kernel (h1, A)
+    6, 7      mean bias (A,), kernel (h1, A)
+
+The twin critics cross the same way with a leading axis of 2 on every leaf
+(``fc0 .. fc{L-1}``, then ``q`` with one output), as the JAX package's
+stacked ``qs_params``: ``sac_critics_to_numpy``,
+``sac_critics_from_leaves``.
 """
 
 from __future__ import annotations
@@ -158,3 +175,133 @@ def load_ppo_checkpoint(path: str, device="cuda"):
     from rsoccer_tpu_torch.utils.checkpoint import load_leaves
 
     return ppo_from_leaves(load_leaves(path), device=device)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _check_leaves(leaves, want, what):
+    for i, (arr, (field, shape)) in enumerate(zip(leaves, want)):
+        if arr.shape != shape or arr.dtype != np.float32:
+            raise ValueError(f"{what} leaf_{i} ({field}): want float32 {shape}, got {arr.dtype} {arr.shape}")
+
+
+def _sac_actor_names(n_hidden: int) -> list[str]:
+    """The flax SquashedGaussianActor's layer names in the JAX leaf order."""
+    return sorted([f"fc{i}" for i in range(n_hidden)] + ["log_std", "mean"])
+
+
+def _sac_actor_layer(actor, name: str):
+    return actor.tower[int(name[2:])] if name.startswith("fc") else getattr(actor, name)
+
+
+def sac_actor_to_numpy(actor) -> dict:
+    """SquashedGaussianActor -> the JAX package's ``actor_params`` tree
+    with numpy leaves (flax names, kernels ``(in, out)``)."""
+    params = {}
+    for name in _sac_actor_names(len(actor.hidden)):
+        layer = _sac_actor_layer(actor, name)
+        params[name] = {"bias": _np(layer.bias), "kernel": _np(layer.weight).T.copy()}
+    return {"params": params}
+
+
+def _dim(arr, axis: int) -> int:
+    """``arr.shape[axis]``, or -1 (a size no layout has) where ``arr`` has
+    fewer axes: the shape check then names the leaf."""
+    return arr.shape[axis] if arr.ndim > axis else -1
+
+
+def sac_actor_from_leaves(leaves, device="cuda", compute_dtype=torch.float32):
+    """A SAC actor checkpoint's positional leaves (numpy, the table above)
+    -> SquashedGaussianActor on ``device``.  Raises, naming the leaf, where
+    the layout differs."""
+    from rsoccer_tpu_torch.models.networks import check_device
+    from rsoccer_tpu_torch.models.sac import SquashedGaussianActor
+
+    device = check_device(device)
+    leaves = [np.array(a) for a in leaves]  # writable copies
+    n = len(leaves)
+    if n < 6 or n % 2:
+        raise ValueError(
+            f"a SAC actor checkpoint has 4 + 2 x (hidden layers) leaves; this one has {n}"
+        )
+    n_hidden = (n - 4) // 2
+    names = _sac_actor_names(n_hidden)
+    obs_size, action_size = _dim(leaves[1], 0), _dim(leaves[-2], 0)
+    hidden = tuple(_dim(leaves[2 * i], 0) for i in range(n_hidden))  # fc_i biases
+    widths = (obs_size, *hidden)
+    want = []
+    for name in names:
+        n_in, n_out = ((widths[int(name[2:])], widths[int(name[2:]) + 1]) if name.startswith("fc")
+                       else (widths[-1], action_size))
+        want += [(f"{name}.bias", (n_out,)), (f"{name}.kernel", (n_in, n_out))]
+    _check_leaves(leaves, want, "SAC actor")
+    actor = SquashedGaussianActor(obs_size, action_size, hidden, compute_dtype=compute_dtype,
+                                  device="cpu")
+    it = iter(leaves)
+    with torch.no_grad():
+        for name in names:
+            layer = _sac_actor_layer(actor, name)
+            layer.bias.copy_(torch.from_numpy(next(it)))
+            layer.weight.copy_(torch.from_numpy(next(it).T))
+    return actor.to(device)
+
+
+def load_sac_checkpoint(path: str, device="cuda"):
+    """A shipped SAC actor ``.npz`` (e.g. ``artifacts/sac_sd_best2.ckpt.npz``,
+    or the BC warm start ``artifacts/sd_sac_bc.ckpt.npz``) ->
+    SquashedGaussianActor (f32 towers), no jax."""
+    from rsoccer_tpu_torch.utils.checkpoint import load_leaves
+
+    return sac_actor_from_leaves(load_leaves(path), device=device)
+
+
+def _sac_critic_names(n_hidden: int) -> list[str]:
+    return sorted([f"fc{i}" for i in range(n_hidden)] + ["q"])
+
+
+def _sac_critic_index(name: str, n_hidden: int) -> int:
+    return n_hidden if name == "q" else int(name[2:])
+
+
+def sac_critics_to_numpy(qs) -> dict:
+    """TwinQCritic -> the JAX package's stacked ``qs_params`` tree with
+    numpy leaves (leading axis 2, kernels ``(2, in, out)``)."""
+    n = len(qs.hidden)
+    return {"params": {
+        name: {"bias": _np(qs.biases[_sac_critic_index(name, n)]),
+               "kernel": _np(qs.kernels[_sac_critic_index(name, n)])}
+        for name in _sac_critic_names(n)
+    }}
+
+
+def sac_critics_from_leaves(leaves, obs_size: int, device="cuda", compute_dtype=torch.float32):
+    """The stacked twin critics' positional leaves -> TwinQCritic on
+    ``device``; ``obs_size`` splits the first layer's input into obs and
+    action.  Raises, naming the leaf, where the layout differs."""
+    from rsoccer_tpu_torch.models.networks import check_device
+    from rsoccer_tpu_torch.models.sac import TwinQCritic
+
+    device = check_device(device)
+    leaves = [np.array(a) for a in leaves]
+    n = len(leaves)
+    if n < 4 or n % 2:
+        raise ValueError(f"stacked SAC critics have 2 + 2 x (hidden layers) leaves; these have {n}")
+    n_hidden = (n - 2) // 2
+    names = _sac_critic_names(n_hidden)
+    hidden = tuple(_dim(leaves[2 * i], 1) for i in range(n_hidden))
+    widths = (_dim(leaves[1], 1), *hidden, 1)
+    want = []
+    for name in names:
+        i = _sac_critic_index(name, n_hidden)
+        want += [(f"{name}.bias", (2, widths[i + 1])), (f"{name}.kernel", (2, widths[i], widths[i + 1]))]
+    _check_leaves(leaves, want, "SAC critics")
+    qs = TwinQCritic(obs_size, widths[0] - obs_size, hidden, compute_dtype=compute_dtype, device="cpu")
+    it = iter(leaves)
+    with torch.no_grad():
+        for name in names:
+            i = _sac_critic_index(name, n_hidden)
+            qs.biases[i].copy_(torch.from_numpy(next(it)))
+            qs.kernels[i].copy_(torch.from_numpy(next(it)))
+    return qs.to(device)

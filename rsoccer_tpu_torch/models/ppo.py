@@ -132,7 +132,7 @@ class Transition(NamedTuple):
     boot_value: torch.Tensor  # (T, B)
 
 
-class _PhaseClock:
+class PhaseClock:
     """Marks between a train step's phases: CUDA events on the device's
     stream (no sync when marked), or the host clock on the CPU."""
 
@@ -382,7 +382,7 @@ class PPOTrainer:
         """One full PPO iteration.  Steps ``state.net`` and ``state.opt`` in
         place; returns (the new TrainState, metrics as device scalars)."""
         cfg = self.cfg
-        clock = _PhaseClock(self.device)
+        clock = PhaseClock(self.device)
         clock.mark()
         env_state, obs, env_key, raw_moments, traj = self._rollout(
             state.net, state.env_state, state.obs, state.env_key, state.obs_norm, state.pol_gen

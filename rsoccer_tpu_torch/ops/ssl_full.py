@@ -40,8 +40,9 @@ enemy 0-1; PE: ball 0-1, recv_x 2-17; DR draws nothing), and advances
 
 The ``*_full_step`` wrappers run the plain versions ``*_full_step_plain``
 only for tensors on the CPU; for CUDA tensors they launch the kernel or
-raise.  Each counts its launches in ``.launches``, and by C entry
-(:func:`routed_entry`) in ``.entry_launches``.
+raise.  Each counts its launches in ``.launches``, by C entry
+(:func:`routed_entry`) in ``.entry_launches``, and those of the
+``emit_final`` variant in ``.final_launches``.
 """
 
 from __future__ import annotations
@@ -421,6 +422,7 @@ def _launch(wrapper, entry: str, env, n_robots: int, state_rows: int, n_aux: int
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
     wrapper.launches += 1
     wrapper.entry_launches[entry] += 1
+    wrapper.final_launches += int(emit_final)
     if rng_kernel:
         key[2:].add_(1)  # in-stream: the next step reads the next counter
     return st_out, obs, aux
@@ -509,3 +511,4 @@ def pe_full_step(env, state, action, ball_u=None, recv_u=None, *, key=None,
 for _wrapper in (sd_full_step, cp_full_step, dr_full_step, pe_full_step):
     _wrapper.launches = 0
     _wrapper.entry_launches = collections.Counter()
+    _wrapper.final_launches = 0  # of those, the emit_final variant's

@@ -523,3 +523,25 @@ def test_ppo_train_step_on_the_card(cuda):
     assert vf.vss_full_step.final_launches == 16
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(p0, state.net.parameters()))
+
+
+def test_sac_train_step_on_the_card(cuda):
+    """One SAC iteration on the fused path: K4's emit_final variant once,
+    through the group kernel's C entry, no other launch; finite metrics,
+    the actor and critics moved."""
+    from rsoccer_tpu_torch.models.sac import SACConfig, SACTrainer, iteration_generator
+
+    benv = rsoccer_tpu_torch.make_vec("SSLStaticDefenders-v0", B, fused=True, fused_rng="kernel")
+    trainer = SACTrainer(benv, SACConfig(buffer_size=4 * B, batch_size=64, warmup_steps=0, hidden=(64, 64)))
+    state = trainer.init(0)
+    p0 = [p.detach().clone() for p in (*state.actor.parameters(), *state.qs.parameters())]
+    wrappers = (sf.sd_full_step, sf.cp_full_step, sf.dr_full_step, sf.pe_full_step, vf.vss_full_step)
+    for w in wrappers:
+        w.launches, w.final_launches = 0, 0
+    sf.sd_full_step.entry_launches.clear()
+    state, metrics = trainer.train_step(state, iteration_generator(0, 0))
+    assert [w.launches for w in wrappers] == [1, 0, 0, 0, 0]
+    assert sf.sd_full_step.final_launches == 1
+    assert dict(sf.sd_full_step.entry_launches) == {"ssl_sd_full_step": 1}
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(not torch.equal(a, b) for a, b in zip(p0, (*state.actor.parameters(), *state.qs.parameters())))
