@@ -13,8 +13,10 @@ the batched envs, collecting through ``BatchedEnv.step_final``; the
 JAX package's ``{params, obs_norm}`` checkpoints load through
 ``convert.load_ppo_checkpoint`` (``utils/checkpoint.py`` reads and writes
 its ``.npz`` format); ``eval.py`` scores a policy
-(``examples/train_ppo_vss.py``, ``tools/vss_anchor_eval.py``).
-Imports ``torch`` and never ``jax``.
+(``examples/train_ppo_vss.py``, ``tools/vss_anchor_eval.py``).  The
+scripted experts (``experts.py``) act on batched states, and
+``tools/bc_warmstart.py`` clones them into PPO or SAC actors (BC and
+DAgger).  Imports ``torch`` and never ``jax``.
 """
 
 from rsoccer_tpu_torch.registry import make, registered_ids

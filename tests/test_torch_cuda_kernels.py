@@ -545,3 +545,25 @@ def test_sac_train_step_on_the_card(cuda):
     assert dict(sf.sd_full_step.entry_launches) == {"ssl_sd_full_step": 1}
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(p0, (*state.actor.parameters(), *state.qs.parameters())))
+
+
+def test_expert_step_on_the_fused_path(cuda):
+    """One scripted-expert step on the fused path (unpack_state -> the PE
+    expert -> the step) is one launch of K7 through ssl_pe_full_step and
+    no other kernel; the actions are finite (3, B)."""
+    from rsoccer_tpu_torch.experts import EXPERTS
+
+    benv = rsoccer_tpu_torch.make_vec("SSLPassEndurance-v0", B, fused=True, fused_rng="kernel")
+    expert = EXPERTS["SSLPassEndurance-v0"](benv.env)
+    key = make_key(0)
+    state, _ = benv.reset(key)
+    wrappers = (sf.sd_full_step, sf.cp_full_step, sf.dr_full_step, sf.pe_full_step, vf.vss_full_step)
+    for w in wrappers:
+        w.launches, w.final_launches = 0, 0
+    sf.pe_full_step.entry_launches.clear()
+    act = expert(benv.unpack_state(state))
+    state, obs, *_ = benv.step(state, act, key)
+    assert [w.launches for w in wrappers] == [0, 0, 0, 1, 0]
+    assert sf.pe_full_step.final_launches == 0
+    assert dict(sf.pe_full_step.entry_launches) == {"ssl_pe_full_step": 1}
+    assert act.shape == (3, B) and bool(torch.isfinite(act).all()) and bool(torch.isfinite(obs).all())
