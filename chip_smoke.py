@@ -79,7 +79,7 @@ Then the scripted experts and BC (``rsoccer_tpu_torch/experts.py``,
 ``rsoccer_tpu_torch/tools/bc_warmstart.py``): ``expert_score`` runs each
 expert on its reference-exact env, every step ``unpack_state`` -> the
 expert -> one launch of K4 (SD, 1024 envs x 2000 steps), K7 (PE, 1024 x
-2400) or K6 (DR, 256 x 9600), against the JAX tests' floors, with the
+2400) or K6 (DR, 256 x 5100), against the JAX tests' floors, with the
 host and device time per step and the expert's alone; ``bc_train`` runs
 the BC tool in-process at the ``pe_bc`` recipe (three rounds of 262,144
 expert pairs from curriculum resets, 40 epochs each, the clone's eval
@@ -87,10 +87,26 @@ through K7), saves ``chiprun_out/pe_bc_port.ckpt.npz`` and re-scores it
 after a reload, and profiles a few collect steps and one fit epoch;
 ``bc_checkpoints`` scores ``pe_bc``, ``pe_rl``, ``sac_sd_cloneseed``,
 ``drb_sac``, ``sac_pe_nstep``, ``sd_bc`` and ``sd_sac_bc`` at 1024 envs,
-against their bands where a number exists.  Each of these phases zeroes
+each against its band (around the JAX package's own score where the
+published one does not reproduce there or has no count), and each
+Dribbling run, the expert's too, also on its course length.  Each of these phases zeroes
 the launch counts before it and fails unless every env step was one
 launch of its env's routed entry, without ``emit_final``, and no other
 kernel launched.
+Then multi-agent VSS and self-play (``rsoccer_tpu_torch/envs/vss_multiagent.py``,
+``envs/vss_selfplay.py``, ``models/selfplay.py``), whose one kernel path is
+the VSS physics kernel (``fused_physics``): it is held to its plain
+version under policy-like actions of every robot on both envs at 8192
+and 8191 envs (in section 3), ``VSSMultiAgent-v0``'s main path is driven
+and timed (section 4); ``selfplay_train`` runs
+``examples/selfplay_vss.py`` in-process at the round-5 recipe cut to 20
+updates (2048 envs, half the lanes OU, anchor-gated swaps every 10, a
+``selfplay_swap`` line each), ``selfplay_resume`` holds one more update
+from a saved and restored state (the frozen opponent's payload included)
+bit for bit, and ``selfplay_checkpoint`` scores the two shipped league
+policies on the ``VSSMultiAgent-v0`` anchor (1024 envs x 4800 steps)
+against their published bands; each counts one physics-kernel launch per
+env step and no other launch.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -432,13 +448,27 @@ def pe_events(kinds, st_before, got, t):
     return ev
 
 
-def check_physics_vs_plain(batch: int = B, env_kwargs=None):
+def policy_like_actions(n_act: int, n_obs: int, seed: int = 99):
+    """Actions a policy could give: a fixed random linear map of the obs
+    through tanh, plus noise from ``gen``, clipped to [-1, 1] (every wheel
+    moves, some saturate)."""
+    w = torch.randn((n_act, n_obs), generator=torch.Generator(device="cpu").manual_seed(seed)).to("cuda")
+
+    def actions(obs, gen):
+        noise = torch.randn((n_act, obs.shape[-1]), generator=gen, device=obs.device)
+        return torch.clamp(torch.tanh(1.5 * w @ obs) + 0.3 * noise, -1.0, 1.0)
+
+    return actions
+
+
+def check_physics_vs_plain(batch: int = B, env_kwargs=None, env_id: str = "VSS-v0", actions=None):
     """The VSS physics kernel on a ``fused_physics`` rollout of ``batch``
-    envs of VSS-v0 (with ``env_kwargs``): at every step the kernel vs its
-    plain version on that step's arrays, and the whole step (state, obs,
-    reward, flags, info) vs the unfused env step fed the same noise, for
-    both step-limit settings and both obs variants.  Returns (max error,
-    dones seen)."""
+    envs of ``env_id`` (with ``env_kwargs``): at every step the kernel vs
+    its plain version on that step's arrays, and the whole step (state,
+    obs, reward, flags, info) vs the unfused env step fed the same noise,
+    for both step-limit settings and both obs variants.  ``actions(obs,
+    gen)``: the step's actions (uniform random by default).  Returns (max
+    error, dones seen)."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
     from rsoccer_tpu_torch.ops import vss_full as vf
@@ -448,24 +478,27 @@ def check_physics_vs_plain(batch: int = B, env_kwargs=None):
     worst, dones = 0.0, 0
     for max_steps in (None, 3):
         for final in (False, True):
-            env = rt.make("VSS-v0", **(env_kwargs or {}))
+            env = rt.make(env_id, **(env_kwargs or {}))
             if max_steps is not None:
                 env.max_episode_steps = max_steps
             fused = BatchedEnv(env, batch, device="cuda", fused_physics=True)
             twin = BatchedEnv(env, batch, device="cuda")
             key = make_key(11, device="cuda")
-            st_k, _ = fused.reset(key)
+            st_k, obs = fused.reset(key)
             st_p = st_k
             gen = torch.Generator(device="cuda").manual_seed(5)
             for t in range(N_CHECK_STEPS):
-                act = torch.rand((2, batch), generator=gen, device="cuda") * 2 - 1
+                if actions is None:
+                    act = torch.rand((env.action_size, batch), generator=gen, device="cuda") * 2 - 1
+                else:
+                    act = actions(obs, gen)
                 t_noise, r_noise = fused._draw(key)
                 cmd, _ = env.pre_physics(st_k, act, t_noise)
                 rb, bl = vp._stack(st_k.world)
                 cmd = torch.stack([cmd.v_wheel0, cmd.v_wheel1])
                 k_rb, k_bl = vp.vss_physics(env, rb, bl, cmd)
                 p_rb, p_bl = vp.vss_physics_plain(env, rb, bl, cmd)
-                tag = f"vss_physics B={batch} max_steps={max_steps} final={final} step={t}"
+                tag = f"vss_physics {env_id} B={batch} max_steps={max_steps} final={final} step={t}"
                 d_th = (torch.remainder(k_rb[2] - p_rb[2] + math.pi, 2 * math.pi) - math.pi).abs()
                 errs = [max_err(k_rb[[0, 1, 3, 4, 5]], p_rb[[0, 1, 3, 4, 5]]), float(d_th.max()),
                         max_err(k_bl, p_bl)]
@@ -483,10 +516,10 @@ def check_physics_vs_plain(batch: int = B, env_kwargs=None):
 
                 worst = max(worst, *errs, compare_step(env.n_robots, as_step(got), as_step(want), tag)[0])
                 dones += int((got[-3] | got[-2]).sum())
-                st_k, st_p = got[0], want[0]
+                st_k, st_p, obs = got[0], want[0], got[1]
     torch.cuda.synchronize()
     if dones == 0:
-        raise AssertionError(f"vss_physics {env_kwargs}: no auto-reset inside the checked window")
+        raise AssertionError(f"vss_physics {env_id} {env_kwargs}: no auto-reset inside the checked window")
     return worst, dones
 
 
@@ -527,19 +560,19 @@ def time_cuda(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_us(fn, n: int, match: str = "", table: str = "") -> tuple[float, dict]:
-    """Device time per call of ``fn`` from the profiler over ``n`` calls:
-    (us per call summed over the device kernels whose name the regular
-    expression ``match`` finds, {kernel name: us per call} of the top
-    kernels).  With a ``match``, each matched kernel is taken to launch
-    once per call.  ``table``
-    names a file under chiprun_out/ for the profiler's full table."""
+def _device_kernels(fn, n: int, match: str, table: str) -> list:
+    """The profiler's device events over ``n`` calls of ``fn`` (after one
+    call unprofiled), taken again where the window saw no kernel matching
+    ``match``; ``table`` names a file under chiprun_out/ for its full
+    table.  A user annotation's range on the device
+    (``Optimizer.step#Adam.step``) spans kernels counted on their own: left
+    out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a window in which the profiler saw no kernel at all is taken again
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -549,21 +582,40 @@ def device_us(fn, n: int, match: str = "", table: str = "") -> tuple[float, dict
     if table:
         with open(os.path.join(OUT_DIR, table), "w") as fh:
             fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-    # a named kernel launches once per call: its time per call is its time
-    # per launch the profiler saw (a window that misses events stays right)
-    # a user annotation's range on the device (``Optimizer.step#Adam.step``)
-    # spans kernels counted on their own: left out
-    kernels = {
-        e.key: e.self_device_time_total / (e.count if match else n)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and re.search(match, e.key)
-        and not getattr(e, "is_user_annotation", False)
-    }
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def _top(kernels: dict) -> dict:
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])
+    return {k[:80]: v for k, v in top.items()}
+
+
+def device_us(fn, n: int, match: str = "", table: str = "") -> tuple[float, dict]:
+    """Device time per call of ``fn`` from the profiler over ``n`` calls:
+    (us per call summed over the device kernels whose name the regular
+    expression ``match`` finds, {kernel name: us per call} of the top
+    kernels).  With a ``match``, each matched kernel is taken to launch
+    once per call: its time per call is its time per launch the profiler
+    saw (a window that misses events stays right)."""
+    kernels = {e.key: e.self_device_time_total / (e.count if match else n)
+               for e in _device_kernels(fn, n, match, table) if re.search(match, e.key)}
     total = sum(kernels.values())
     if total <= 0:
         raise RuntimeError(f"the profiler saw no device time for {match or 'any kernel'!r}")
-    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])
-    return total, {k[:80]: v for k, v in top.items()}
+    return total, _top(kernels)
+
+
+def device_us_split(fn, n: int, match: str, table: str = "") -> tuple[float, float, dict]:
+    """One profiled window for both of :func:`device_us`'s readings: (us
+    per launch of the kernels ``match`` finds, us per call of all device
+    kernels, the top kernels per call)."""
+    events = _device_kernels(fn, n, match, table)
+    matched = sum(e.self_device_time_total / e.count for e in events if re.search(match, e.key))
+    kernels = {e.key: e.self_device_time_total / n for e in events}
+    if matched <= 0 or not kernels:
+        raise RuntimeError(f"the profiler saw no device time for {match!r}")
+    return matched, sum(kernels.values()), _top(kernels)
 
 
 def bound_ms(task, ins, outs, n_done: int) -> tuple[float, str, float, float]:
@@ -609,14 +661,16 @@ def fused_calls(task, env, carry):
 
 def physics_calls(task, env, carry):
     """The VSS physics kernel and its plain version on the main path's last
-    world, with the commands of one more step."""
+    world (``carry.state``, structured), with the commands of one more
+    step."""
     from rsoccer_tpu_torch.envs.base import draw_noise
     from rsoccer_tpu_torch.ops import vss_physics as vp
     from rsoccer_tpu_torch.ops.philox import make_key
 
-    act = torch.rand((2, B), generator=torch.Generator(device="cuda").manual_seed(7),
+    b = carry.state.steps.shape[-1]
+    act = torch.rand((env.action_size, b), generator=torch.Generator(device="cuda").manual_seed(7),
                      device="cuda") * 2 - 1
-    t_noise = draw_noise(make_key(3, device="cuda"), env.transition_noise_spec(), B)
+    t_noise = draw_noise(make_key(3, device="cuda"), env.transition_noise_spec(), b)
     cmd, _ = env.pre_physics(carry.state, act, t_noise)
     cmd = torch.stack([cmd.v_wheel0, cmd.v_wheel1])
     rb, bl = vp._stack(carry.state.world)
@@ -1128,11 +1182,41 @@ SSL_PPO_REFS = {
 }
 
 
+# The reference Dribbling task draws no noise: every episode of a
+# deterministic policy runs the same course, so a success rate of 100% can
+# not move, but the course's length can.  The JAX package's course lengths
+# on its XLA path (tests/test_torch_reference_scores.py, run as a script):
+DR_COURSE_JAX = {"drb_ppo": 217.0, "drb_sac": 249.0, "dr_expert": 510.0}
+# A closed loop carries a rounding difference forward (the port's CPU
+# path and the JAX package's split by 1e-7 at the first step and by 1e-4
+# after 50; the port's CPU course of drb_sac is 246 steps): the length
+# gate allows 5% of the course, where a wrong step or automaton moves more.
+DR_COURSE_TOL = 0.05
+
+
+def dr_course_gate(name: str, mean_length: float) -> dict:
+    """The course-length gate of a Dribbling run: its fields for the
+    phase line, ``course_inside`` among them."""
+    ref = DR_COURSE_JAX[name]
+    band = [ref * (1 - DR_COURSE_TOL), ref * (1 + DR_COURSE_TOL)]
+    return {"course_steps": mean_length, "course_steps_jax_cpu": ref, "course_band": band,
+            "course_inside": band[0] <= mean_length <= band[1]}
+
+
 def two_sample_band(ref: float, var: float, n_ref: int, n: int) -> list:
     """ref +- 3 sigma of the difference of two independent sample means of
     a quantity of per-episode variance ``var``, over n_ref and n episodes."""
     half = 3.0 * math.sqrt(var * (1.0 / n_ref + 1.0 / max(n, 1)))
     return [ref - half, ref + half]
+
+
+def goal_bands(ref, n: int) -> dict:
+    """Two-sample 3-sigma bands of the blue goal rate and the goal diff
+    around ``ref`` = (blue rate, episodes, yellow rate, goal diff), for a
+    run of ``n`` episodes (a per-episode goal diff of +1, -1 or 0)."""
+    p_b, n_ref, p_y, diff = ref
+    return {"blue_goal_rate": two_sample_band(p_b, p_b * (1 - p_b), n_ref, n),
+            "mean_goal_diff": two_sample_band(diff, p_b + p_y - (p_b - p_y) ** 2, n_ref, n)}
 
 
 def zero_counts(wrappers):
@@ -1262,8 +1346,7 @@ def ppo_profile(card, trainer, state, k1, train_out):
     def one_update():
         box[0], _ = trainer.train_step(box[0])
 
-    k1_us, _ = device_us(one_update, 1, k1.kernel_match)
-    step_us, top = device_us(one_update, 1, table="profile_ppo_train_step.txt")
+    k1_us, step_us, top = device_us_split(one_update, 1, k1.kernel_match, table="profile_ppo_train_step.txt")
     env, st = trainer.benv.env, box[0].env_state
     act = make_policy(box[0].net, box[0].obs_norm, deterministic=False)(
         torch.Generator(device="cuda").manual_seed(7), box[0].obs)
@@ -1322,13 +1405,8 @@ def ppo_checkpoint(card, wrappers):
     secs = time.perf_counter() - t0
     launches = check_launches("ppo_checkpoint", wrappers, vf.vss_full_step, vss_entry(benv), 4800, final=0)
     ref = VSS_ANCHOR_REF
-    p_b, p_y = ref["blue_goal_rate"], ref["yellow_goal_rate"]
-    bands = {
-        "blue_goal_rate": two_sample_band(p_b, p_b * (1 - p_b), ref["episodes"], out["episodes"]),
-        # a per-episode goal diff of +1, -1 or 0: variance p_b + p_y - (p_b - p_y)^2
-        "mean_goal_diff": two_sample_band(ref["mean_goal_diff"], p_b + p_y - (p_b - p_y) ** 2,
-                                          ref["episodes"], out["episodes"]),
-    }
+    bands = goal_bands((ref["blue_goal_rate"], ref["episodes"], ref["yellow_goal_rate"], ref["mean_goal_diff"]),
+                       out["episodes"])
     inside = {k: lo <= out[k] <= hi for k, (lo, hi) in bands.items()}
     phase("ppo_checkpoint", card=card, checkpoint="artifacts/vss_ppo.ckpt.npz", envs=1024, steps=4800,
           **out, reference=ref, band_3sigma=bands, inside=inside, launches=launches, entry=vss_entry(benv),
@@ -1364,12 +1442,13 @@ def ppo_ssl_checkpoints(card, wrappers, ssl_tasks):
         if floor is not None:
             lo = min(lo, floor)
         inside = lo <= out["success_rate"] <= hi
+        course = dr_course_gate(name, out["mean_episode_length"]) if name in DR_COURSE_JAX else {}
         launches = {task.wrapper.__name__: dict(task.wrapper.entry_launches)}
         phase("ppo_ssl_checkpoint", card=card, checkpoint=f"artifacts/{name}.ckpt.npz", **out,
               reference={"success_rate": p_ref, "episodes": n_ref}, band_3sigma=[lo, hi], floor=floor,
-              inside=inside, launches=launches, seconds=secs)
-        if not inside:
-            misses[name] = (out["success_rate"], [lo, hi])
+              inside=inside, **course, launches=launches, seconds=secs)
+        if not inside or not course.get("course_inside", True):
+            misses[name] = (out["success_rate"], [lo, hi], course)
     if misses:
         raise AssertionError(f"ppo_ssl_checkpoints: outside the band: {misses}")
 
@@ -1508,8 +1587,7 @@ def sac_profile(card, trainer, state, k4, train_out):
     def one_iter():
         box[0], _ = trainer.train_step(box[0], iteration_generator(0, box[0].iteration))
 
-    k4_us, _ = device_us(one_iter, n_iter, k4.kernel_match)
-    iter_us, top = device_us(one_iter, n_iter, table="profile_sac_train_step.txt")
+    k4_us, iter_us, top = device_us_split(one_iter, n_iter, k4.kernel_match, table="profile_sac_train_step.txt")
     env, st = trainer.benv.env, box[0].env_state
     act = make_policy(box[0].actor, deterministic=False)(torch.Generator(device="cuda").manual_seed(7),
                                                          box[0].obs)
@@ -1589,15 +1667,12 @@ def sac_checkpoint(card, wrappers, ssl_tasks):
 EXPERT_RUNS = {
     "SSLStaticDefenders-v0": (1024, 2000, 0.88),
     "SSLPassEndurance-v0": (1024, 2400, 0.97),
-    "SSLDribbling-v0": (256, 9600, 1.0),
+    "SSLDribbling-v0": (256, 5100, 1.0),  # ten 510-step courses (9600 steps until PR 10)
 }
 SD_EXPERT_REF = (0.967, 1573)  # docs/training.md:347: success rate, episodes
 # the JAX package's own SD expert at 1024 envs x 2000 steps on its XLA path
 # (seeds 0 and 1, pooled; tests/test_torch_reference_scores.py run as a script)
 SD_EXPERT_JAX = (18260 / 19456, 19456)
-# the reference DR course's completion step count on the CPU (the JAX
-# package and the port, tests/test_torch_experts.py, both 510)
-DR_EXPERT_CPU_STEPS = 510
 EXPERT_PROFILE_STEPS = 20
 # the pe_bc recipe (artifacts/README.md; docs/training.md "Behavior-cloning
 # warm starts"): 512 envs x 512 steps of curriculum resets per round,
@@ -1609,8 +1684,9 @@ BC_FLOOR = 0.90
 BC_PROFILE_STEPS = 8  # collect steps under the profiler
 # the shipped checkpoints no run of the port had scored, at 1024 envs on
 # the fused kernel-RNG path (artifacts/README.md): name: (format, env id,
-# steps, success rate, episodes, floor); None: no published number (the
-# score is printed only)
+# steps, success rate, episodes, floor), the rate and count that of the
+# JAX package itself where the published one does not reproduce there or
+# has no count
 BC_CKPT_ENVS = 1024
 # sac_sd_cloneseed's published 89.4% of 15,029 does not reproduce on the
 # JAX package itself: at these envs and steps its XLA path scores 87.96%
@@ -1618,15 +1694,24 @@ BC_CKPT_ENVS = 1024
 # a script), both below that number's band. The gate is the band around
 # the JAX package's pooled score; the published one is printed beside it.
 CLONESEED_JAX = (25548 / 28985, 28985)
-BC_CKPT_PUBLISHED = {"sac_sd_cloneseed": (0.894, 15029)}
+# sd_bc, sd_sac_bc and sac_pe_nstep: the JAX package's own scores at these
+# envs and steps (seeds 0 and 1, pooled; the same script). sd_bc's
+# published 46.7% does not reproduce there (41.62% of 8,307). Their
+# published numbers come with no episode count: the band printed beside
+# is one-sample, around the published rate at this run's count.
+SD_BC_JAX = (3457 / 8307, 8307)
+SD_SAC_BC_JAX = (4239 / 9399, 9399)
+SAC_PE_NSTEP_JAX = (29075 / 159873, 159873)
+BC_CKPT_PUBLISHED = {"sac_sd_cloneseed": (0.894, 15029), "sd_bc": (0.467, None), "sd_sac_bc": (0.470, None),
+                     "sac_pe_nstep": (0.176, None)}
 BC_CKPT_REFS = {
     "pe_bc": ("ppo", "SSLPassEndurance-v0", 2400, 0.968, 7217, None),
     "pe_rl": ("ppo", "SSLPassEndurance-v0", 2400, 0.908, 69091, None),
     "sac_sd_cloneseed": ("sac", "SSLStaticDefenders-v0", 2400, *CLONESEED_JAX, None),
     "drb_sac": ("sac", "SSLDribbling-v0", 9600, 1.000, 6144, 0.990),
-    "sac_pe_nstep": ("sac", "SSLPassEndurance-v0", 2400, None, None, None),
-    "sd_bc": ("ppo", "SSLStaticDefenders-v0", 2400, None, None, None),
-    "sd_sac_bc": ("sac", "SSLStaticDefenders-v0", 2400, None, None, None),
+    "sac_pe_nstep": ("sac", "SSLPassEndurance-v0", 2400, *SAC_PE_NSTEP_JAX, None),
+    "sd_bc": ("ppo", "SSLStaticDefenders-v0", 2400, *SD_BC_JAX, None),
+    "sd_sac_bc": ("sac", "SSLStaticDefenders-v0", 2400, *SD_SAC_BC_JAX, None),
 }
 
 
@@ -1692,15 +1777,15 @@ def expert_score(card, wrappers, ssl_tasks):
                      "jax_cpu": {"success_rate": p_jax, "episodes": n_jax},
                      "jax_cpu_band_3sigma": two_sample_band(p_jax, p_jax * (1 - p_jax), n_jax, out["episodes"])}
         if env_id == "SSLDribbling-v0":
-            extra = {"completion_steps": out["mean_episode_length"], "completion_steps_cpu": DR_EXPERT_CPU_STEPS}
+            extra = dr_course_gate("dr_expert", out["mean_episode_length"])
         phase("expert_score", card=card, env_id=env_id, envs=n, steps=steps, **out, floor=floor, **extra,
               seconds=secs, host_ms_per_step=host_ms, device_us_per_step=step_us,
               kernel_device_us_per_step=kernel_us, kernel_share_of_step=kernel_us / (host_ms * 1e3),
               expert_device_us_per_step=expert_us, top_kernels_us_per_step=top, launches=launches,
               entry=entry)
-        if out["success_rate"] < floor or gk:
+        if out["success_rate"] < floor or gk or not extra.get("course_inside", True):
             raise AssertionError(f"expert_score {env_id}: success {out['success_rate']} (floor {floor}), "
-                                 f"GK-area entries {gk}")
+                                 f"GK-area entries {gk}, {extra}")
 
 
 def bc_train(card, wrappers, ssl_tasks):
@@ -1770,9 +1855,11 @@ def bc_checkpoints(card, wrappers, ssl_tasks):
     had scored (BC_CKPT_REFS) through convert (no jax) and
     eval.evaluate_policy (deterministic) at BC_CKPT_ENVS envs on the fused
     kernel-RNG path: each inside the two-sample 3-sigma band around its
-    published number, or above its floor where the band is empty; those
-    without a published number are printed only.  Every step one launch
-    of the env's kernel without emit_final, no other kernel."""
+    reference (BC_CKPT_REFS), or above its floor where the band is empty,
+    with the published band printed beside where the reference is the JAX
+    package's; drb_sac's course length inside its gate (DR_COURSE_JAX).
+    Every step one launch of the env's kernel without emit_final, no
+    other kernel."""
     from rsoccer_tpu_torch import convert
     from rsoccer_tpu_torch.eval import evaluate_policy
     from rsoccer_tpu_torch.models import ppo, sac
@@ -1802,9 +1889,17 @@ def bc_checkpoints(card, wrappers, ssl_tasks):
                 misses[name] = (out["success_rate"], band)
         if name in BC_CKPT_PUBLISHED:
             p_pub, n_pub = BC_CKPT_PUBLISHED[name]
-            lo, hi = two_sample_band(p_pub, p_pub * (1 - p_pub), n_pub, out["episodes"])
+            if n_pub is None:  # no count published: the one-sample band at this run's count
+                half = 3.0 * math.sqrt(p_pub * (1 - p_pub) / max(out["episodes"], 1))
+                lo, hi = p_pub - half, p_pub + half
+            else:
+                lo, hi = two_sample_band(p_pub, p_pub * (1 - p_pub), n_pub, out["episodes"])
             extra = {"published": {"success_rate": p_pub, "episodes": n_pub}, "published_band_3sigma": [lo, hi],
                      "inside_published_band": lo <= out["success_rate"] <= hi}
+        if name in DR_COURSE_JAX:
+            extra = dr_course_gate(name, out["mean_episode_length"])
+            if not extra["course_inside"]:
+                misses[name] = (out["mean_episode_length"], extra["course_band"])
         phase("bc_checkpoint", card=card, checkpoint=f"artifacts/{name}.ckpt.npz", format=fmt, **out,
               reference=None if p_ref is None else {"success_rate": p_ref, "episodes": n_ref},
               band_3sigma=band, floor=floor, inside=inside, **extra, launches=launches, entry=entry,
@@ -1813,37 +1908,168 @@ def bc_checkpoints(card, wrappers, ssl_tasks):
         raise AssertionError(f"bc_checkpoints: outside the band: {misses}")
 
 
-def main() -> int:
-    baseline = None
-    if sys.argv[1:2] == ["--baseline"] and len(sys.argv) == 3:
-        baseline = sys.argv[2]
-    elif len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--baseline DIR]", file=sys.stderr)
-        return 2
-    # ---- 1. device
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs an "
-              "NVIDIA card", file=sys.stderr)
-        return 1
-    # the port is imported before anything is printed: without the repo
-    # beside this script the run fails here and prints no result
+# ---- multi-agent and self-play on the card: K2 under policies that score
+MA_ID, SP_ID = "VSSMultiAgent-v0", "VSSSelfPlay-v0"
+# the round-5 self-play recipe (docs/training.md "Self-play (3v3)": 2048
+# envs, towers (256, 256) bf16, 128 rollout steps, time minibatches, half
+# the lanes OU, anchor gate), cut to SELFPLAY_UPDATES updates with a swap
+# every 10, and its evals cut from 1200 steps x 512 envs (vs the frozen
+# opponent) and 1500 x 512 (the anchor) to fit the script's time
+SELFPLAY_UPDATES = 20
+SELFPLAY_ARGS = ["--envs", "2048", "--updates", str(SELFPLAY_UPDATES), "--swap-every", "10",
+                 "--rollout-steps", "128", "--minibatch-mode", "time", "--ou-frac", "0.5", "--anchor-gate",
+                 "--eval-steps", "300", "--eval-envs", "512", "--anchor-envs", "512", "--anchor-steps", "300",
+                 "--hidden", "256,256", "--device", "cuda", "--seed", "0"]
+# the league policies on the VSSMultiAgent-v0 anchor (tools/vss_anchor_eval:
+# 1024 envs x 4800 steps, deterministic, seed 123): artifacts/README.md's
+# numbers (blue goal rate, episodes, yellow goal rate, goal diff), and the
+# JAX package's own at that size (tests/test_torch_reference_scores.py, run
+# as a script; it reproduces r3's 9,568 episodes, and the mix's 6,580 at
+# 512 envs x 3600 steps)
+LEAGUE_ENVS, LEAGUE_STEPS = 1024, 4800
+LEAGUE_REFS = {"selfplay_vss_r3": (0.634, 9568, 0.092, 0.54), "selfplay_vss_mix": (0.873, 6580, 0.045, 0.83)}
+LEAGUE_JAX = {"selfplay_vss_r3": (0.6335702341137124, 9568, 0.09165969899665552, 0.5419105351170569),
+              "selfplay_vss_mix": (0.8648972602739726, 17520, 0.048515981735159815, 0.8163812785388128)}
+
+
+def physics_record(name, k2, env, state, launches: int, err: float) -> dict:
+    """The physics kernel's record for the kernels line: device time per
+    launch and its plain version's on ``state`` (structured, at its own
+    batch), its bound, the launches of the run it served."""
+    calls = physics_calls(k2, env, SimpleNamespace(state=state))
+    kern_us, _ = device_us(calls["kernel"], TIMED_LAUNCHES, k2.kernel_match)
+    plain_us, _ = device_us(calls["plain"], 10)
+    bound, by, _, _ = bound_ms(k2, calls["ins"], calls["kernel"](), 0)
+    return {"name": name, "route": "cuda", "source": k2.source, "replaces": k2.replaces,
+            "launches": launches, "max_abs_err": err, "ms": kern_us / 1e3, "plain_ms": plain_us / 1e3,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def selfplay_train(card, wrappers, k2, err):
+    """examples/selfplay_vss.run in-process at SELFPLAY_ARGS (the adapter on
+    ``fused_physics``: K2 under the learner's blues and the frozen net's or
+    the OU lanes' yellows), every launch count zeroed before and read
+    after: one launch of K2's group kernel per env step of the collects,
+    the evals against the frozen opponent and the anchor, and no other
+    kernel.  Prints each swap (goal rate against the frozen opponent, the
+    anchor, promoted or not, collect and update ms).  Returns (trainer,
+    state, the kernel's record)."""
+    from rsoccer_tpu_torch.examples import selfplay_vss as spx
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+
+    args = spx.build_parser().parse_args(SELFPLAY_ARGS)
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = spx.run(args, on_swap=lambda rec: phase("selfplay_swap", card=card, **rec))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    hist = out["history"]
+    n_swaps = args.updates // args.swap_every
+    n = args.updates * args.rollout_steps + n_swaps * (args.eval_steps + args.anchor_steps)
+    launches = check_launches("selfplay_train", wrappers, vp.vss_physics, "vss_physics_step", n)
+    trainer, state = out["trainer"], out["state"]
+    finite = all(math.isfinite(r[k]) for r in hist for k in ("goalrate_vs_frozen", "anchor_goal_rate",
+                                                               "mean_reward", "collect_ms", "update_ms"))
+    per_update = {k: sum(r[k] for r in hist) / len(hist) for k in ("collect_ms", "update_ms")}
+    phase("selfplay_train", card=card, args=" ".join(SELFPLAY_ARGS), swaps=len(hist), seconds=secs,
+          launches=launches, entry="vss_physics_step", k2_launches_want=n,
+          collect_ms_per_update=per_update["collect_ms"], update_ms_per_update=per_update["update_ms"],
+          collect_ms_per_step=per_update["collect_ms"] / args.rollout_steps,
+          env_steps_per_s_in_updates=args.rollout_steps * args.envs / (sum(per_update.values()) / 1e3),
+          goalrate_vs_frozen=[r["goalrate_vs_frozen"] for r in hist],
+          anchor=[r["anchor_goal_rate"] for r in hist], promoted=[r["promoted"] for r in hist],
+          best_anchor=out["best"]["anchor"])
+    if len(hist) != n_swaps or not finite:
+        raise AssertionError(f"selfplay_train: {len(hist)} swaps of {n_swaps}, finite {finite}: {hist}")
+    rec = physics_record(f"vss_physics_kernel (self-play: PPO collect at {args.envs} envs, evals)", k2,
+                         trainer.benv.env, state.env_state[0], launches["vss_physics"], err)
+    return trainer, state, rec
+
+
+def selfplay_resume(trainer, state):
+    """The whole self-play state, the frozen opponent's payload included,
+    saved and restored; one more update from each: the same params, env
+    state (the payload's leaves too), key and loss, bit for bit."""
+    from rsoccer_tpu_torch.utils import checkpoint
+
+    path = os.path.join(OUT_DIR, "selfplay_resume.ckpt")
+    checkpoint.save(path, trainer.state_tree(state))
+    size = os.path.getsize(path + ".npz")
+    back = trainer.state_from_tree(checkpoint.restore(path, like=trainer.state_tree(state)))
+    os.remove(path + ".npz")
+    s1, m1 = trainer.train_step(state)
+    s2, m2 = trainer.train_step(back)
+    torch.cuda.synchronize()
+    same = {
+        "params": bit_equal(list(s1.net.parameters()), list(s2.net.parameters())),
+        "env_state": bit_equal(checkpoint.flatten(s1.env_state), checkpoint.flatten(s2.env_state)),
+        "payload_leaves": len(checkpoint.flatten(s1.env_state[1])),
+        "env_key": torch.equal(s1.env_key, s2.env_key),
+        "loss": bool(torch.equal(m1["loss"], m2["loss"])),
+    }
+    phase("selfplay_resume", bytes=size, after_one_update_equal=same, update_step=s2.update_step)
+    if not all(v for k, v in same.items() if k != "payload_leaves"):
+        raise AssertionError(f"selfplay_resume: after one more update {same}")
+
+
+def selfplay_checkpoint(card, wrappers, k2, err):
+    """The league policies through convert (no jax) on the VSSMultiAgent-v0
+    anchor (tools/vss_anchor_eval) through K2 at LEAGUE_ENVS x
+    LEAGUE_STEPS, seed 123: each blue goal rate inside the two-sample
+    3-sigma band around its published number, with the goal diff and the
+    JAX package's bands beside it; every step one launch of K2's group
+    kernel, no other kernel.  Returns the kernel's record."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch import convert
+    from rsoccer_tpu_torch.models.ppo import make_policy
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+    from rsoccer_tpu_torch.ops.philox import make_key
+    from rsoccer_tpu_torch.tools.vss_anchor_eval import anchor_eval
+
+    misses, total = {}, 0
+    for name, ref in LEAGUE_REFS.items():
+        net, obs_norm = convert.load_ppo_checkpoint(os.path.join(ARTIFACTS, f"{name}.ckpt.npz"), device="cuda")
+        benv = rt.make_vec(MA_ID, LEAGUE_ENVS, device="cuda", fused_physics=True)
+        zero_counts(wrappers)
+        t0 = time.perf_counter()
+        out = anchor_eval(benv, make_policy(net, obs_norm, deterministic=True), LEAGUE_STEPS, seed=123)
+        secs = time.perf_counter() - t0
+        launches = check_launches(f"selfplay_checkpoint {name}", wrappers, vp.vss_physics, "vss_physics_step",
+                                  LEAGUE_STEPS)
+        total += launches["vss_physics"]
+        bands = goal_bands(ref, out["episodes"])
+        jax_bands = goal_bands(LEAGUE_JAX[name], out["episodes"])
+        lo, hi = bands["blue_goal_rate"]
+        inside = lo <= out["blue_goal_rate"] <= hi
+        phase("selfplay_checkpoint", card=card, checkpoint=f"artifacts/{name}.ckpt.npz", env_id=MA_ID,
+              envs=LEAGUE_ENVS, steps=LEAGUE_STEPS, **out,
+              published={"blue_goal_rate": ref[0], "episodes": ref[1], "yellow_goal_rate": ref[2],
+                         "mean_goal_diff": ref[3]}, band_3sigma=bands, inside=inside,
+              goal_diff_inside=bands["mean_goal_diff"][0] <= out["mean_goal_diff"] <= bands["mean_goal_diff"][1],
+              jax_cpu={"blue_goal_rate": LEAGUE_JAX[name][0], "episodes": LEAGUE_JAX[name][1],
+                       "mean_goal_diff": LEAGUE_JAX[name][3]}, jax_cpu_band_3sigma=jax_bands,
+              launches=launches, entry="vss_physics_step", seconds=secs,
+              host_ms_per_step=secs / LEAGUE_STEPS * 1e3)
+        if not inside:
+            misses[name] = (out["blue_goal_rate"], [lo, hi])
+    if misses:
+        raise AssertionError(f"selfplay_checkpoint: outside the band: {misses}")
+    # K2 at the anchor's batch, on a league state
+    benv = rt.make_vec(MA_ID, LEAGUE_ENVS, device="cuda", fused_physics=True)
+    st, _ = benv.reset(make_key(5, device="cuda"))
+    return physics_record(f"vss_physics_kernel (league anchor, {LEAGUE_ENVS} envs)", k2, benv.env, st, total, err)
+
+
+def make_tasks():
+    """The kernels' tasks: each fused env step, the physics kernel and the
+    configurations beyond 3v3, with what main() checks, drives and times
+    for each."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
-    from rsoccer_tpu_torch.ops import _build
     from rsoccer_tpu_torch.ops import ssl_full as sf
     from rsoccer_tpu_torch.ops import vss_full as vf
     from rsoccer_tpu_torch.ops import vss_physics as vp
-
-    if ONE_THREAD_B <= sf.GROUP_MAX_ENVS:
-        raise AssertionError(f"ONE_THREAD_B {ONE_THREAD_B} must exceed GROUP_MAX_ENVS {sf.GROUP_MAX_ENVS}")
-    if not B <= min(vf.VSS_GROUP_MAX_ENVS, vp.VSS_GROUP_MAX_ENVS) < VSS_THREAD_B:
-        raise AssertionError("the VSS main path must run the group kernels and VSS_THREAD_B the one-thread ones")
-    card = card_line()
-    print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    phase("device", nvidia_smi=card, torch_name=kind,
-          torch=torch.__version__, cuda=torch.version.cuda)
-    os.makedirs(OUT_DIR, exist_ok=True)
 
     def random_actions(n):
         return lambda obs, gen: torch.rand((n, obs.shape[-1]), generator=gen, device=obs.device) * 2 - 1
@@ -1943,6 +2169,15 @@ def main() -> int:
                                               **VSS_CONFIGS["5v5"]),
             calls=fused_calls, prepare=None, events=None, need_events=(),
         ),
+        # VSSMultiAgent-v0: three policy blues, K2 its one kernel path
+        SimpleNamespace(
+            name="vss_multiagent", kernel="vss_physics_kernel (VSSMultiAgent-v0)", env_id="VSSMultiAgent-v0",
+            wrapper=vp.vss_physics, kernel_match=r"vss_physics_kernel",
+            source="rsoccer_tpu_torch/csrc/vss_physics.cu", replaces="rsoccer_tpu/ops/pallas_vss.py:37",
+            entry="vss_physics_step", ops_env=vss_physics_ops(6), ops_reset=0,
+            make_benv=lambda env: BatchedEnv(env, B, device="cuda", fused_physics=True),
+            calls=physics_calls,
+        ),
         SimpleNamespace(
             name="vss_5v5_fused_physics", kernel="vss_physics_thread_kernel", env_id="VSS-v0",
             env_kwargs=VSS_CONFIGS["5v5"], wrapper=vp.vss_physics, kernel_match="vss_physics_thread_kernel",
@@ -1957,7 +2192,42 @@ def main() -> int:
         for k, v in (("kernel", t.name), ("env_kwargs", {}), ("entry", None)):
             if not hasattr(t, k):
                 setattr(t, k, v)
-    new_vss = ("vss_5v5", "vss_5v5_fused_physics")  # checked by configuration below
+    return tasks
+
+
+def main() -> int:
+    baseline = None
+    if sys.argv[1:2] == ["--baseline"] and len(sys.argv) == 3:
+        baseline = sys.argv[2]
+    elif len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--baseline DIR]", file=sys.stderr)
+        return 2
+    # ---- 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an "
+              "NVIDIA card", file=sys.stderr)
+        return 1
+    # the port is imported before anything is printed: without the repo
+    # beside this script the run fails here and prints no result
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.ops import _build
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+
+    if ONE_THREAD_B <= sf.GROUP_MAX_ENVS:
+        raise AssertionError(f"ONE_THREAD_B {ONE_THREAD_B} must exceed GROUP_MAX_ENVS {sf.GROUP_MAX_ENVS}")
+    if not B <= min(vf.VSS_GROUP_MAX_ENVS, vp.VSS_GROUP_MAX_ENVS) < VSS_THREAD_B:
+        raise AssertionError("the VSS main path must run the group kernels and VSS_THREAD_B the one-thread ones")
+    card = card_line()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    phase("device", nvidia_smi=card, torch_name=kind,
+          torch=torch.__version__, cuda=torch.version.cuda)
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    tasks = make_tasks()
+    new_vss = ("vss_5v5", "vss_5v5_fused_physics", "vss_multiagent")  # checked by configuration below
 
     # ---- 2. build: one nvcc per source, all at once, then one link
     t0 = time.perf_counter()
@@ -2046,6 +2316,16 @@ def main() -> int:
                   atol=ATOL, dones=dones)
             errs["vss_5v5_fused_physics"] = max(errs["vss_5v5_fused_physics"], err)
     phase("thread_vs_group_bit_equal", B=VSS_THREAD_B, comparisons=check_thread_vs_group())
+    # the physics kernel under multi-agent and self-play actions (policy-like,
+    # every robot's wheels), through auto-resets
+    for env_id, tag in ((MA_ID, "multiagent"), (SP_ID, "selfplay")):
+        env = rt.make(env_id)
+        for batch in (B, RAGGED_B):
+            err, dones = check_physics_vs_plain(batch, env_id=env_id,
+                                                actions=policy_like_actions(env.action_size, env.obs_size))
+            phase(f"kernel_vs_plain_{tag}_vss_physics", env=env_id, B=batch, route=vp.route(env, batch),
+                  steps=N_CHECK_STEPS, max_abs_err=err, atol=ATOL, dones=dones)
+            errs["vss_multiagent"] = max(errs["vss_multiagent"], err)
 
     # ---- 3d. the VSS kernels and K4-K7 at larger batches, timed
     time_at_scale(card, k1, k2, ssl_tasks)
@@ -2082,6 +2362,13 @@ def main() -> int:
     expert_score(card, wrappers, ssl_tasks)
     bc_train(card, wrappers, ssl_tasks)
     bc_checkpoints(card, wrappers, ssl_tasks)
+
+    # ---- 8. multi-agent and self-play: train the league recipe, resume, score the league
+    sp_trainer, sp_state, rec = selfplay_train(card, wrappers, k2, errs["vss_multiagent"])
+    kernels.append(rec)
+    selfplay_resume(sp_trainer, sp_state)
+    kernels.append(selfplay_checkpoint(card, wrappers, k2, errs["vss_multiagent"]))
+    phase("total", card=card, seconds=time.perf_counter() - _T0)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

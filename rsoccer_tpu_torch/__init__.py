@@ -16,7 +16,10 @@ its ``.npz`` format); ``eval.py`` scores a policy
 (``examples/train_ppo_vss.py``, ``tools/vss_anchor_eval.py``).  The
 scripted experts (``experts.py``) act on batched states, and
 ``tools/bc_warmstart.py`` clones them into PPO or SAC actors (BC and
-DAgger).  Imports ``torch`` and never ``jax``.
+DAgger).  ``VSSMultiAgent-v0`` and ``VSSSelfPlay-v0`` run their physics
+through the same VSS physics kernel, and ``models/selfplay.py`` trains a
+learner against its frozen past (``examples/selfplay_vss.py``).  Imports
+``torch`` and never ``jax``.
 """
 
 from rsoccer_tpu_torch.registry import make, registered_ids

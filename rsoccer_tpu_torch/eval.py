@@ -4,6 +4,8 @@ Port of ``rsoccer_tpu/eval.py``.  Success criteria, from each task's own
 terminal semantics:
 
   VSS-v0                      scored a goal (info ``goals_blue``)
+  VSSMultiAgent-v0            scored a goal (info ``goals_blue``)
+  VSSSelfPlay-v0              scored a goal (info ``goals_blue``)
   SSLStaticDefenders-v0       scored a goal (info ``goal``)
   SSLContestedPossession-v0   scored a goal (info ``goal``)
   SSLDribbling-v0             passed all 7 checkpoints: the episode return
@@ -25,7 +27,7 @@ from rsoccer_tpu_torch.batch import rollout as R
 from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 from rsoccer_tpu_torch.core.state import tree_map
 from rsoccer_tpu_torch.models.networks import check_device
-from rsoccer_tpu_torch.registry import make, not_ported
+from rsoccer_tpu_torch.registry import make
 
 
 class EvalMetrics(NamedTuple):
@@ -70,6 +72,8 @@ def _goal_from_info(key):
 
 _SUCCESS: dict[str, SuccessFn] = {
     "VSS-v0": _goal_from_info("goals_blue"),
+    "VSSMultiAgent-v0": _goal_from_info("goals_blue"),
+    "VSSSelfPlay-v0": _goal_from_info("goals_blue"),
     "SSLStaticDefenders-v0": _goal_from_info("goal"),
     "SSLContestedPossession-v0": _goal_from_info("goal"),
     # +1 per checkpoint; 7 checkpoints completes the course
@@ -80,7 +84,6 @@ _SUCCESS: dict[str, SuccessFn] = {
 
 
 def success_criterion(env_id: str) -> SuccessFn:
-    not_ported(env_id)
     try:
         return _SUCCESS[env_id]
     except KeyError:
@@ -112,13 +115,20 @@ def make_eval_fn(
     n_steps: int,
     policy: Callable,
     success: SuccessFn,
+    carry_init: Callable | None = None,
 ):
     """Build ``evaluate(seed) -> EvalMetrics``: a fresh reset, ``n_steps``
-    batched steps, deterministic given the seed."""
+    batched steps, deterministic given the seed.
+
+    ``carry_init``: a transform of the freshly reset ``RolloutCarry``, e.g.
+    self-play's swap of a given frozen-opponent payload into the env
+    state before the first step."""
     one_step = R.make_step_fn(benv, policy, make_metrics_fn(success))
 
     def evaluate(seed: int) -> EvalMetrics:
         carry = R.init_carry(benv, seed)
+        if carry_init is not None:
+            carry = carry_init(carry)
         carry, total = one_step(carry)
         for _ in range(n_steps - 1):
             carry, m = one_step(carry)

@@ -108,7 +108,7 @@ class ObsNorm(NamedTuple):
 class TrainState(NamedTuple):
     net: ActorCritic  # the policy's parameters (the JAX package's ``params``)
     opt: torch.optim.Adam  # its optimiser (``opt_state``)
-    env_state: object  # batched env state (batch-last leaves, or packed (S, B))
+    env_state: object  # batched env state (batch-last leaves, packed (S, B), or self-play's (inner, payload))
     obs: torch.Tensor  # (O, B)
     env_key: torch.Tensor  # the batch's Philox key (advanced by every step)
     obs_norm: ObsNorm
@@ -425,7 +425,8 @@ class PPOTrainer:
         """Everything a resumed run needs, as a tree for
         ``utils/checkpoint.save``: the policy as the JAX package's
         ``{params, obs_norm}`` tree, Adam's step and moments per parameter,
-        the env state, obs and key, the update count and both generators'
+        the env state (with self-play's frozen-opponent payload, a tree of
+        tensors), obs and key, the update count and both generators'
         states."""
         from rsoccer_tpu_torch import convert
 

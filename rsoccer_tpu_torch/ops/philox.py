@@ -61,13 +61,18 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def philox_words(key: torch.Tensor, n_slots: int, batch: int) -> torch.Tensor:
-    """Words for slots ``[0, n_slots)`` of every env at ``key``'s current
-    step: ``(n_slots, batch)`` int64 in [0, 2^32).  Does not advance."""
+def philox_words(key: torch.Tensor, n_slots: int, batch: int, first_block: int = 0) -> torch.Tensor:
+    """Words for slots ``[4 * first_block, 4 * first_block + n_slots)`` of
+    every env at ``key``'s current step: ``(n_slots, batch)`` int64 in
+    [0, 2^32).  Does not advance.  The env steps draw from block 0 up;
+    a draw beside them (``models/selfplay``'s OU lanes) starts at a block
+    no env step reaches."""
     dev = key.device
     n_blk = -(-n_slots // 4)
+    if not 0 <= first_block <= _MASK - n_blk:
+        raise ValueError(f"first_block {first_block} leaves the 32-bit block counter")
     env = torch.arange(batch, dtype=torch.int64, device=dev)[None, :]
-    blk = torch.arange(n_blk, dtype=torch.int64, device=dev)[:, None]
+    blk = first_block + torch.arange(n_blk, dtype=torch.int64, device=dev)[:, None]
     step = key[2]
     words = philox4x32(
         env, blk, step & _MASK, (step >> 32) & _MASK, key[0], key[1]

@@ -458,6 +458,47 @@ def test_fused_physics_main_path_goes_through_the_kernel(cuda):
     assert bool(torch.isfinite(carry.obs).all())
 
 
+@pytest.mark.parametrize("batch", [B, 8191])
+@pytest.mark.parametrize("env_id", ["VSSMultiAgent-v0", "VSSSelfPlay-v0"])
+def test_vss_physics_under_multiagent_actions(cuda, env_id, batch):
+    """The physics kernel on a ``fused_physics`` rollout of the multi-agent
+    and self-play envs, every robot's wheels from a policy-like map of the
+    obs, through auto-resets: at each step the kernel against its plain
+    version on that step's arrays, and the whole step against the unfused
+    one fed the same noise."""
+    env = rsoccer_tpu_torch.make(env_id)
+    env.max_episode_steps = 3
+    fused = BatchedEnv(env, batch, device=cuda, fused_physics=True)
+    twin = BatchedEnv(env, batch, device=cuda)
+    key = make_key(11, device=cuda)
+    st, obs = fused.reset(key)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((env.action_size, env.obs_size), generator=gen, device=cuda)
+    launches, dones = vp.vss_physics.launches, 0
+    act_shape = (env.action_size, batch)
+    for _ in range(6):
+        act = torch.clamp(torch.tanh(1.5 * w @ obs) + 0.3 * torch.randn(act_shape, generator=gen,
+                                                                          device=cuda), -1.0, 1.0)
+        t_noise, r_noise = fused._draw(key)
+        cmd, _ = env.pre_physics(st, act, t_noise)
+        rb, ball = vp._stack(st.world)
+        cmd = torch.stack([cmd.v_wheel0, cmd.v_wheel1])
+        k_rb, k_ball = vp.vss_physics(env, rb, ball, cmd)
+        p_rb, p_ball = vp.vss_physics_plain(env, rb, ball, cmd)
+        d_th = (torch.remainder(k_rb[2] - p_rb[2] + math.pi, 2 * math.pi) - math.pi).abs()
+        assert float(d_th.max()) <= ATOL
+        assert float((k_rb[[0, 1, 3, 4, 5]] - p_rb[[0, 1, 3, 4, 5]]).abs().max()) <= ATOL
+        assert float((k_ball - p_ball).abs().max()) <= ATOL
+        got = fused.step_with_noise(st, act, t_noise, r_noise)
+        want = twin.step_with_noise(st, act, t_noise, r_noise)
+        assert float((got[1] - want[1]).abs().max()) <= ATOL
+        assert float((got[2] - want[2]).abs().max()) <= ATOL
+        assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        dones += int((got[3] | got[4]).sum())
+        st, obs = got[0], got[1]
+    assert vp.vss_physics.launches == launches + 12 and dones > 0
+
+
 def test_vss_physics_bad_operands_raise(cuda):
     env = rsoccer_tpu_torch.make("VSS-v0")
     rb, ball, cmd = random_vss_arrays(torch.Generator(device=cuda).manual_seed(0), cuda)

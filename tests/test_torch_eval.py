@@ -75,8 +75,13 @@ def test_success_and_metrics_match_jax(monkeypatch, env_id):
 
 @pytest.mark.parametrize("env_id", ["VSSMultiAgent-v0", "VSSSelfPlay-v0"])
 def test_not_ported_ids_raise(env_id):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        teval.success_criterion(env_id)
+    """The two ids that were not ported until the multi-agent and
+    self-play slice now resolve to the JAX package's criterion (a blue
+    goal); an unknown id still raises."""
+    info = {"goals_blue": torch.tensor([1.0, 0.0, 1.0])}
+    got = teval.success_criterion(env_id)(torch.zeros(3), torch.zeros(3), info)
+    want = jeval.success_criterion(env_id)(jnp.zeros(3), jnp.zeros(3), {"goals_blue": jnp.asarray([1.0, 0.0, 1.0])})
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(KeyError):
         teval.success_criterion("NoSuchEnv-v0")
 

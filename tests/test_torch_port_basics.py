@@ -148,9 +148,8 @@ def test_registry_and_make_vec():
     assert (env.obs_size, env.action_size, env.max_episode_steps) == (40, 2, 1200)
     assert rsoccer_tpu_torch.registered_ids() == [
         "SSLContestedPossession-v0", "SSLDribbling-v0", "SSLPassEndurance-v0",
-        "SSLStaticDefenders-v0", "VSS-v0"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rsoccer_tpu_torch.make("VSSSelfPlay-v0")
+        "SSLStaticDefenders-v0", "VSS-v0", "VSSMultiAgent-v0", "VSSSelfPlay-v0"]
+    assert rsoccer_tpu_torch.make("VSSSelfPlay-v0").action_size == 12
     with pytest.raises(KeyError):
         rsoccer_tpu_torch.make("nope-v0")
     benv = rsoccer_tpu_torch.make_vec("VSS-v0", 8, device="cpu", fused=True, field_type=1)
