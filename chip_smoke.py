@@ -81,9 +81,9 @@ expert on its reference-exact env, every step ``unpack_state`` -> the
 expert -> one launch of K4 (SD, 1024 envs x 2000 steps), K7 (PE, 1024 x
 2400) or K6 (DR, 256 x 5100), against the JAX tests' floors, with the
 host and device time per step and the expert's alone; ``bc_train`` runs
-the BC tool in-process at the ``pe_bc`` recipe (three rounds of 262,144
-expert pairs from curriculum resets, 40 epochs each, the clone's eval
-through K7), saves ``chiprun_out/pe_bc_port.ckpt.npz`` and re-scores it
+the BC tool in-process at the ``pe_bc`` recipe cut to one DAgger round
+(two rounds of 262,144 expert pairs from curriculum resets, 40 epochs
+each, the clone's eval through K7), saves ``chiprun_out/pe_bc_port.ckpt.npz`` and re-scores it
 after a reload, and profiles a few collect steps and one fit epoch;
 ``bc_checkpoints`` scores ``pe_bc``, ``pe_rl``, ``sac_sd_cloneseed``,
 ``drb_sac``, ``sac_pe_nstep``, ``sd_bc`` and ``sd_sac_bc`` at 1024 envs,
@@ -107,6 +107,24 @@ bit for bit, and ``selfplay_checkpoint`` scores the two shipped league
 policies on the ``VSSMultiAgent-v0`` anchor (1024 envs x 4800 steps)
 against their published bands; each counts one physics-kernel launch per
 env step and no other launch.
+Last, the numpy core of the gymnasium wrappers (``rsoccer_tpu_torch/batch/host.py``):
+``gym_vector_<task>`` drives ``HostVectorEnv`` (what ``VectorGymnasiumEnv``
+steps) at 8192 envs through K1's and K4-K7's ``emit_final`` variants with
+kernel RNG, holds it to the unfused ``HostVectorEnv`` on the card over 6
+steps at a step limit of 3 (every env through a SAME_STEP reset, one
+launch per step, counts zeroed before), then times it at the normal step
+limit (host ms per step, the kernel's device time, the bytes copied to the
+host, env-steps/s); ``gym_single_vss`` holds ``HostEnv("VSS-v0")`` (what
+``GymnasiumEnv`` steps) on the card to the same on the CPU and times it;
+``host_views`` holds ``frame_from_batched`` of the card's unpacked K1 and
+K4 states to ``frame_from_world`` of the same env copied to the CPU;
+``custom_env`` runs ``examples/custom_env.py``'s ``ReachBallEnv`` at 8192
+envs and holds its touch step to the CPU's.  gymnasium and pygame do not
+import on the card's machine: the gymnasium classes, the renderer and the
+GIF export are held by the CPU tests (``tests/test_torch_gym_compat.py``,
+``tests/test_torch_frame_render.py``, ``tests/test_torch_video_examples.py``).
+The ``fused_physics`` main paths run 1 warm-up and 2 timed rollouts and
+profile 5 steps (the other main paths 2, 5 and 20), with the same gates.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -142,6 +160,10 @@ WARM_STEPS = 60  # SSL checks start mid-episode: contacts, dribbling, kicks
 ROLLOUT_STEPS = 100
 PROFILE_ROLLOUT_STEPS = 20  # the profiled rollout (the profiler's own cost per launch dominates it)
 TIMED_ROLLOUTS = 5
+# the fused_physics main paths (~700 launches and 9-18 ms of host time a
+# step): 1 warm-up and 2 timed rollouts, 5 profiled steps (the others 2, 5
+# and 20), the same gates
+PHYSICS_DEPTH = dict(warm_rollouts=1, timed_rollouts=2, profile_steps=5)
 TIMED_LAUNCHES = 200
 ATOL = 5e-5
 OUT_DIR = "chiprun_out"
@@ -1073,7 +1095,8 @@ def main_path(task, tasks, card):
     benv = task.make_benv(env)
     carry = R.init_carry(benv, seed=0)
     rollout = R.make_rollout_fn(benv, ROLLOUT_STEPS)
-    for _ in range(2):  # warm-up
+    timed, profile_steps = task.timed_rollouts, task.profile_steps
+    for _ in range(task.warm_rollouts):
         carry, _ = rollout(carry)
     torch.cuda.synchronize()
     wrappers = list({id(t.wrapper): t.wrapper for t in tasks}.values())
@@ -1083,7 +1106,7 @@ def main_path(task, tasks, card):
     episodes = 0
     t_host = time.perf_counter()
     start.record()
-    for _ in range(TIMED_ROLLOUTS):
+    for _ in range(timed):
         carry, ms = rollout(carry)
         episodes += ms.episodes  # device tensor; read after the window
     end.record()
@@ -1091,7 +1114,7 @@ def main_path(task, tasks, card):
     host_s = time.perf_counter() - t_host
     launches = {w.__name__: w.launches for w in wrappers}
     roll_ms = start.elapsed_time(end)
-    n_steps = TIMED_ROLLOUTS * ROLLOUT_STEPS
+    n_steps = timed * ROLLOUT_STEPS
     want = {w.__name__: (n_steps if w is task.wrapper else 0) for w in wrappers}
     if launches != want:
         raise AssertionError(f"{task.name} main path: launches {launches}, want {want}")
@@ -1131,7 +1154,7 @@ def main_path(task, tasks, card):
         dev_us["kernel_input"], _ = device_us(calls["kernel_input"], TIMED_LAUNCHES, task.kernel_match)
     plain_dev_us, plain_top = device_us(calls["plain"], 10)
     dev_us["plain"] = plain_dev_us
-    roll_dev_us, roll_top = device_us(lambda: R.make_rollout_fn(benv, PROFILE_ROLLOUT_STEPS)(carry), 1,
+    roll_dev_us, roll_top = device_us(lambda: R.make_rollout_fn(benv, profile_steps)(carry), 1,
                                       table=f"profile_rollout_{task.name}.txt")
     rollout_us_per_step = roll_ms * 1e3 / n_steps
     outs = calls["kernel"]()
@@ -1147,9 +1170,9 @@ def main_path(task, tasks, card):
     phase(f"kernel_vs_plain_time_{task.name}", card=card, B=B, call_us=call_us,
           device_us=dev_us, bound_us=bound * 1e3, bound_by=bound_by, bound_bytes_us=bytes_ms * 1e3,
           bound_ops_us=ops_ms * 1e3, **extra, plain_top_kernels_us=plain_top)
-    phase(f"rollout_device_{task.name}", card=card, steps=PROFILE_ROLLOUT_STEPS,
-          device_us_per_step=roll_dev_us / PROFILE_ROLLOUT_STEPS,
-          device_busy_share=roll_dev_us / PROFILE_ROLLOUT_STEPS / rollout_us_per_step,
+    phase(f"rollout_device_{task.name}", card=card, steps=profile_steps,
+          device_us_per_step=roll_dev_us / profile_steps,
+          device_busy_share=roll_dev_us / profile_steps / rollout_us_per_step,
           top_kernels_us_per_rollout=roll_top)
     return {
         "name": task.kernel,
@@ -1676,9 +1699,11 @@ SD_EXPERT_JAX = (18260 / 19456, 19456)
 EXPERT_PROFILE_STEPS = 20
 # the pe_bc recipe (artifacts/README.md; docs/training.md "Behavior-cloning
 # warm starts"): 512 envs x 512 steps of curriculum resets per round,
-# ActorCritic (256, 256) bf16, 40 epochs, minibatch 4096, lr 1e-3, 2
-# DAgger rounds; then the clone's deterministic eval at 256 envs
-BC_ARGS = ["--env-id", "SSLPassEndurance-v0", "--dagger-iters", "2", "--eval-steps", "2400",
+# ActorCritic (256, 256) bf16, 40 epochs, minibatch 4096, lr 1e-3, cut to
+# 1 DAgger round (the recipe has 2: the third round's collect and
+# 786,432-pair fit take ~33 of the ~80-93 s the recipe takes here); then
+# the clone's deterministic eval at 256 envs
+BC_ARGS = ["--env-id", "SSLPassEndurance-v0", "--dagger-iters", "1", "--eval-steps", "2400",
            "--seed", "0", "--device", "cuda", "--save", os.path.join(OUT_DIR, "pe_bc_port.ckpt")]
 BC_FLOOR = 0.90
 BC_PROFILE_STEPS = 8  # collect steps under the profiler
@@ -2061,6 +2086,221 @@ def selfplay_checkpoint(card, wrappers, k2, err):
     return physics_record(f"vss_physics_kernel (league anchor, {LEAGUE_ENVS} envs)", k2, benv.env, st, total, err)
 
 
+# ---- the gymnasium wrappers' numpy core on the card (batch/host.py).
+# gymnasium and pygame do not import on the card's machine: GymnasiumEnv,
+# VectorGymnasiumEnv, the renderer and the GIF export are held by the CPU
+# tests (tests/test_torch_gym_compat.py, test_torch_frame_render.py,
+# test_torch_video_examples.py); here runs what they stand on.
+GYM_TASKS = ("vss_full_step", "ssl_sd_full_step", "ssl_cp_full_step", "ssl_dr_full_step", "ssl_pe_full_step")
+GYM_GATE_STEPS, GYM_GATE_LIMIT = 6, 3  # every env truncates at steps 3 and 6
+GYM_WARM_STEPS = 5
+GYM_TIMED_STEPS = 100
+GYM_PROFILE_STEPS = 10
+GYM_SINGLE_CHECK_STEPS = 5
+GYM_SINGLE_STEPS = 300
+HOST_VIEW_ENVS = (0, 1, B // 2, B - 1)
+HOST_VIEW_CALLS = 200
+CUSTOM_ENV_STEPS = 60  # the course touches the ball at step 21
+
+
+def vector_step_err(got, want, tag):
+    """Two HostVectorEnv steps (obs, reward, terminated, truncated, infos):
+    obs, reward, info and final_obs within ATOL, the flags and the SAME_STEP
+    masks exactly.  Returns (largest error, the envs that reset)."""
+    import numpy as np
+
+    if not (np.array_equal(got[2], want[2]) and np.array_equal(got[3], want[3])):
+        raise AssertionError(f"{tag}: terminated or truncated differ")
+    if sorted(got[4]) != sorted(want[4]):
+        raise AssertionError(f"{tag}: info keys {sorted(got[4])} against {sorted(want[4])}")
+    errs = [float(np.abs(got[0] - want[0]).max()), float(np.abs(got[1] - want[1]).max())]
+    done = np.zeros(len(want[0]), bool)
+    for k, v in want[4].items():
+        if k in ("final_obs", "final_info"):
+            continue
+        if k.startswith("_final"):
+            if not np.array_equal(got[4][k], v):
+                raise AssertionError(f"{tag}: the {k} masks differ")
+        else:
+            errs.append(float(np.abs(got[4][k] - v).max()))
+    if "_final_obs" in want[4]:
+        done = want[4]["_final_obs"]
+        idx = np.nonzero(done)[0]
+        errs.append(float(np.abs(np.stack(list(got[4]["final_obs"][idx]))
+                                 - np.stack(list(want[4]["final_obs"][idx]))).max()))
+    err = max(errs)
+    if not err <= ATOL:
+        raise AssertionError(f"{tag}: fused vs plain beyond {ATOL}: {err}")
+    return err, done
+
+
+def gym_vector(card, wrappers, task):
+    """HostVectorEnv (what VectorGymnasiumEnv steps) at B envs with kernel
+    RNG.  Gate: fused=True against fused=False on the card from one seed
+    (both draw one Philox stream: the same trajectory) over GYM_GATE_STEPS
+    steps at a step limit of GYM_GATE_LIMIT, set on the env before the
+    first step (the kernel reads it from the env's params): obs, reward,
+    info and final_obs within ATOL, flags and masks exactly, every env
+    through a SAME_STEP reset, and the fused side one launch of the task's
+    emit_final variant per step, through the C entry its route names, and
+    no other launch.  Then the user's rate at the normal step limit: host
+    ms per step, the kernel's device us, the step's device time, the bytes
+    copied to the host, env-steps/s, and the step split into the batched
+    step alone (synced), the one copy and the rest (actions up, object
+    arrays).  Returns the timed HostVectorEnv."""
+    import numpy as np
+
+    from rsoccer_tpu_torch.batch import host
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    entry = routed_entry(task, B)
+    fused = host.HostVectorEnv(task.env_id, B, fused=True, fused_rng="kernel")
+    plain = host.HostVectorEnv(task.env_id, B, fused=False)
+    fused.env.max_episode_steps = plain.env.max_episode_steps = GYM_GATE_LIMIT
+    rng = np.random.default_rng(11)
+    acts = [rng.uniform(-1, 1, (B, fused.env.action_size)).astype(np.float32) for _ in range(8)]
+    zero_counts(wrappers)
+    err = float(np.abs(fused.reset(seed=5)[0] - plain.reset(seed=5)[0]).max())
+    reset_seen = np.zeros(B, bool)
+    for t in range(GYM_GATE_STEPS):
+        e, done = vector_step_err(fused.step(acts[t]), plain.step(acts[t]), f"gym_vector_{task.name} step {t}")
+        err, reset_seen = max(err, e), reset_seen | done
+    gate_launches = check_launches(f"gym_vector_{task.name}", wrappers, task.wrapper, entry,
+                                   GYM_GATE_STEPS, final=GYM_GATE_STEPS)
+    if not err <= ATOL or not reset_seen.all():
+        raise AssertionError(f"gym_vector_{task.name}: reset obs err {err}, "
+                             f"{int(reset_seen.sum())} of {B} envs reset")
+
+    env = host.HostVectorEnv(task.env_id, B, fused=True, fused_rng="kernel")
+    env.reset(seed=1)
+    for t in range(GYM_WARM_STEPS):
+        env.step(acts[t % len(acts)])
+    zero_counts(wrappers)
+    dones = 0
+    t0 = time.perf_counter()
+    for t in range(GYM_TIMED_STEPS):
+        obs, _, term, trunc, _ = env.step(acts[t % len(acts)])
+        dones += int((term | trunc).sum())
+    host_s = time.perf_counter() - t0
+    launches = check_launches(f"gym_vector_{task.name} timed", wrappers, task.wrapper, entry,
+                              GYM_TIMED_STEPS, final=GYM_TIMED_STEPS)
+    if obs.shape != (B, env.env.obs_size) or not np.isfinite(obs).all() or np.abs(obs).max() > np.float32(1.2):
+        raise AssertionError(f"gym_vector_{task.name}: obs not finite, of the wrong shape or outside +-1.2")
+    ms = host_s * 1e3 / GYM_TIMED_STEPS
+    # the same step without the host side: the batched step alone, synced
+    benv, st, key = env.benv, env.state, make_key(2, device="cuda")
+    act_t = torch.from_numpy(np.ascontiguousarray(acts[0].T)).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GYM_TIMED_STEPS):
+        out = benv.step_final(st, act_t, key)
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / GYM_TIMED_STEPS
+    rows = [out[1], out[2], out[3], out[4], out[5], *out[6].values()]
+    t0 = time.perf_counter()
+    for _ in range(GYM_TIMED_STEPS):
+        host.to_host(rows)
+    copy_ms = (time.perf_counter() - t0) * 1e3 / GYM_TIMED_STEPS
+    kern_us, dev_us, top = device_us_split(lambda: env.step(acts[0]), GYM_PROFILE_STEPS, task.kernel_match)
+    phase(f"gym_vector_{task.name}", card=card, env=task.env_id, B=B, entry=entry,
+          gate={"steps": GYM_GATE_STEPS, "step_limit": GYM_GATE_LIMIT, "max_abs_err": err, "atol": ATOL,
+                "envs_reset": int(reset_seen.sum()), "launches": gate_launches[task.wrapper.__name__]},
+          steps=GYM_TIMED_STEPS, launches=launches[task.wrapper.__name__],
+          host_ms_per_step=ms, env_steps_per_s=B / (ms / 1e3), bytes_to_host_per_step=env.host_bytes,
+          done_envs_per_step=dones / GYM_TIMED_STEPS, kernel_device_us=kern_us,
+          device_us_per_step=dev_us, device_busy_share=dev_us / (ms * 1e3),
+          batched_step_synced_ms=step_ms, copy_to_host_ms=copy_ms,
+          rest_ms=ms - step_ms - copy_ms, top_kernels_us_per_step=top)
+    return env
+
+
+def gym_single_vss(card, wrappers):
+    """HostEnv("VSS-v0") (what GymnasiumEnv and gym.make step) on the card
+    against the same on the CPU: same seed, same actions, GYM_SINGLE_CHECK_STEPS
+    steps, obs, reward and info within ATOL and the flags exactly; then host
+    ms per step over GYM_SINGLE_STEPS steps.  The single env runs the plain
+    step (as the JAX package's GymnasiumEnv, which jits the env's step and
+    never reaches Pallas): no kernel launches."""
+    import numpy as np
+
+    from rsoccer_tpu_torch.batch.host import HostEnv
+
+    card_env, cpu_env = HostEnv("VSS-v0"), HostEnv("VSS-v0", device="cpu")
+    err = float(np.abs(card_env.reset(seed=4)[0] - cpu_env.reset(seed=4)[0]).max())
+    rng = np.random.default_rng(12)
+    acts = rng.uniform(-1, 1, (GYM_SINGLE_STEPS, 2)).astype(np.float32)
+    for t in range(GYM_SINGLE_CHECK_STEPS):
+        got, want = card_env.step(acts[t]), cpu_env.step(acts[t])
+        if got[2:4] != want[2:4] or sorted(got[4]) != sorted(want[4]):
+            raise AssertionError(f"gym_single_vss step {t}: flags or info keys differ")
+        err = max(err, float(np.abs(got[0] - want[0]).max()), abs(got[1] - want[1]),
+                  *(abs(got[4][k] - want[4][k]) for k in want[4]))
+    if not err <= ATOL:
+        raise AssertionError(f"gym_single_vss: card vs CPU beyond {ATOL}: {err}")
+    card_env.reset(seed=5)
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    for t in range(GYM_SINGLE_STEPS):
+        obs, reward, term, trunc, info = card_env.step(acts[t])
+        if term or trunc:
+            card_env.reset()
+    ms = (time.perf_counter() - t0) * 1e3 / GYM_SINGLE_STEPS
+    launches = {w.__name__: w.launches for w in wrappers}
+    if any(launches.values()) or not np.isfinite(obs).all():
+        raise AssertionError(f"gym_single_vss: launches {launches}, obs finite {np.isfinite(obs).all()}")
+    phase("gym_single_vss", card=card, check_steps=GYM_SINGLE_CHECK_STEPS, max_abs_err=err, atol=ATOL,
+          steps=GYM_SINGLE_STEPS, host_ms_per_step=ms, steps_per_s=1e3 / ms, launches=launches)
+
+
+def host_views(card, gym_envs):
+    """frame_from_batched of a few envs of the card's packed K1 and K4
+    states (the timed HostVectorEnvs', through unpack_state) against
+    frame_from_world of the same env copied to the CPU: every field equal;
+    host ms per frame.  Both read the SAME unpacked state: on DR the fused
+    path's infrared (recomputed from the kicker face by unpack_state) is
+    not the unfused state's on the reset state, so a fused frame is never
+    compared with an unfused one."""
+    import dataclasses
+
+    from rsoccer_tpu_torch.core.frame import frame_from_batched, frame_from_world
+    from rsoccer_tpu_torch.core.state import tree_map
+
+    out = {}
+    for name, env in gym_envs.items():
+        nb, ny = env.env.n_blue, env.env.n_yellow
+        world = env.benv.unpack_state(env.state).world
+        for i in HOST_VIEW_ENVS:
+            got = dataclasses.asdict(frame_from_batched(world, i, nb, ny))
+            want = dataclasses.asdict(frame_from_world(tree_map(lambda t: t[..., i:i + 1].cpu(), world), nb, ny))
+            if got != want:
+                raise AssertionError(f"host_views {name} env {i}: {got} != {want}")
+        t0 = time.perf_counter()
+        for j in range(HOST_VIEW_CALLS):
+            frame_from_batched(world, HOST_VIEW_ENVS[j % len(HOST_VIEW_ENVS)], nb, ny)
+        out[name] = (time.perf_counter() - t0) * 1e3 / HOST_VIEW_CALLS
+    phase("host_views", card=card, envs=list(HOST_VIEW_ENVS), host_ms_per_frame=out)
+
+
+def custom_env(card, wrappers):
+    """examples/custom_env.py's ReachBallEnv at B envs on the card through
+    BatchedEnv's plain path (a custom task has no fused kernel): every env
+    touches the ball at the step the CPU run of the same function gives,
+    and no kernel launches."""
+    from rsoccer_tpu_torch.examples import custom_env as ce
+
+    want = ce.touch_steps(16, device="cpu", max_steps=CUSTOM_ENV_STEPS).unique().tolist()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    got = ce.touch_steps(B, max_steps=CUSTOM_ENV_STEPS).cpu()
+    secs = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    touched = got.unique().tolist()
+    phase("custom_env", card=card, B=B, steps=CUSTOM_ENV_STEPS, touch_step=touched, touch_step_cpu=want,
+          host_ms_per_step=secs * 1e3 / CUSTOM_ENV_STEPS, launches=launches)
+    if len(want) != 1 or want[0] < 0 or touched != want or any(launches.values()):
+        raise AssertionError(f"custom_env: the card's touch steps {touched}, the CPU's {want}, launches {launches}")
+
+
 def make_tasks():
     """The kernels' tasks: each fused env step, the physics kernel and the
     configurations beyond 3v3, with what main() checks, drives and times
@@ -2155,7 +2395,7 @@ def make_tasks():
             replaces="rsoccer_tpu/ops/pallas_vss.py:37", entry="vss_physics_step",
             ops_env=vss_physics_ops(6), ops_reset=0,
             make_benv=lambda env: BatchedEnv(env, B, device="cuda", fused_physics=True),
-            calls=physics_calls,
+            calls=physics_calls, **PHYSICS_DEPTH,
         ),
         # VSS's 5v5 division on its own field, through make_vec: the
         # one-thread kernels
@@ -2176,7 +2416,7 @@ def make_tasks():
             source="rsoccer_tpu_torch/csrc/vss_physics.cu", replaces="rsoccer_tpu/ops/pallas_vss.py:37",
             entry="vss_physics_step", ops_env=vss_physics_ops(6), ops_reset=0,
             make_benv=lambda env: BatchedEnv(env, B, device="cuda", fused_physics=True),
-            calls=physics_calls,
+            calls=physics_calls, **PHYSICS_DEPTH,
         ),
         SimpleNamespace(
             name="vss_5v5_fused_physics", kernel="vss_physics_thread_kernel", env_id="VSS-v0",
@@ -2185,11 +2425,12 @@ def make_tasks():
             entry="vss_physics_step_one_thread", ops_env=vss_physics_ops(10), ops_reset=0,
             make_benv=lambda env: rt.make_vec("VSS-v0", B, device="cuda", fused_physics=True,
                                               **VSS_CONFIGS["5v5"]),
-            calls=physics_calls,
+            calls=physics_calls, **PHYSICS_DEPTH,
         ),
     ]
+    depth = dict(warm_rollouts=2, timed_rollouts=TIMED_ROLLOUTS, profile_steps=PROFILE_ROLLOUT_STEPS)
     for t in tasks:  # the SSL tasks: the reference configuration
-        for k, v in (("kernel", t.name), ("env_kwargs", {}), ("entry", None)):
+        for k, v in (("kernel", t.name), ("env_kwargs", {}), ("entry", None), *depth.items()):
             if not hasattr(t, k):
                 setattr(t, k, v)
     return tasks
@@ -2368,6 +2609,13 @@ def main() -> int:
     kernels.append(rec)
     selfplay_resume(sp_trainer, sp_state)
     kernels.append(selfplay_checkpoint(card, wrappers, k2, errs["vss_multiagent"]))
+
+    # ---- 9. the gymnasium wrappers' numpy core: K1, K4-K7 under HostVectorEnv,
+    # the single env, the host views, the custom env
+    gym_envs = {t.name: gym_vector(card, wrappers, t) for t in tasks if t.name in GYM_TASKS}
+    gym_single_vss(card, wrappers)
+    host_views(card, {k: gym_envs[k] for k in ("vss_full_step", "ssl_sd_full_step")})
+    custom_env(card, wrappers)
     phase("total", card=card, seconds=time.perf_counter() - _T0)
 
     print(json.dumps({"kernels": kernels}))

@@ -139,7 +139,11 @@ class BatchedEnv:
             )
         if key.device.type != self.device.type:
             raise ValueError(f"key is on {key.device}, the envs on {self.device}")
-        noise = draw_noise(key, self._r_spec, self.n_envs)
+        return self.reset_with_noise(draw_noise(key, self._r_spec, self.n_envs))
+
+    def reset_with_noise(self, noise):
+        """:meth:`reset` from an explicit reset-noise dict (batch-last
+        blocks)."""
         state = self.env.reset_state(noise)
         obs = self.env.observe(state)
         if self.fused:

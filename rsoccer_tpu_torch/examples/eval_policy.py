@@ -3,12 +3,17 @@
     python -m rsoccer_tpu_torch.examples.eval_policy --env-id SSLStaticDefenders-v0 \
         --algo sac --params artifacts/sac_sd_best2.ckpt.npz --envs 1024 --steps 2000 --fused
     python -m rsoccer_tpu_torch.examples.eval_policy --params artifacts/vss_ppo.ckpt.npz
+    python -m rsoccer_tpu_torch.examples.eval_policy --device cpu --envs 16 --steps 50 \
+        --params artifacts/vss_ppo.ckpt.npz --gif /tmp/episode.gif
 
 ``--algo ppo`` reads a ``{params, obs_norm}`` checkpoint (``train_ppo_vss``),
 ``--algo sac`` an ``actor_params`` one (``train_sac_vss``); both are the
 JAX package's ``.npz`` files, read without jax.  The policy acts
 deterministically (the mean action, ``tanh`` of it for SAC) on the default
-env (``eval.evaluate_policy``).
+env (``eval.evaluate_policy``).  ``--gif PATH`` then records one episode of
+the same policy on a single env and writes it as an animated GIF
+(``utils/video.py``: the host renderer needs pygame, and it raises
+``ImportError`` where pygame is missing).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden", default="256,256", help="tower widths of the fresh init (no --params)")
     p.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
     p.add_argument("--fused", action="store_true", help="step through the env's fused kernel")
+    p.add_argument("--gif", default="", help="also write one episode of the policy to this GIF")
     return p
 
 
@@ -59,6 +65,12 @@ def main(argv=None) -> int:
     print(f"{args.envs} envs x {args.steps} steps: episodes={out['episodes']} "
           f"success_rate={out['success_rate']:.3f} mean_return={out['mean_episode_return']:.3f} "
           f"mean_length={out['mean_episode_length']:.1f}", flush=True)
+    if args.gif:
+        from rsoccer_tpu_torch.utils.video import record_episode, save_gif
+
+        frames = record_episode(env, policy=policy, seed=2, max_steps=600, device=device)
+        save_gif(frames, args.gif)
+        print(f"wrote {args.gif} ({len(frames)} frames)", flush=True)
     return 0
 
 

@@ -608,3 +608,46 @@ def test_expert_step_on_the_fused_path(cuda):
     assert sf.pe_full_step.final_launches == 0
     assert dict(sf.pe_full_step.entry_launches) == {"ssl_pe_full_step": 1}
     assert act.shape == (3, B) and bool(torch.isfinite(act).all()) and bool(torch.isfinite(obs).all())
+
+
+@pytest.mark.parametrize("env_id", ["VSS-v0", *SSL])
+def test_host_vector_env_fused_matches_plain(cuda, env_id):
+    """HostVectorEnv (the gymnasium vector wrapper's numpy core) through
+    the fused kernel's emit_final variant with kernel RNG, held to the
+    unfused path on the card from the same seed (one Philox stream) over
+    6 steps with a step limit of 3: obs, reward, info and final_obs within
+    ATOL, the flags and the SAME_STEP masks exactly, every env through a
+    reset; one launch per step, all emit_final."""
+    import numpy as np
+
+    from rsoccer_tpu_torch.batch.host import HostVectorEnv
+
+    fused = HostVectorEnv(env_id, B, fused=True, fused_rng="kernel")
+    plain = HostVectorEnv(env_id, B, fused=False)
+    fused.env.max_episode_steps = plain.env.max_episode_steps = 3
+    wrapper = vf.vss_full_step if env_id == "VSS-v0" else SSL[env_id][0]
+    wrapper.launches, wrapper.final_launches = 0, 0
+    got, want = fused.reset(seed=6)[0], plain.reset(seed=6)[0]
+    assert float(np.abs(got - want).max()) <= ATOL
+    rng = np.random.default_rng(7)
+    seen = np.zeros(B, bool)
+    for t in range(6):
+        act = rng.uniform(-1, 1, (B, fused.env.action_size)).astype(np.float32)
+        got, want = fused.step(act), plain.step(act)
+        for a, b in ((got[0], want[0]), (got[1], want[1])):
+            assert float(np.abs(a - b).max()) <= ATOL, t
+        assert np.array_equal(got[2], want[2]) and np.array_equal(got[3], want[3]), t
+        assert sorted(got[4]) == sorted(want[4]), t
+        for k, v in want[4].items():
+            if k in ("final_obs", "final_info"):
+                continue
+            if k.startswith("_final"):
+                assert np.array_equal(got[4][k], v), (t, k)
+            else:
+                assert float(np.abs(got[4][k] - v).max()) <= ATOL, (t, k)
+        if "_final_obs" in want[4]:
+            for i in np.nonzero(want[4]["_final_obs"])[0]:
+                assert float(np.abs(got[4]["final_obs"][i] - want[4]["final_obs"][i]).max()) <= ATOL, (t, i)
+            seen |= want[4]["_final_obs"]
+    assert seen.all()
+    assert wrapper.launches == 6 and wrapper.final_launches == 6
