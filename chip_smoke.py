@@ -99,8 +99,8 @@ the VSS physics kernel (``fused_physics``): it is held to its plain
 version under policy-like actions of every robot on both envs at 8192
 and 8191 envs (in section 3), ``VSSMultiAgent-v0``'s main path is driven
 and timed (section 4); ``selfplay_train`` runs
-``examples/selfplay_vss.py`` in-process at the round-5 recipe cut to 20
-updates (2048 envs, half the lanes OU, anchor-gated swaps every 10, a
+``examples/selfplay_vss.py`` in-process at the round-5 recipe cut to 10
+updates (2048 envs, half the lanes OU, anchor-gated swaps every 5, a
 ``selfplay_swap`` line each), ``selfplay_resume`` holds one more update
 from a saved and restored state (the frozen opponent's payload included)
 bit for bit, and ``selfplay_checkpoint`` scores the two shipped league
@@ -125,6 +125,23 @@ GIF export are held by the CPU tests (``tests/test_torch_gym_compat.py``,
 ``tests/test_torch_frame_render.py``, ``tests/test_torch_video_examples.py``).
 The ``fused_physics`` main paths run 1 warm-up and 2 timed rollouts and
 profile 5 steps (the other main paths 2, 5 and 20), with the same gates.
+Data parallelism (``rsoccer_tpu_torch/parallel/``): right after the
+kernel checks, ``kernel_vs_plain_env_base_<task>`` holds K1 and K4-K7 on
+a shard at ``env_base`` B/2 to their plain versions and, bit for bit, to
+the unsharded batch's columns; last, ``parallel_rollout``,
+``parallel_ppo`` and ``parallel_sac`` run two worker ranks (``--parallel-
+worker``: this script in two processes, gloo, sharing the card, alone on
+it) and then one nccl rank in this process: the sharded VSS-v0 rollout at
+B global envs (its ranks' states and obs, concatenated, equal the
+unsharded rollout's bit for bit, K1 once per step per rank; the shard_map
+variant's shards draw apart and its key comes back replicated), the
+sharded PPO in both minibatch modes with f32 towers (two ranks within rel
+1e-4 of one, the params bit-identical across the ranks; the bf16 recipe
+timed), the sharded SAC at the SD recipe (networks bit-identical across
+the ranks, each ring holding its envs' transitions), each one-rank run
+bit for bit its unsharded counterpart; ``elastic_resume`` crashes and
+resumes ``rsoccer_tpu_torch/tools/elastic_train.py`` (PPO, SAC) to equal
+digests.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -546,7 +563,9 @@ def check_physics_vs_plain(batch: int = B, env_kwargs=None, env_id: str = "VSS-v
 
 
 def check_philox_words():
-    """Raw device Philox words vs the torch Philox, bit for bit."""
+    """Raw device Philox words vs the torch Philox, bit for bit, at
+    env_base 0 and at a shard's env_base (there also equal to those columns
+    of an unsharded draw)."""
     from rsoccer_tpu_torch.ops.philox import make_key, philox_words
     from rsoccer_tpu_torch.ops.vss_full import _library
 
@@ -554,18 +573,22 @@ def check_philox_words():
     key = make_key(0x1234_5678_9ABC, stream=3, device="cuda")
     key[2] = (1 << 32) + 7  # exercise both step words
     n_blk = 36
-    out = torch.empty((4 * n_blk, B), dtype=torch.int32, device="cuda")
-    err = lib.philox_words(key.data_ptr(), out.data_ptr(), n_blk, B,
-                           torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"philox_words launch failed: cudaError {err}")
-    want = philox_words(key, 4 * n_blk, B)
-    got = out.to(torch.int64) & 0xFFFFFFFF
-    if not torch.equal(got, want):
-        raise AssertionError(
-            f"Philox words differ in {int((got != want).sum())} of {got.numel()}"
-        )
-    return got.numel()
+    n = 0
+    for env_base in (0, B // 2):
+        out = torch.empty((4 * n_blk, B), dtype=torch.int32, device="cuda")
+        err = lib.philox_words(key.data_ptr(), out.data_ptr(), n_blk, env_base, B,
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"philox_words launch failed: cudaError {err}")
+        want = philox_words(key, 4 * n_blk, B, env_base=env_base)
+        got = out.to(torch.int64) & 0xFFFFFFFF
+        if not torch.equal(got, want) or not torch.equal(
+                got, philox_words(key, 4 * n_blk, env_base + B)[:, env_base:]):
+            raise AssertionError(
+                f"Philox words at env_base {env_base} differ in {int((got != want).sum())} of {got.numel()}"
+            )
+        n += got.numel()
+    return n
 
 
 def time_cuda(fn, n: int) -> float:
@@ -781,16 +804,25 @@ def build_baseline(csrc_dir):
     lib.ssl_params_fields.restype = ctypes.c_char_p
     # a tree before the one-thread VSS kernels: no exact_trig argument
     n_int = 5 if hasattr(lib, "vss_full_step_one_thread") else 4
-    lib.vss_full_step.argtypes = [i] * n_int + [p] * 10 + [i, p]
+    base = [i] if takes_env_base(lib) else []
+    lib.vss_full_step.argtypes = [i] * n_int + [p] * 10 + base + [i, p]
     lib.vss_physics_step.argtypes = [p] * 6 + [i, i, p]
     for entry, n_ptr in SSL_ENTRIES.values():
-        getattr(lib, entry).argtypes = [i, i] + [p] * n_ptr + [i, p]
+        drawn = base if entry != "ssl_dr_full_step" else []
+        getattr(lib, entry).argtypes = [i, i] + [p] * n_ptr + drawn + [i, p]
     if lib.vss_params_fields().decode().rstrip(",").split(",") != vf.PARAM_FIELDS:
         raise RuntimeError("the baseline's VssParams differ from this tree's")
     if lib.ssl_params_fields().decode().rstrip(",").split(",") != sf.PARAM_FIELDS:
         raise RuntimeError("the baseline's SslParams differ from this tree's")
     ptxas = [ln.strip() for log, _ in logs for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     return lib, ptxas
+
+
+def takes_env_base(lib) -> bool:
+    """Whether the C entries of ``lib`` that draw take an ``env_base``
+    argument before B: trees whose library exports
+    ``kernels_abi_version`` (>= 1); a library of an older tree does not."""
+    return hasattr(lib, "kernels_abi_version") and lib.kernels_abi_version() >= 1
 
 
 # SSL task -> (C entry, pointer arguments of the entry)
@@ -803,20 +835,22 @@ SSL_ENTRIES = {
 CROSSOVER_BATCHES = (B, 8448, 10240, 16384, 32768, 131072)
 
 
-def ssl_entry_call(lib, entry, env, st, act, rows, key, emit_final, outs):
+def ssl_entry_call(lib, entry, env, st, act, rows, key, emit_final, outs, env_base=0):
     """Launch the C entry ``entry`` of ``lib`` (an SSL fused step) on the
     given operands into ``outs``, as ``ops/ssl_full._launch`` does, without
-    advancing the key."""
+    advancing the key (``env_base`` where the library takes one)."""
     import ctypes
 
     from rsoccer_tpu_torch.ops import ssl_full as sf
 
     rng = key is not None
     ptrs = [None if rng else r.data_ptr() for r in rows]
+    base = ()
     if rows:
         ptrs.append(key.data_ptr() if rng else None)
+        base = (env_base,) if takes_env_base(lib) else ()
     err = getattr(lib, entry)(int(emit_final), int(rng), ctypes.byref(sf._params_struct(env)), st.data_ptr(),
-                              act.data_ptr(), *ptrs, *(t.data_ptr() for t in outs), st.shape[-1],
+                              act.data_ptr(), *ptrs, *(t.data_ptr() for t in outs), *base, st.shape[-1],
                               torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
@@ -929,11 +963,12 @@ def done_shares(task, steps: int = ROLLOUT_STEPS) -> dict:
             **{f"{k}_max": float(v.max()) for k, v in share.items()}}
 
 
-def vss_entry_call(lib, entry, env, st, act, rows, key, outs, emit_final=False):
+def vss_entry_call(lib, entry, env, st, act, rows, key, outs, emit_final=False, env_base=0):
     """Launch the C entry ``entry`` of ``lib`` (a VSS fused step) on the
     given operands into ``outs``, without advancing the key.  A library
     built from a tree before the one-thread VSS kernels (no
-    ``vss_full_step_one_thread``) takes no ``exact_trig`` argument."""
+    ``vss_full_step_one_thread``) takes no ``exact_trig`` argument, one
+    before ``env_base`` (:func:`takes_env_base`) no ``env_base``."""
     import ctypes
 
     from rsoccer_tpu_torch.ops import vss_full as vf
@@ -941,10 +976,11 @@ def vss_entry_call(lib, entry, env, st, act, rows, key, outs, emit_final=False):
     rng = key is not None
     ou, sp, th = (None, None, None) if rng else (r.data_ptr() for r in rows)
     trig = (int(not vf.taylor_rotation_holds(env)),) if hasattr(lib, "vss_full_step_one_thread") else ()
+    base = (env_base,) if takes_env_base(lib) else ()
     err = getattr(lib, entry)(env.n_blue, env.n_yellow, int(emit_final), int(rng), *trig,
                               ctypes.byref(vf._params_struct(env)), st.data_ptr(), act.data_ptr(), ou, sp, th,
-                              key.data_ptr() if rng else None, *(t.data_ptr() for t in outs), st.shape[-1],
-                              torch.cuda.current_stream().cuda_stream)
+                              key.data_ptr() if rng else None, *(t.data_ptr() for t in outs), *base,
+                              st.shape[-1], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
 
@@ -1938,10 +1974,11 @@ MA_ID, SP_ID = "VSSMultiAgent-v0", "VSSSelfPlay-v0"
 # the round-5 self-play recipe (docs/training.md "Self-play (3v3)": 2048
 # envs, towers (256, 256) bf16, 128 rollout steps, time minibatches, half
 # the lanes OU, anchor gate), cut to SELFPLAY_UPDATES updates with a swap
-# every 10, and its evals cut from 1200 steps x 512 envs (vs the frozen
-# opponent) and 1500 x 512 (the anchor) to fit the script's time
-SELFPLAY_UPDATES = 20
-SELFPLAY_ARGS = ["--envs", "2048", "--updates", str(SELFPLAY_UPDATES), "--swap-every", "10",
+# every 5 (20 and 10 before the data-parallel phases came), and its evals
+# cut from 1200 steps x 512 envs (vs the frozen opponent) and 1500 x 512
+# (the anchor) to fit the script's time
+SELFPLAY_UPDATES = 10
+SELFPLAY_ARGS = ["--envs", "2048", "--updates", str(SELFPLAY_UPDATES), "--swap-every", "5",
                  "--rollout-steps", "128", "--minibatch-mode", "time", "--ou-frac", "0.5", "--anchor-gate",
                  "--eval-steps", "300", "--eval-envs", "512", "--anchor-envs", "512", "--anchor-steps", "300",
                  "--hidden", "256,256", "--device", "cuda", "--seed", "0"]
@@ -2301,6 +2338,367 @@ def custom_env(card, wrappers):
         raise AssertionError(f"custom_env: the card's touch steps {touched}, the CPU's {want}, launches {launches}")
 
 
+# ---- data parallelism (rsoccer_tpu_torch/parallel/): env_base through the
+# kernels, the sharded rollout, PPO and SAC at two ranks (gloo, two
+# processes sharing this card) against one rank (nccl, this process), and
+# the elastic-resume tool
+PAR_STEPS = ROLLOUT_STEPS  # VSS-v0 at B global envs, kernel RNG
+PAR_WORLD = 2
+PAR_PPO = dict(hidden=(256, 256), rollout_steps=32, num_epochs=2, num_minibatches=4)  # the gate, f32 towers
+PAR_PPO_UPDATES = 2
+PAR_SAC_ITERS = 50  # the SD recipe at SAC_ENVS global envs
+PAR_TIMEOUT = 300  # seconds, each worker rank
+ELASTIC_ARGS = ["--updates", "6", "--every", "2", "--envs", "256", "--fused"]
+ELASTIC_CRASH_AT = 3
+
+
+def env_base_kernels(card, tasks):
+    """K1, K4-K7 with kernel RNG on a shard at env_base B/2 (B/2 envs),
+    N_CHECK_STEPS steps at a step limit of 3 (every env resets, drawing its
+    spawn words): each step against its plain version at the same env_base
+    (ATOL), and, bit for bit, against those columns of the unsharded
+    batch's kernel step.  One phase per kernel; returns the errors."""
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    half, errs = B // 2, {}
+    for task in (t for t in tasks if t.name in GYM_TASKS):
+        env = make_env(task)
+        env.max_episode_steps = 3
+        full = BatchedEnv(env, B, device="cuda", fused=True, fused_rng="kernel")
+        shard = BatchedEnv(env, half, device="cuda", fused=True, fused_rng="kernel", env_base=half)
+        kf, ks = make_key(11, device="cuda"), make_key(11, device="cuda")
+        st_f, obs = full.reset(kf)
+        st_s, _ = shard.reset(ks)
+        same = bit_equal((st_s,), (st_f[:, half:].contiguous(),))
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        worst, dones = 0.0, 0
+        for t in range(N_CHECK_STEPS):
+            act = task.actions(obs, gen)
+            act_s = act[:, half:].contiguous()
+            rows = task.draw(env, ks.clone(), half, half)
+            got = task.wrapper(env, st_s, act_s, key=ks, emit_final=True, env_base=half)
+            want = task.plain(env, st_s, act_s, *rows, True)
+            err, _ = compare_step(env.n_robots, got, want, f"{task.name} env_base={half} step={t}")
+            worst = max(worst, err)
+            full_out = task.wrapper(env, st_f, act, key=kf, emit_final=True)
+            same = same and bit_equal(got, tuple(x[:, half:].contiguous() for x in full_out))
+            dones += int(((got[2][1] > 0.5) | (got[2][2] > 0.5)).sum())
+            st_s, st_f, obs = got[0], full_out[0], full_out[1][:env.obs_size]
+        torch.cuda.synchronize()
+        phase(f"kernel_vs_plain_env_base_{task.name}", card=card, B=half, env_base=half, steps=N_CHECK_STEPS,
+              max_abs_err=worst, atol=ATOL, dones=dones, bit_equal_to_unsharded_columns=same)
+        if not same or dones == 0:
+            raise AssertionError(f"{task.name} at env_base {half}: bit equal to the unsharded columns {same}, "
+                                 f"dones {dones}")
+        errs[task.name] = worst
+    return errs
+
+
+def par_rollout_side(mesh, wrappers) -> dict:
+    """One rank of the sharded VSS-v0 rollout (B global envs, kernel RNG):
+    the gated call (launch counts zeroed before), a timed call after a
+    barrier, a profiled local rollout (busy share), a timed call at B envs
+    per rank (W B global: weak scaling); then the shard_map variant's one
+    call."""
+    import torch.distributed as dist
+
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.batch import rollout as R
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops.philox import fold_in
+    from rsoccer_tpu_torch.parallel.mesh import batch_slice, local_benv
+    from rsoccer_tpu_torch.parallel.rollout import (
+        make_shard_map_rollout, make_sharded_rollout, shard_carry, sharded_uniform_policy,
+    )
+
+    benv = rt.make_vec("VSS-v0", B, device=mesh.device, fused=True, fused_rng="kernel")
+    roll, init = make_sharded_rollout(benv, mesh, PAR_STEPS)
+    carry = init(0)
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    carry, ms = roll(carry)
+    torch.cuda.synchronize()
+    lbenv = local_benv(benv, mesh)
+    out = {"launches": check_launches(f"parallel_rollout rank {mesh.rank} of {mesh.world}", wrappers,
+                                      vf.vss_full_step, vss_entry(lbenv), PAR_STEPS),
+           "route": vf.route(benv.env, lbenv.n_envs), "state": carry.state.cpu(), "obs": carry.obs.cpu(),
+           "metrics": torch.stack([m.double() for m in ms]).cpu()}
+    dist.barrier(group=mesh.group)
+    t0 = time.perf_counter()
+    carry, ms = roll(carry)
+    torch.cuda.synchronize()
+    out["us_per_step"] = (time.perf_counter() - t0) * 1e6 / PAR_STEPS
+    local = R.make_rollout_fn(lbenv, PROFILE_ROLLOUT_STEPS,
+                              policy=sharded_uniform_policy(2, B, batch_slice(mesh, B)))
+    dev_us, _ = device_us(lambda: local(carry), 1)
+    out["device_us_per_step"] = dev_us / PROFILE_ROLLOUT_STEPS
+    out["busy_share"] = out["device_us_per_step"] / out["us_per_step"]
+    # weak scaling: B envs per rank (W B global), timed only
+    roll_w, init_w = make_sharded_rollout(rt.make_vec("VSS-v0", B * mesh.world, device=mesh.device, fused=True,
+                                                      fused_rng="kernel"), mesh, PAR_STEPS)
+    c_w, _ = roll_w(init_w(0))
+    dist.barrier(group=mesh.group)
+    t0 = time.perf_counter()
+    roll_w(c_w)
+    torch.cuda.synchronize()
+    out["weak_us_per_step"] = (time.perf_counter() - t0) * 1e6 / PAR_STEPS
+    roll_sm = make_shard_map_rollout(benv, mesh, PAR_STEPS)
+    c_sm = shard_carry(R.init_carry(benv, 0), mesh)
+    out["shard_key"] = fold_in(c_sm.key, mesh.rank)[:2].tolist()
+    c_sm, ms_sm = roll_sm(c_sm)
+    out["shard_map_metrics"] = torch.stack([m.double() for m in ms_sm]).cpu()
+    out["shard_map_obs"] = c_sm.obs.cpu()
+    out["shard_map_key"] = c_sm.key.cpu()
+    return out
+
+
+def par_ppo_side(mesh) -> dict:
+    """One rank of the sharded PPO on VSS-v0 at B global envs (K1's
+    emit_final): the gate (PAR_PPO, f32 towers, PAR_PPO_UPDATES updates) in
+    both minibatch modes, then the bf16 recipe (PPO_CONFIG) timed."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.models.ppo import PPOConfig, PPOTrainer
+    from rsoccer_tpu_torch.tools.distributed_smoke import (
+        global_abs_sum, param_checksum, param_digest, params_equal_across_ranks,
+    )
+
+    benv = rt.make_vec("VSS-v0", B, device=mesh.device, fused=True, fused_rng="kernel")
+    out = {}
+    for mode in ("shuffle", "time"):
+        trainer = PPOTrainer(benv, PPOConfig(**PAR_PPO, minibatch_mode=mode), mesh=mesh)
+        state = trainer.init(0)
+        state.net.compute_dtype = torch.float32
+        for _ in range(PAR_PPO_UPDATES):
+            state, m = trainer.train_step(state)
+        out[mode] = {"loss": float(m["loss"]), "mean_reward": float(m["mean_reward"]),
+                     "param_checksum": param_checksum([state.net]), "param_digest": param_digest([state.net]),
+                     "params_equal_across_ranks": params_equal_across_ranks([state.net], mesh),
+                     "obs_sum": global_abs_sum(state.obs, mesh)}
+    trainer = PPOTrainer(benv, PPOConfig(**PPO_CONFIG), mesh=mesh)
+    state = trainer.init(0)
+    out["bf16"] = []
+    for _ in range(PAR_PPO_UPDATES):
+        state, m = trainer.train_step(state)
+        out["bf16"].append(trainer.phase_ms())
+    return out
+
+
+def par_sac_side(mesh, wrappers, k4) -> dict:
+    """One rank of the sharded SAC: the SD recipe at SAC_ENVS global envs
+    (K4's emit_final on the rank's shard), PAR_SAC_ITERS iterations timed
+    (launch counts zeroed before), then K4 alone on the rank's last state."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.models.sac import SACConfig, make_policy
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.ops.philox import make_key
+    from rsoccer_tpu_torch.parallel.sac import make_sharded_sac
+    from rsoccer_tpu_torch.tools.distributed_smoke import param_digest, params_equal_across_ranks
+
+    benv = rt.make_vec("SSLStaticDefenders-v0", SAC_ENVS, device=mesh.device, fused=True, fused_rng="kernel")
+    local, init, step = make_sharded_sac(benv, SACConfig(**SAC_CONFIG), mesh)
+    state = init(0)
+    torch.cuda.synchronize()
+    zero_counts(wrappers)
+    t0 = time.perf_counter()
+    for i in range(PAR_SAC_ITERS):
+        state, m = step(state, 0, i)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = check_launches(f"parallel_sac rank {mesh.rank} of {mesh.world}", wrappers, sf.sd_full_step,
+                              sf.routed_entry("ssl_sd_full_step", local.benv.n_envs), PAR_SAC_ITERS,
+                              final=PAR_SAC_ITERS)
+    nets = [state.actor, state.qs, state.qs_target]
+    env, lb = local.benv.env, local.benv
+    act = make_policy(state.actor, deterministic=False)(torch.Generator(device=mesh.device).manual_seed(7), state.obs)
+    key = make_key(3, device=mesh.device)
+    k4_us, _ = device_us(lambda: sf.sd_full_step(env, state.env_state, act, key=key, emit_final=True,
+                                                 env_base=lb.env_base), TIMED_LAUNCHES, k4.kernel_match)
+    return {"launches": launches, "iters_per_s": PAR_SAC_ITERS / secs,
+            "metrics": {k: float(v) for k, v in m.items()}, "filled": state.buffer.filled,
+            "local_envs": lb.n_envs, "param_digest": param_digest(nets),
+            "params_equal_across_ranks": params_equal_across_ranks(nets, mesh), "k4_us_per_launch": k4_us}
+
+
+def parallel_worker(rank: int, world: int, store: str, out: str) -> int:
+    """A worker rank of the parallel phases (``--parallel-worker``): gloo
+    over this card, the three sides, the results to ``out``."""
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+    from rsoccer_tpu_torch.parallel import mesh as M
+
+    tasks = make_tasks()
+    wrappers = [vf.vss_full_step, vp.vss_physics, sf.sd_full_step, sf.cp_full_step, sf.dr_full_step,
+                sf.pe_full_step]
+    k4 = next(t for t in tasks if t.name == "ssl_sd_full_step")
+    M.initialize_distributed("gloo", f"file://{store}", world, rank)
+    try:
+        mesh = M.make_env_mesh("cuda")
+        res = {"rollout": par_rollout_side(mesh, wrappers), "ppo": par_ppo_side(mesh),
+               "sac": par_sac_side(mesh, wrappers, k4)}
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(res, out)
+    return 0
+
+
+def parallel_phases(card, wrappers, k4):
+    """parallel_rollout, parallel_ppo, parallel_sac: the worker ranks
+    (PAR_WORLD processes, gloo, this card) run first, alone on the card;
+    then one nccl rank in this process, and the unsharded counterparts.
+    Gates: the ranks' rollout states and obs, concatenated, equal the
+    unsharded rollout's bit for bit (metrics to rel 1e-6), K1 once per
+    step per rank; PPO at two ranks within rel 1e-4 (loss, param
+    checksum) and 1e-5 (obs) of one rank, its params bit-identical across
+    the ranks; SAC's networks bit-identical across the ranks, each ring
+    holding iterations x local envs, finite losses; every one-rank run
+    over nccl equal to its unsharded counterpart bit for bit."""
+    import shutil
+
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.batch import rollout as R
+    from rsoccer_tpu_torch.models.ppo import PPOConfig, PPOTrainer
+    from rsoccer_tpu_torch.models.sac import SACConfig, SACTrainer, iteration_generator
+    from rsoccer_tpu_torch.parallel import mesh as M
+    from rsoccer_tpu_torch.tools.distributed_smoke import param_digest
+
+    work = os.path.join(OUT_DIR, "parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    outs = [os.path.join(work, f"rank{r}.pt") for r in range(PAR_WORLD)]
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(PAR_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker", str(r),
+                               str(PAR_WORLD), os.path.abspath(os.path.join(work, "store2")), outs[r]],
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(PAR_WORLD)]
+    try:
+        for r, p in enumerate(procs):
+            if p.wait(timeout=PAR_TIMEOUT) != 0:
+                raise AssertionError(f"parallel worker rank {r} exited {p.returncode}: see {work}/rank{r}.log")
+    finally:
+        for p in procs:
+            p.kill()
+        for f in logs:
+            f.close()
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    workers_s = time.perf_counter() - t0
+
+    M.initialize_distributed("nccl", f"file://{os.path.abspath(os.path.join(work, 'store1'))}", 1, 0)
+    try:
+        mesh = M.make_env_mesh("cuda")
+        one = {"rollout": par_rollout_side(mesh, wrappers), "ppo": par_ppo_side(mesh),
+               "sac": par_sac_side(mesh, wrappers, k4)}
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # ---- parallel_rollout
+    benv = rt.make_vec("VSS-v0", B, device="cuda", fused=True, fused_rng="kernel")
+    carry, ms = R.make_rollout_fn(benv, PAR_STEPS)(R.init_carry(benv, 0))
+    want = (carry.state.cpu(), carry.obs.cpu())
+    want_ms = torch.stack([m.double() for m in ms]).cpu()
+    gate = {}
+    for tag, sides in (("w2_gloo", [r["rollout"] for r in ranks]), ("w1_nccl", [one["rollout"]])):
+        got = (torch.cat([s["state"] for s in sides], -1), torch.cat([s["obs"] for s in sides], -1))
+        rel = max(float((s["metrics"] - want_ms).abs().max() / want_ms.abs().max()) for s in sides)
+        gate[tag] = {"bit_equal": bit_equal(got, want), "metrics_rel_err": rel}
+        if not gate[tag]["bit_equal"] or rel > 1e-6:
+            raise AssertionError(f"parallel_rollout {tag}: {gate[tag]}")
+    w2 = [r["rollout"] for r in ranks]
+    sm_keys = [r["rollout"]["shard_key"] for r in ranks]
+    sm = {"shard_keys": sm_keys, "distinct_draws": sm_keys[0] != sm_keys[1],
+          "shards_differ_from_sharded_rollout": not torch.equal(ranks[1]["rollout"]["shard_map_obs"], want[1][:, B // 2:]),
+          "metrics_summed": ranks[0]["rollout"]["shard_map_metrics"].tolist(),
+          "key_replicated": torch.equal(ranks[0]["rollout"]["shard_map_key"], ranks[1]["rollout"]["shard_map_key"])}
+    phase("parallel_rollout", card=card, env="VSS-v0", B=B, steps=PAR_STEPS, gate=gate,
+          w2_us_per_step=[s["us_per_step"] for s in w2], w1_us_per_step=one["rollout"]["us_per_step"],
+          w2_env_steps_per_s=B * 1e6 / max(s["us_per_step"] for s in w2),
+          w1_env_steps_per_s=B * 1e6 / one["rollout"]["us_per_step"],
+          w2_busy_share=[s["busy_share"] for s in w2], w1_busy_share=one["rollout"]["busy_share"],
+          w2_weak_us_per_step=[s["weak_us_per_step"] for s in w2],
+          w2_weak_env_steps_per_s=PAR_WORLD * B * 1e6 / max(s["weak_us_per_step"] for s in w2),
+          w2_device_us_per_step=[s["device_us_per_step"] for s in w2],
+          w1_device_us_per_step=one["rollout"]["device_us_per_step"],
+          k1_launches_per_rank=[s["launches"]["vss_full_step"] for s in w2], route=w2[0]["route"],
+          shard_map=sm, workers_s=workers_s)
+    if not (sm["distinct_draws"] and sm["shards_differ_from_sharded_rollout"] and sm["key_replicated"]):
+        raise AssertionError(f"parallel_rollout shard_map: {sm}")
+
+    # ---- parallel_ppo
+    ppo = {}
+    for mode in ("shuffle", "time"):
+        trainer = PPOTrainer(benv, PPOConfig(**PAR_PPO, minibatch_mode=mode))
+        state = trainer.init(0)
+        state.net.compute_dtype = torch.float32
+        for _ in range(PAR_PPO_UPDATES):
+            state, _ = trainer.train_step(state)
+        a, b = ranks[0]["ppo"][mode], one["ppo"][mode]
+        rels = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in ("loss", "param_checksum", "obs_sum")}
+        ppo[mode] = {"w2": a, "w1": b, "rel": rels,
+                     "w2_ranks_equal": all(r["ppo"][mode]["param_digest"] == a["param_digest"] for r in ranks)
+                     and a["params_equal_across_ranks"],
+                     "w1_equals_plain": b["param_digest"] == param_digest([state.net])}
+        if not (rels["loss"] <= 1e-4 and rels["param_checksum"] <= 1e-4 and rels["obs_sum"] <= 1e-5
+                and ppo[mode]["w2_ranks_equal"] and ppo[mode]["w1_equals_plain"]):
+            raise AssertionError(f"parallel_ppo {mode}: {ppo[mode]}")
+    bf16 = {"w2": [r["ppo"]["bf16"] for r in ranks], "w1": one["ppo"]["bf16"]}
+    last = {k: [r["ppo"]["bf16"][-1][k] for r in ranks] for k in ("collect_ms", "update_ms")}
+    bf16["w2_minus_w1_ms_last_update"] = {k: max(v) - one["ppo"]["bf16"][-1][k] for k, v in last.items()}
+    phase("parallel_ppo", card=card, env="VSS-v0", B=B, config={**PAR_PPO, "hidden": list(PAR_PPO["hidden"])},
+          updates=PAR_PPO_UPDATES, gate=ppo, bf16_recipe=bf16)
+
+    # ---- parallel_sac
+    sd = rt.make_vec("SSLStaticDefenders-v0", SAC_ENVS, device="cuda", fused=True, fused_rng="kernel")
+    trainer = SACTrainer(sd, SACConfig(**SAC_CONFIG))
+    state = trainer.init(0)
+    for i in range(PAR_SAC_ITERS):
+        state, _ = trainer.train_step(state, iteration_generator(0, i))
+    sides = [r["sac"] for r in ranks]
+    sac = {"w2_ranks_equal": all(s["param_digest"] == sides[0]["param_digest"] for s in sides)
+           and sides[0]["params_equal_across_ranks"],
+           "w2_filled": [s["filled"] for s in sides], "w2_local_envs": [s["local_envs"] for s in sides],
+           "w1_equals_plain": one["sac"]["param_digest"] == param_digest([state.actor, state.qs, state.qs_target]),
+           "finite": all(math.isfinite(v) for s in (*sides, one["sac"]) for v in s["metrics"].values())}
+    phase("parallel_sac", card=card, env="SSLStaticDefenders-v0", B=SAC_ENVS, iters=PAR_SAC_ITERS, gate=sac,
+          w2_iters_per_s=[s["iters_per_s"] for s in sides], w1_iters_per_s=one["sac"]["iters_per_s"],
+          w2_k4_us_per_launch=[s["k4_us_per_launch"] for s in sides],
+          w1_k4_us_per_launch=one["sac"]["k4_us_per_launch"],
+          w2_metrics=sides[0]["metrics"], w1_metrics=one["sac"]["metrics"])
+    if not (sac["w2_ranks_equal"] and sac["w1_equals_plain"] and sac["finite"]
+            and all(f == PAR_SAC_ITERS * SAC_ENVS // PAR_WORLD for f in sac["w2_filled"])):
+        raise AssertionError(f"parallel_sac: {sac}")
+
+
+def elastic_resume(card, wrappers):
+    """tools/elastic_train.py for PPO (VSS-v0, K1) and SAC (VSS-v0, K1) on
+    the card's fused path, in this process: uninterrupted, crashed before
+    update ELASTIC_CRASH_AT (SystemExit 1), resumed; the digests equal."""
+    from rsoccer_tpu_torch.tools import elastic_train
+
+    out = {}
+    for algo in ("ppo", "sac"):
+        base = os.path.join(OUT_DIR, f"elastic_{algo}")
+        common = [*ELASTIC_ARGS, "--algo", algo]
+        t0 = time.perf_counter()
+        ref = elastic_train.main([*common, "--ckpt", base + "_a"])
+        try:
+            elastic_train.main([*common, "--ckpt", base + "_b", "--crash-at", str(ELASTIC_CRASH_AT)])
+            raise AssertionError(f"elastic_resume {algo}: the simulated crash did not happen")
+        except SystemExit as e:
+            if e.code != 1:
+                raise
+        with open(base + "_b.meta.json") as f:
+            saved = json.load(f)["update"]
+        got = elastic_train.main([*common, "--ckpt", base + "_b", "--resume"])
+        out[algo] = {"digest": ref["digest"], "resumed_digest": got["digest"], "snapshot_at_crash": saved,
+                     "seconds": time.perf_counter() - t0}
+        for suffix in ("_a", "_b"):
+            os.remove(base + suffix + ".npz")
+        if got["digest"] != ref["digest"]:
+            raise AssertionError(f"elastic_resume {algo}: {out[algo]}")
+    phase("elastic_resume", card=card, args=ELASTIC_ARGS, crash_at=ELASTIC_CRASH_AT, runs=out)
+
+
 def make_tasks():
     """The kernels' tasks: each fused env step, the physics kernel and the
     configurations beyond 3v3, with what main() checks, drives and times
@@ -2440,6 +2838,8 @@ def main() -> int:
     baseline = None
     if sys.argv[1:2] == ["--baseline"] and len(sys.argv) == 3:
         baseline = sys.argv[2]
+    elif sys.argv[1:2] == ["--parallel-worker"] and len(sys.argv) == 6 and torch.cuda.is_available():
+        return parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif len(sys.argv) > 1:
         print("usage: chip_smoke.py [--baseline DIR]", file=sys.stderr)
         return 2
@@ -2513,6 +2913,11 @@ def main() -> int:
         phase(f"kernel_vs_plain_kernel_rng_{task.name}", B=B, steps=N_CHECK_STEPS,
               max_abs_err=err_k, worst_at=at_k, atol=ATOL, dones=dones_k, **extra)
         errs[task.name] = max(err_in, err_k)
+
+    # ---- 3a. K1, K4-K7 on a shard (env_base B/2): against their plain
+    # versions, and bit for bit against the unsharded batch's columns
+    for name, err in env_base_kernels(card, tasks).items():
+        errs[name] = max(errs[name], err)
 
     # ---- 3b. the VSS kernels at a ragged batch
     for rng_mode in ("input", "kernel"):
@@ -2616,6 +3021,13 @@ def main() -> int:
     gym_single_vss(card, wrappers)
     host_views(card, {k: gym_envs[k] for k in ("vss_full_step", "ssl_sd_full_step")})
     custom_env(card, wrappers)
+
+    # ---- 10. data parallelism: the sharded rollout, PPO and SAC at two
+    # ranks on this card (gloo) and one (nccl); crash and resume
+    t_par = time.perf_counter()
+    parallel_phases(card, wrappers, k4)
+    elastic_resume(card, wrappers)
+    phase("parallel_total", card=card, seconds=time.perf_counter() - t_par)
     phase("total", card=card, seconds=time.perf_counter() - _T0)
 
     print(json.dumps({"kernels": kernels}))

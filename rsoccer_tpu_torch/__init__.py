@@ -18,8 +18,10 @@ scripted experts (``experts.py``) act on batched states, and
 ``tools/bc_warmstart.py`` clones them into PPO or SAC actors (BC and
 DAgger).  ``VSSMultiAgent-v0`` and ``VSSSelfPlay-v0`` run their physics
 through the same VSS physics kernel, and ``models/selfplay.py`` trains a
-learner against its frozen past (``examples/selfplay_vss.py``).  Imports
-``torch`` and never ``jax``.
+learner against its frozen past (``examples/selfplay_vss.py``).
+``parallel/`` shards the env batch, PPO and SAC over ``torch.distributed``
+ranks (``tools/distributed_smoke.py``, ``tools/elastic_train.py``).
+Imports ``torch`` and never ``jax``.
 """
 
 from rsoccer_tpu_torch.registry import make, registered_ids

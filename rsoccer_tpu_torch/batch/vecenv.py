@@ -7,6 +7,9 @@ leaves ``(..., B)``, obs ``(obs_size, B)``, actions ``(action_size, B)``.
 Randomness: one key tensor (``ops/philox.make_key``) for the whole batch.
 A step draws its reset and transition noise as one Philox draw and
 advances the key's step counter in place (``envs/base.draw_noise``).
+``env_base`` is the global index of the first env: a batch that is shard
+``r`` of ``W`` (``parallel/``) sets it to ``r * n_envs`` and draws, on every
+path, the words those columns of the unsharded batch draw.
 
 The envs live on ``device``, the card unless the caller asks for the CPU.
 
@@ -95,6 +98,7 @@ class BatchedEnv:
         fused: bool = False,
         fused_rng: str = "input",
         fused_physics: bool = False,
+        env_base: int = 0,
     ):
         if fused_rng not in ("input", "kernel"):
             raise ValueError(f"fused_rng must be 'input' or 'kernel', got {fused_rng!r}")
@@ -120,6 +124,7 @@ class BatchedEnv:
         self.fused = fused
         self.fused_rng = fused_rng
         self.fused_physics = fused_physics
+        self.env_base = env_base
         self._ops = _FUSED[type(env)] if fused else None
         self.obs_size = env.obs_size
         self.action_size = env.action_size
@@ -139,7 +144,7 @@ class BatchedEnv:
             )
         if key.device.type != self.device.type:
             raise ValueError(f"key is on {key.device}, the envs on {self.device}")
-        return self.reset_with_noise(draw_noise(key, self._r_spec, self.n_envs))
+        return self.reset_with_noise(draw_noise(key, self._r_spec, self.n_envs, self.env_base))
 
     def reset_with_noise(self, noise):
         """:meth:`reset` from an explicit reset-noise dict (batch-last
@@ -154,7 +159,7 @@ class BatchedEnv:
         """The step's (transition, reset) noise: one draw, split by spec.  A
         reset that draws nothing (Dribbling's) gets the pad block an empty
         spec draws, from which it takes its batch."""
-        noise = draw_noise(key, step_noise_spec(self.env), self.n_envs)
+        noise = draw_noise(key, step_noise_spec(self.env), self.n_envs, self.env_base)
         t_noise = {k: noise[k] for k in self._t_spec}
         if not self._r_spec:
             return t_noise, {"_pad": torch.zeros((1, self.n_envs), device=key.device)}
@@ -173,7 +178,7 @@ class BatchedEnv:
     def _step(self, state, actions, key, final: bool):
         if self.fused and self.fused_rng == "kernel":
             st, obs, aux = self._ops.step(
-                self.env, state, actions, key=key, emit_final=final
+                self.env, state, actions, key=key, emit_final=final, env_base=self.env_base
             )
             return self._fused_out(st, obs, aux, final)
         return self._step_with_noise(state, actions, *self._draw(key), final)

@@ -4,6 +4,10 @@
 // One mapping for every random word the port draws:
 //   (key[2], step, env, slot) -> u32
 //   counter = (env, slot / 4, step_lo, step_hi), word = slot % 4
+// where env is the GLOBAL env index: env_base + the kernel's own column.
+// env_base is 0 unless the batch is one shard of a larger one
+// (rsoccer_tpu_torch/parallel/): shard r of W then draws the words that
+// columns [r B, (r + 1) B) of the unsharded batch draw.
 // Uniforms are the top 24 bits times 2^-24 (exact in f32); normals are
 // Box-Muller, cos branch, with u1 clamped at 1e-7.
 #pragma once
@@ -12,16 +16,18 @@
 struct PhiloxKey {
   uint32_t k0, k1;
   uint32_t step_lo, step_hi;
+  uint32_t env_base;  // the first column's global env index
 };
 
 // key tensor layout: int64 [k0, k1, step] on the device
-__device__ __forceinline__ PhiloxKey philox_load_key(const long long* key) {
+__device__ __forceinline__ PhiloxKey philox_load_key(const long long* key, uint32_t env_base) {
   PhiloxKey k;
   k.k0 = (uint32_t)key[0];
   k.k1 = (uint32_t)key[1];
   const unsigned long long step = (unsigned long long)key[2];
   k.step_lo = (uint32_t)step;
   k.step_hi = (uint32_t)(step >> 32);
+  k.env_base = env_base;
   return k;
 }
 
@@ -39,9 +45,10 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
   return c;
 }
 
-// the 4 words of slots [4*blk, 4*blk + 4) of env `env`
+// the 4 words of slots [4*blk, 4*blk + 4) of column `env` (global env
+// index env_base + env)
 __device__ __forceinline__ uint4 philox_block(const PhiloxKey& k, uint32_t env, uint32_t blk) {
-  return philox4x32_10(make_uint4(env, blk, k.step_lo, k.step_hi), k.k0, k.k1);
+  return philox4x32_10(make_uint4(k.env_base + env, blk, k.step_lo, k.step_hi), k.k0, k.k1);
 }
 
 __device__ __forceinline__ float philox_uniform(uint32_t w) {
@@ -53,7 +60,7 @@ __device__ __forceinline__ uint32_t philox_word(const uint4& w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
 }
 
-// the uniform of slot `slot` of env `env`: one block drawn for one word
+// the uniform of slot `slot` of column `env`: one block drawn for one word
 __device__ __forceinline__ float philox_slot_uniform(const PhiloxKey& k, uint32_t env, int slot) {
   return philox_uniform(philox_word(philox_block(k, env, (uint32_t)(slot / 4)), slot % 4));
 }

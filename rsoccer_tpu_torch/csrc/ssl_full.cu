@@ -277,8 +277,8 @@ template <bool EMIT_FINAL, bool RNG_KERNEL>
 __global__ void __launch_bounds__(kThreadBlock)
     sd_thread_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
                    const float* __restrict__ ball_in, const float* __restrict__ sp_in,
-                   const float* __restrict__ th_in, const long long* __restrict__ key, float* __restrict__ st_out,
-                   float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
+                   const float* __restrict__ th_in, const long long* __restrict__ key, uint32_t env_base,
+                   float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
   constexpr int N = 7, NY = 6, NSH = 8, kObs = 24;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -296,7 +296,7 @@ __global__ void __launch_bounds__(kThreadBlock)
 
   if (done) {  // reset spawn (envs/ssl_static_defenders.reset_state)
     PhiloxKey pk{};
-    if constexpr (RNG_KERNEL) pk = philox_load_key(key);
+    if constexpr (RNG_KERNEL) pk = philox_load_key(key, env_base);
     float u[2 * K];
     if constexpr (RNG_KERNEL) {
       philox_uniforms<2 * K>(pk, (uint32_t)b, 0, u);  // ball: slots 0-15
@@ -375,7 +375,7 @@ __global__ void __launch_bounds__(kThreadBlock)
 template <bool EMIT_FINAL, bool RNG_KERNEL>
 __global__ void __launch_bounds__(kThreadBlock)
     cp_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
-                   const float* __restrict__ enemy_in, const long long* __restrict__ key,
+                   const float* __restrict__ enemy_in, const long long* __restrict__ key, uint32_t env_base,
                    float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
   constexpr int N = 2, NSH = 9, kObs = 14;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -399,7 +399,7 @@ __global__ void __launch_bounds__(kThreadBlock)
   if (done) {  // reset (envs/ssl_contested_possession.reset_state)
     float u[2];
     if constexpr (RNG_KERNEL) {
-      philox_uniforms<2>(philox_load_key(key), (uint32_t)b, 0, u);  // enemy: slots 0-1
+      philox_uniforms<2>(philox_load_key(key, env_base), (uint32_t)b, 0, u);  // enemy: slots 0-1
     } else {
       u[0] = LD(enemy_in, 0);
       u[1] = LD(enemy_in, 1);
@@ -572,8 +572,8 @@ template <bool EMIT_FINAL, bool RNG_KERNEL>
 __global__ void __launch_bounds__(kThreads, 2)
     sd_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
                    const float* __restrict__ ball_in, const float* __restrict__ sp_in,
-                   const float* __restrict__ th_in, const long long* __restrict__ key, float* __restrict__ st_out,
-                   float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
+                   const float* __restrict__ th_in, const long long* __restrict__ key, uint32_t env_base,
+                   float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
   constexpr int N = 7, NY = 6, NSH = 8, kObs = 24, kAct = 5;
   constexpr int S = 7 + 6 * N + NSH;  // state rows
   constexpr int OBS_ROWS = kObs * (EMIT_FINAL ? 2 : 1);
@@ -656,7 +656,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       // the env's 30 spawn blocks, drawn once: lane k draws blocks k, k + 8, ...
       uint4* w = words + e * kSpawnBlocks;
       if (reset) {  // four independent chains (a fixed trip count unrolls and interleaves them)
-        const PhiloxKey pk = philox_load_key(key);
+        const PhiloxKey pk = philox_load_key(key, env_base);
         uint4 blk[(kSpawnBlocks + kGroup - 1) / kGroup];
 #pragma unroll
         for (int j = 0; j < (kSpawnBlocks + kGroup - 1) / kGroup; ++j)
@@ -892,8 +892,8 @@ template <bool EMIT_FINAL, bool RNG_KERNEL>
 __global__ void __launch_bounds__(kThreadBlock)
     pe_full_kernel(const SslParams p, const float* __restrict__ st, const float* __restrict__ act,
                    const float* __restrict__ ball_in, const float* __restrict__ recv_in,
-                   const long long* __restrict__ key, float* __restrict__ st_out, float* __restrict__ obs_out,
-                   float* __restrict__ aux_out, int B) {
+                   const long long* __restrict__ key, uint32_t env_base, float* __restrict__ st_out,
+                   float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
   constexpr int N = 2, NX = 3, kObs = 16;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -949,7 +949,7 @@ __global__ void __launch_bounds__(kThreadBlock)
   if (done) {  // reset (envs/ssl_pass_endurance.reset_state)
     float u[2 + kPeCand];
     if constexpr (RNG_KERNEL) {
-      philox_uniforms<2 + kPeCand>(philox_load_key(key), (uint32_t)b, 0, u);  // ball 0-1, recv_x 2-17
+      philox_uniforms<2 + kPeCand>(philox_load_key(key, env_base), (uint32_t)b, 0, u);  // ball 0-1, recv_x 2-17
     } else {
       u[0] = LD(ball_in, 0);
       u[1] = LD(ball_in, 1);
@@ -1032,13 +1032,15 @@ const char* ssl_params_fields() {
 
 // One fused SSLStaticDefenders-v0 step (N = 7) on 8 lanes per env; noise
 // rows ball_u (16, B), spawn_u (96, B), theta_u (6, B), or key
-// (rng_kernel).  Returns a cudaError_t.
+// (rng_kernel) with env_base, the global index of column 0.  Returns a
+// cudaError_t.
 int ssl_sd_full_step(int emit_final, int rng_kernel, const SslParams* p, const float* st, const float* act,
                      const float* ball_u, const float* spawn_u, const float* theta_u, const long long* key,
-                     float* st_out, float* obs_out, float* aux_out, int B, void* stream) {
+                     float* st_out, float* obs_out, float* aux_out, int env_base, int B, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t eb = (uint32_t)env_base;
 #define SD_LAUNCH(EF, RK) \
-  launch_group(sd_full_kernel<EF, RK>, B, s, *p, st, act, ball_u, spawn_u, theta_u, key, st_out, obs_out, aux_out)
+  launch_group(sd_full_kernel<EF, RK>, B, s, *p, st, act, ball_u, spawn_u, theta_u, key, eb, st_out, obs_out, aux_out)
   if (emit_final && rng_kernel) return (int)SD_LAUNCH(true, true);
   if (emit_final) return (int)SD_LAUNCH(true, false);
   if (rng_kernel) return (int)SD_LAUNCH(false, true);
@@ -1049,11 +1051,12 @@ int ssl_sd_full_step(int emit_final, int rng_kernel, const SslParams* p, const f
 // The same step, one thread per env: the same arguments and outputs.
 int ssl_sd_full_step_one_thread(int emit_final, int rng_kernel, const SslParams* p, const float* st,
                                 const float* act, const float* ball_u, const float* spawn_u, const float* theta_u,
-                                const long long* key, float* st_out, float* obs_out, float* aux_out, int B,
-                                void* stream) {
+                                const long long* key, float* st_out, float* obs_out, float* aux_out, int env_base,
+                                int B, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t eb = (uint32_t)env_base;
 #define SD_LAUNCH(EF, RK) \
-  launch(sd_thread_kernel<EF, RK>, B, s, *p, st, act, ball_u, spawn_u, theta_u, key, st_out, obs_out, aux_out)
+  launch(sd_thread_kernel<EF, RK>, B, s, *p, st, act, ball_u, spawn_u, theta_u, key, eb, st_out, obs_out, aux_out)
   if (emit_final && rng_kernel) return (int)SD_LAUNCH(true, true);
   if (emit_final) return (int)SD_LAUNCH(true, false);
   if (rng_kernel) return (int)SD_LAUNCH(false, true);
@@ -1062,12 +1065,14 @@ int ssl_sd_full_step_one_thread(int emit_final, int rng_kernel, const SslParams*
 }
 
 // One fused SSLContestedPossession-v0 step (N = 2); noise rows enemy_u
-// (2, B), or key (rng_kernel).  Returns a cudaError_t.
+// (2, B), or key (rng_kernel) with env_base.  Returns a cudaError_t.
 int ssl_cp_full_step(int emit_final, int rng_kernel, const SslParams* p, const float* st, const float* act,
                      const float* enemy_u, const long long* key, float* st_out, float* obs_out, float* aux_out,
-                     int B, void* stream) {
+                     int env_base, int B, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-#define CP_LAUNCH(EF, RK) launch(cp_full_kernel<EF, RK>, B, s, *p, st, act, enemy_u, key, st_out, obs_out, aux_out)
+  const uint32_t eb = (uint32_t)env_base;
+#define CP_LAUNCH(EF, RK) \
+  launch(cp_full_kernel<EF, RK>, B, s, *p, st, act, enemy_u, key, eb, st_out, obs_out, aux_out)
   if (emit_final && rng_kernel) return (int)CP_LAUNCH(true, true);
   if (emit_final) return (int)CP_LAUNCH(true, false);
   if (rng_kernel) return (int)CP_LAUNCH(false, true);
@@ -1097,13 +1102,15 @@ int ssl_dr_full_step_one_thread(int emit_final, int rng_kernel, const SslParams*
 }
 
 // One fused SSLPassEndurance-v0 step (N = 2); noise rows ball_u (2, B) and
-// recv_u (16, B), or key (rng_kernel).  Returns a cudaError_t.
+// recv_u (16, B), or key (rng_kernel) with env_base.  Returns a
+// cudaError_t.
 int ssl_pe_full_step(int emit_final, int rng_kernel, const SslParams* p, const float* st, const float* act,
                      const float* ball_u, const float* recv_u, const long long* key, float* st_out, float* obs_out,
-                     float* aux_out, int B, void* stream) {
+                     float* aux_out, int env_base, int B, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t eb = (uint32_t)env_base;
 #define PE_LAUNCH(EF, RK) \
-  launch(pe_full_kernel<EF, RK>, B, s, *p, st, act, ball_u, recv_u, key, st_out, obs_out, aux_out)
+  launch(pe_full_kernel<EF, RK>, B, s, *p, st, act, ball_u, recv_u, key, eb, st_out, obs_out, aux_out)
   if (emit_final && rng_kernel) return (int)PE_LAUNCH(true, true);
   if (emit_final) return (int)PE_LAUNCH(true, false);
   if (rng_kernel) return (int)PE_LAUNCH(false, true);

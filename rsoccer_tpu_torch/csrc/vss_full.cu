@@ -142,7 +142,7 @@ template <int NB, int NY, bool EMIT_FINAL, bool RNG_KERNEL, class Pol>
 __global__ void __launch_bounds__(kThreads, 2)
     vss_full_kernel(const VssParams p, const float* __restrict__ st, const float* __restrict__ act,
                     const float* __restrict__ ou_in, const float* __restrict__ sp_in,
-                    const float* __restrict__ th_in, const long long* __restrict__ key,
+                    const float* __restrict__ th_in, const long long* __restrict__ key, uint32_t env_base,
                     float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out,
                     int B) {
   constexpr int N = NB + NY;
@@ -209,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // blocks: lane m draws block OU_BLK0 + m and posts it to the group.
   PhiloxKey pk{};
   if constexpr (RNG_KERNEL) {
-    pk = philox_load_key(key);
+    pk = philox_load_key(key, env_base);
     uint4* words = reinterpret_cast<uint4*>(grp);
     if (k < OU_NBLK) words[k] = philox_block(pk, (uint32_t)b, (uint32_t)(OU_BLK0 + k));
     __syncwarp();
@@ -366,12 +366,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 template <int NB, int NY, class Pol>
 cudaError_t launch(int emit_final, int rng_kernel, const VssParams& p, const float* st, const float* act,
-                   const float* ou, const float* sp, const float* th, const long long* key, float* st_out,
-                   float* obs_out, float* aux_out, int B, cudaStream_t stream) {
+                   const float* ou, const float* sp, const float* th, const long long* key, uint32_t env_base,
+                   float* st_out, float* obs_out, float* aux_out, int B, cudaStream_t stream) {
   const dim3 grid((B + kEnvsPerBlock - 1) / kEnvsPerBlock), block(kThreads);
 #define VSS_LAUNCH(EF, RK)                                                                        \
-  vss_full_kernel<NB, NY, EF, RK, Pol><<<grid, block, 0, stream>>>(p, st, act, ou, sp, th, key, st_out, obs_out, \
-                                                                    aux_out, B)
+  vss_full_kernel<NB, NY, EF, RK, Pol><<<grid, block, 0, stream>>>(p, st, act, ou, sp, th, key, env_base, st_out, \
+                                                                    obs_out, aux_out, B)
   if (emit_final && rng_kernel) VSS_LAUNCH(true, true);
   else if (emit_final) VSS_LAUNCH(true, false);
   else if (rng_kernel) VSS_LAUNCH(false, true);
@@ -386,8 +386,8 @@ __global__ void __launch_bounds__(kThreadBlock)
     vss_thread_kernel(const VssParams p, int nb, bool emit_final, bool exact_trig, const float* __restrict__ st,
                       const float* __restrict__ act, const float* __restrict__ ou_in,
                       const float* __restrict__ sp_in, const float* __restrict__ th_in,
-                      const long long* __restrict__ key, float* __restrict__ st_out, float* __restrict__ obs_out,
-                      float* __restrict__ aux_out, int B) {
+                      const long long* __restrict__ key, uint32_t env_base, float* __restrict__ st_out,
+                      float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
   constexpr int NSP = (1 + N) * 2 * K;  // spawn uniforms: slots [0, NSP); then theta, OU u1, OU u2
   static_assert((2 * K) % 4 == 0, "spawn entities start on a Philox block");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -421,7 +421,7 @@ __global__ void __launch_bounds__(kThreadBlock)
   float ou_n[2 * N], th_u[N];
   PhiloxKey pk{};
   if constexpr (RNG_KERNEL) {
-    pk = philox_load_key(key);
+    pk = philox_load_key(key, env_base);
     float tail[5 * N];  // slots NSP + [0, N): theta; + [N, 3N): OU u1; + [3N, 5N): OU u2
     philox_uniforms<5 * N>(pk, (uint32_t)b, NSP / 4, tail);
 #pragma unroll
@@ -575,23 +575,23 @@ __global__ void __launch_bounds__(kThreadBlock)
 template <int N>
 cudaError_t launch_thread(int nb, int emit_final, int rng_kernel, int exact_trig, const VssParams& p,
                           const float* st, const float* act, const float* ou, const float* sp, const float* th,
-                          const long long* key, float* st_out, float* obs_out, float* aux_out, int B,
-                          cudaStream_t stream) {
+                          const long long* key, uint32_t env_base, float* st_out, float* obs_out, float* aux_out,
+                          int B, cudaStream_t stream) {
   const dim3 grid((B + kThreadBlock - 1) / kThreadBlock), block(kThreadBlock);
   if (rng_kernel)
     vss_thread_kernel<N, true><<<grid, block, 0, stream>>>(p, nb, emit_final, exact_trig, st, act, ou, sp, th, key,
-                                                           st_out, obs_out, aux_out, B);
+                                                           env_base, st_out, obs_out, aux_out, B);
   else
     vss_thread_kernel<N, false><<<grid, block, 0, stream>>>(p, nb, emit_final, exact_trig, st, act, ou, sp, th, key,
-                                                            st_out, obs_out, aux_out, B);
+                                                            env_base, st_out, obs_out, aux_out, B);
   return cudaGetLastError();
 }
 
-__global__ void philox_words_kernel(const long long* __restrict__ key, uint32_t* __restrict__ out, int n_blk,
-                                    int B) {
+__global__ void philox_words_kernel(const long long* __restrict__ key, uint32_t env_base, uint32_t* __restrict__ out,
+                                    int n_blk, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const PhiloxKey k = philox_load_key(key);
+  const PhiloxKey k = philox_load_key(key, env_base);
   for (int blk = 0; blk < n_blk; ++blk) {
     const uint4 w = philox_block(k, (uint32_t)b, (uint32_t)blk);
     out[(size_t)(4 * blk + 0) * B + b] = w.x;
@@ -613,19 +613,24 @@ const char* vss_params_fields() {
 #undef VSS_NAME
 }
 
+// The version of the entries' arguments: 1 since every entry that draws
+// takes env_base (the global index of column 0) before B.
+int kernels_abi_version() { return 1; }
+
 // One fused step on the group kernel: 3v3 (VSS-v0) only; exact_trig picks
 // the turn (ExactRsqrt beyond the Taylor bound).  Returns a cudaError_t
 // (cudaErrorInvalidValue for another team size).
 int vss_full_step(int n_blue, int n_yellow, int emit_final, int rng_kernel, int exact_trig, const VssParams* p,
                   const float* st, const float* act, const float* ou, const float* sp, const float* th,
-                  const long long* key, float* st_out, float* obs_out, float* aux_out, int B, void* stream) {
+                  const long long* key, float* st_out, float* obs_out, float* aux_out, int env_base, int B,
+                  void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (n_blue != 3 || n_yellow != 3) return (int)cudaErrorInvalidValue;
   if (exact_trig)
-    return launch<3, 3, ExactRsqrt>(emit_final, rng_kernel, *p, st, act, ou, sp, th, key, st_out, obs_out, aux_out,
-                                    B, s);
-  return launch<3, 3, TaylorRsqrt>(emit_final, rng_kernel, *p, st, act, ou, sp, th, key, st_out, obs_out, aux_out, B,
-                                   s);
+    return launch<3, 3, ExactRsqrt>(emit_final, rng_kernel, *p, st, act, ou, sp, th, key, (uint32_t)env_base,
+                                    st_out, obs_out, aux_out, B, s);
+  return launch<3, 3, TaylorRsqrt>(emit_final, rng_kernel, *p, st, act, ou, sp, th, key, (uint32_t)env_base, st_out,
+                                   obs_out, aux_out, B, s);
 }
 
 // The same step on the one-thread kernel: the same arguments and outputs,
@@ -633,13 +638,13 @@ int vss_full_step(int n_blue, int n_yellow, int emit_final, int rng_kernel, int 
 int vss_full_step_one_thread(int n_blue, int n_yellow, int emit_final, int rng_kernel, int exact_trig,
                              const VssParams* p, const float* st, const float* act, const float* ou,
                              const float* sp, const float* th, const long long* key, float* st_out, float* obs_out,
-                             float* aux_out, int B, void* stream) {
+                             float* aux_out, int env_base, int B, void* stream) {
   if (n_blue < 1 || n_blue > kMaxBlue || n_yellow < 0 || n_yellow > kMaxYellow) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define VSS_THREAD(N)                                                                                          \
   case N:                                                                                                      \
-    return (int)launch_thread<N>(n_blue, emit_final, rng_kernel, exact_trig, *p, st, act, ou, sp, th, key, st_out, \
-                                 obs_out, aux_out, B, s)
+    return (int)launch_thread<N>(n_blue, emit_final, rng_kernel, exact_trig, *p, st, act, ou, sp, th, key, \
+                                 (uint32_t)env_base, st_out, obs_out, aux_out, B, s)
   switch (n_blue + n_yellow) {
     VSS_THREAD(1);
     VSS_THREAD(2);
@@ -656,11 +661,12 @@ int vss_full_step_one_thread(int n_blue, int n_yellow, int emit_final, int rng_k
   return (int)cudaErrorInvalidValue;
 }
 
-// Raw Philox words of blocks [0, n_blk) for every env: out is (4 n_blk, B)
-// u32 — the debug entry that holds the device stream to the torch one.
-int philox_words(const long long* key, uint32_t* out, int n_blk, int B, void* stream) {
+// Raw Philox words of blocks [0, n_blk) for columns [0, B), global env
+// indices from env_base: out is (4 n_blk, B) u32 — the debug entry that
+// holds the device stream to the torch one.
+int philox_words(const long long* key, uint32_t* out, int n_blk, int env_base, int B, void* stream) {
   const dim3 grid((B + 127) / 128), block(128);
-  philox_words_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(key, out, n_blk, B);
+  philox_words_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(key, (uint32_t)env_base, out, n_blk, B);
   return (int)cudaGetLastError();
 }
 

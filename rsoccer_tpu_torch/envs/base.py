@@ -51,9 +51,11 @@ def step_noise_spec(env) -> NoiseSpec:
     return {**env.reset_noise_spec(), **env.transition_noise_spec()}
 
 
-def draw_noise(key: torch.Tensor, spec: NoiseSpec, batch: int):
-    """Draw every block of ``spec`` for ``batch`` envs at ``key``'s step,
-    each block with a trailing batch axis, then advance ``key``'s step.
+def draw_noise(key: torch.Tensor, spec: NoiseSpec, batch: int, env_base: int = 0):
+    """Draw every block of ``spec`` for the ``batch`` envs from global env
+    index ``env_base`` on at ``key``'s step, each block with a trailing
+    batch axis, then advance ``key``'s step.  At ``env_base`` b the blocks
+    are columns ``[b, b + batch)`` of an unsharded batch's.
 
     An empty spec still advances the key (one key schedule whatever a task
     draws) and returns the JAX package's pad block ``{"_pad": (1, B)}``
@@ -65,7 +67,7 @@ def draw_noise(key: torch.Tensor, spec: NoiseSpec, batch: int):
     nrm = _flat_sizes(spec, "normal")
     n_u = sum(s for _, _, s in uni)
     n_n = sum(s for _, _, s in nrm)
-    u = uniforms_from_words(philox_words(key, n_u + 2 * n_n, batch))
+    u = uniforms_from_words(philox_words(key, n_u + 2 * n_n, batch, env_base=env_base))
     key[2:].add_(1)
     out = {}
     off = 0

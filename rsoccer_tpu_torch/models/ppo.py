@@ -19,6 +19,19 @@ env's device), the env noise from the batch's Philox key.  ``_rollout``
 and ``_update`` also take those draws as arguments, so a test can feed the
 JAX package's.
 
+With ``mesh`` (``parallel/mesh.EnvMesh``) the trainer is one rank of a
+data-parallel PPO: the counterpart of the JAX package's jit-partitioned
+train step (``tools/distributed_smoke.py --impl ppo``).  ``benv`` is the
+GLOBAL batched env; the rank steps its shard (``parallel/mesh.local_benv``)
+and draws the policy's normals for the global batch, keeping its rows, so
+the shards collect what the unsharded trainer collects.  Minibatches come
+from the global permutation, the advantage and obs moments are merged
+over the ranks, the losses are the rank's parts of the global means, and
+the gradients are summed over the ranks before the clip
+(``parallel/ppo.py``): every rank steps the same bits, and the update
+equals the unsharded one up to the order of the sums (bit for bit at one
+rank).
+
 Where the JAX package's library calls differ from torch's, the port
 follows the JAX package: population statistics (``correction=0``),
 optax's ``clip_by_global_norm`` (scale by ``max_norm / norm`` only when
@@ -43,6 +56,10 @@ from rsoccer_tpu_torch.models.networks import (
     sample_action,
 )
 from rsoccer_tpu_torch.ops.philox import make_key
+from rsoccer_tpu_torch.parallel import ppo as dp
+from rsoccer_tpu_torch.parallel.mesh import (
+    EnvMesh, all_reduce_grads, all_reduce_sum, batch_slice, gather_rows, local_benv,
+)
 
 
 class PPOConfig(NamedTuple):
@@ -174,7 +191,14 @@ def make_policy(net: ActorCritic, obs_norm: ObsNorm | None = None, deterministic
 
 
 class PPOTrainer:
-    def __init__(self, benv: BatchedEnv, config: PPOConfig = PPOConfig()):
+    def __init__(self, benv: BatchedEnv, config: PPOConfig = PPOConfig(), mesh: EnvMesh | None = None):
+        """``mesh``: this trainer is one rank of a data-parallel PPO over
+        the global ``benv`` (module docstring); None: the whole batch."""
+        self.mesh = mesh
+        self.n_global = benv.n_envs
+        if mesh is not None:
+            self.cols = batch_slice(mesh, benv.n_envs)
+            benv = local_benv(benv, mesh)
         self.benv = benv
         self.cfg = config
         self.device = check_device(benv.device)
@@ -252,9 +276,14 @@ class PPOTrainer:
                 o_sq += (obs * obs).sum(-1)
                 net_obs = norm(obs)
                 mean, log_std, value = net(net_obs)
-                action, logp = sample_action(
-                    gen, mean, log_std, None if draws is None else draws[0][t]
-                )
+                if draws is not None:
+                    noise = draws[0][t]
+                elif self.mesh is not None:  # the global batch's normals, this rank's rows
+                    noise = torch.randn((self.n_global, benv.action_size), generator=gen, device=dev,
+                                        dtype=mean.dtype)[self.cols]
+                else:
+                    noise = None
+                action, logp = sample_action(gen, mean, log_std, noise)
                 # the envs' action spaces are Box(-1, 1): clip at the env
                 # boundary, keeping the unclipped sample for the log-prob
                 act = torch.clamp(action.T, -1.0, 1.0).contiguous()
@@ -272,6 +301,9 @@ class PPOTrainer:
         n = n_t * b
         raw_mean = o_sum / n
         raw_var = torch.clamp_min(o_sq / n - raw_mean**2, 0.0)
+        if self.mesh is not None:  # the global moments: every rank's, merged in rank order
+            rows = gather_rows(torch.stack([raw_mean, raw_var]), self.mesh)
+            n, raw_mean, raw_var = dp.merge_mean_var([n] * self.mesh.world, rows[:, 0], rows[:, 1])
         return env_state, obs, env_key, (raw_mean, raw_var, n), traj
 
     def _gae(self, traj: Transition, last_value):
@@ -292,18 +324,28 @@ class PPOTrainer:
             advantages[t] = acc
         return advantages, advantages + traj.value
 
-    def _loss(self, net, batch: Transition, advantages, returns):
+    def _loss(self, net, batch: Transition, advantages, returns, shard: dp.MinibatchShard | None = None):
+        """The clipped-surrogate loss; with ``shard``, the rank's part of
+        the global minibatch's loss (its members' terms of the global
+        means, the entropy term over the ranks)."""
         cfg = self.cfg
         mean, log_std, value = net(batch.obs)
         logp = gaussian_logp(batch.action, mean, log_std)
         ratio = torch.exp(logp - batch.logp)
-        adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        if shard is None:
+            adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        else:
+            adv = (advantages - shard.adv_mean) / (shard.adv_std + 1e-8)
         unclipped = ratio * adv
         clipped = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv
-        policy_loss = -torch.mean(torch.minimum(unclipped, clipped))
-        value_loss = 0.5 * torch.mean((value - returns) ** 2)
+        batch_mean = torch.mean if shard is None else shard.mean
+        policy_loss = -batch_mean(torch.minimum(unclipped, clipped))
+        value_loss = 0.5 * batch_mean((value - returns) ** 2)
         entropy = gaussian_entropy(log_std)
-        total = policy_loss + cfg.vf_coef * value_loss - cfg.ent_coef * entropy
+        ent_term = cfg.ent_coef * entropy
+        if shard is not None:
+            ent_term = ent_term / shard.world
+        total = policy_loss + cfg.vf_coef * value_loss - ent_term
         metrics = {
             "loss": total,
             "policy_loss": policy_loss,
@@ -312,12 +354,22 @@ class PPOTrainer:
         }
         return total, metrics
 
-    def _apply_minibatch(self, net, opt, batch, adv_b, ret_b, actor_frozen: bool, opt_step: int):
-        """One Adam step on one minibatch; returns the loss metrics."""
+    def _apply_minibatch(self, net, opt, batch, adv_b, ret_b, actor_frozen: bool, opt_step: int,
+                         counts=None):
+        """One Adam step on one minibatch; returns the loss metrics.  On a
+        mesh ``counts`` is every rank's member count of the minibatch."""
         opt.zero_grad(set_to_none=False)
-        loss, metrics = self._loss(net, batch, adv_b, ret_b)
+        shard = None
+        if self.mesh is not None:
+            with torch.no_grad():
+                adv_mean, adv_std = dp.global_mean_std(adv_b, counts, self.mesh)
+            shard = dp.MinibatchShard(counts[self.mesh.rank], sum(counts), adv_mean, adv_std,
+                                      self.mesh.world)
+        loss, metrics = self._loss(net, batch, adv_b, ret_b, shard)
         loss.backward()
         params = list(net.parameters())
+        if self.mesh is not None:
+            all_reduce_grads(params, self.mesh)
         if actor_frozen:
             for p in net.actor_parameters():
                 p.grad.mul_(0.0)
@@ -336,7 +388,7 @@ class PPOTrainer:
         """The update phase's draws: one permutation per epoch, of the
         T x B samples ("shuffle") or of the T steps ("time")."""
         cfg = self.cfg
-        n = cfg.rollout_steps * (1 if cfg.minibatch_mode == "time" else self.benv.n_envs)
+        n = cfg.rollout_steps * (1 if cfg.minibatch_mode == "time" else self.n_global)
         return [torch.randperm(n, generator=gen, device=gen.device) for _ in range(cfg.num_epochs)]
 
     def _update(self, net, opt, traj: Transition, last_value, update_step: int, perms):
@@ -347,34 +399,47 @@ class PPOTrainer:
         advantages, returns = self._gae(traj, last_value)
         frozen = update_step < cfg.critic_warmup_updates
         n_mb = cfg.num_minibatches
+        mesh = self.mesh
         if cfg.minibatch_mode == "time":
             # permute the time axis only: minibatch = mt random steps x
-            # all envs, read as contiguous (B, ...) rows
+            # all envs, read as contiguous (B, ...) rows (on a mesh: the
+            # rank's envs; every rank holds mt x B_local members)
             mt = cfg.rollout_steps // n_mb
+            counts = None if mesh is None else [mt * self.benv.n_envs] * mesh.world
 
-            def minibatch(perm, k):
-                idx = perm[k * mt:(k + 1) * mt]
+            def minibatch(e, k):
+                idx = perms[e][k * mt:(k + 1) * mt]
 
                 def take(x):
                     x = x[idx]
                     return x.reshape((-1,) + x.shape[2:])
 
-                return Transition(*map(take, traj)), take(advantages), take(returns)
+                return Transition(*map(take, traj)), take(advantages), take(returns), counts
         else:
             # flatten (T, B) -> (N,) and gather fresh random rows per epoch
             flat = Transition(*(x.reshape((-1,) + x.shape[2:]) for x in traj))
             adv_f, ret_f = advantages.reshape(-1), returns.reshape(-1)
-            mb = adv_f.shape[0] // n_mb
+            if mesh is None:
+                mb = adv_f.shape[0] // n_mb
 
-            def minibatch(perm, k):
-                idx = perm[k * mb:(k + 1) * mb]
-                return Transition(*(x[idx] for x in flat)), adv_f[idx], ret_f[idx]
+                def minibatch(e, k):
+                    idx = perms[e][k * mb:(k + 1) * mb]
+                    return Transition(*(x[idx] for x in flat)), adv_f[idx], ret_f[idx], None
+            else:  # the global minibatch's members on this rank
+                local, all_counts = dp.minibatch_members(
+                    perms, n_mb, cfg.rollout_steps * self.n_global, self.n_global, mesh)
+
+                def minibatch(e, k):
+                    idx = local[e, k, :all_counts[e][k][mesh.rank]]
+                    return (Transition(*(x[idx] for x in flat)), adv_f[idx], ret_f[idx],
+                            all_counts[e][k])
 
         metrics = None
-        for e, perm in enumerate(perms):
+        for e in range(len(perms)):
             for k in range(n_mb):
                 opt_step = (update_step * cfg.num_epochs + e) * n_mb + k
-                metrics = self._apply_minibatch(net, opt, *minibatch(perm, k), frozen, opt_step)
+                batch, adv_b, ret_b, counts_k = minibatch(e, k)
+                metrics = self._apply_minibatch(net, opt, batch, adv_b, ret_b, frozen, opt_step, counts_k)
         return metrics
 
     # ------------------------------------------------------------------
@@ -411,6 +476,11 @@ class PPOTrainer:
             "mean_reward": traj.reward.mean(),
             "mean_episode_ends": torch.maximum(traj.term, traj.trunc).sum(),
         }
+        if self.mesh is not None:  # global: the loss parts and episode ends summed, the reward's mean
+            keys = ("loss", "policy_loss", "value_loss", "mean_reward", "mean_episode_ends")
+            out_metrics["mean_reward"] = out_metrics["mean_reward"] * (self.benv.n_envs / self.n_global)
+            summed = all_reduce_sum(torch.stack([out_metrics[k] for k in keys]), self.mesh)
+            out_metrics.update(zip(keys, summed))
         return new_state, out_metrics
 
     def phase_ms(self) -> dict:

@@ -25,6 +25,12 @@ Philox key (``SACState.env_key``), everything else from the
 ``_update`` take their draws as arguments (:class:`CollectDraws`,
 :class:`UpdateDraws`), so a test can feed the JAX package's.
 
+With ``mesh`` (``parallel/mesh.EnvMesh``) the trainer is one rank's half
+of a data-parallel SAC (``parallel/sac.py``, the counterpart of the JAX
+trainer's ``axis_name``): each of the three gradients is averaged over
+the ranks before its optimiser steps, so the replicated networks stay
+bit-identical on every rank.
+
 Two departures from the JAX package, both deliberate:
 
 - ``actor_freeze_iters`` counts iterations of :meth:`train_step`; the JAX
@@ -52,6 +58,7 @@ from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 from rsoccer_tpu_torch.models.networks import check_device
 from rsoccer_tpu_torch.models.ppo import PhaseClock
 from rsoccer_tpu_torch.ops.philox import make_key
+from rsoccer_tpu_torch.parallel.mesh import EnvMesh, all_reduce_grads
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 # flax's lecun_normal: a normal cut at +-2 sigma, rescaled by this to keep
@@ -344,12 +351,16 @@ class UpdateDraws(NamedTuple):
     pi_eps: torch.Tensor
 
 
-def iteration_generator(seed: int, iteration: int, device="cuda") -> torch.Generator:
+def iteration_generator(seed: int, iteration: int, device="cuda", rank: int = 0) -> torch.Generator:
     """The draws of iteration ``iteration`` of a run seeded ``seed``: a
     generator seeded by ``(seed + 1, iteration)`` (the JAX package's
     ``fold_in(PRNGKey(seed + 1), i)``), so a resumed run draws what an
-    uninterrupted one would."""
+    uninterrupted one would.  ``rank``: rank ``rank``'s stream of a sharded
+    run (``parallel/sac.py``; the JAX package's ``fold_in(key, idx)``): the
+    seed XORed with ``rank`` times an odd 64-bit constant, so rank 0 draws
+    the unsharded stream."""
     s = (((seed + 1) & 0xFFFFFFFF) << 32) | (iteration & 0xFFFFFFFF)
+    s ^= (rank * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
     return torch.Generator(device=device).manual_seed(s)
 
 
@@ -371,9 +382,14 @@ def make_policy(actor: SquashedGaussianActor, deterministic: bool = True):
 
 
 class SACTrainer:
-    def __init__(self, benv: BatchedEnv, config: SACConfig = SACConfig()):
+    def __init__(self, benv: BatchedEnv, config: SACConfig = SACConfig(), mesh: EnvMesh | None = None):
+        """``mesh``: this trainer runs one rank's shard (``benv``, ``config``
+        already cut to the rank's envs, ring and minibatch;
+        ``parallel/sac.make_sharded_sac`` builds it) and averages each
+        gradient over the mesh before its step.  None: single-device."""
         self.benv = benv
         self.cfg = config
+        self.mesh = mesh
         self.device = check_device(benv.device)
         self.target_entropy = -config.target_entropy_scale * benv.action_size
         # n-step chains walk n_step links of stride n_envs through the ring;
@@ -468,6 +484,14 @@ class SACTrainer:
         ``actor_freeze_iters`` iterations of :meth:`train_step`."""
         return state.iteration < self.cfg.actor_freeze_iters
 
+    def _pmean_grads(self, params):
+        """On a mesh, each gradient averaged over the ranks (one all_reduce
+        of the flattened gradients): every rank's minibatch is the same
+        size, so the mean of the per-rank mean-loss gradients is the
+        gradient of the global minibatch's mean loss."""
+        if self.mesh is not None:
+            all_reduce_grads(params, self.mesh, average=True)
+
     def _update(self, state: SACState, draws: UpdateDraws):
         """One update of critics, actor and temperature, then the polyak
         step, in the JAX package's order.  Steps the modules and optimisers
@@ -495,6 +519,7 @@ class SACTrainer:
 
         state.opt_qs.zero_grad(set_to_none=False)
         q_loss().backward()
+        self._pmean_grads(qs.parameters())
         state.opt_qs.step()
 
         # the actor loss against the UPDATED critics (no gradient into them)
@@ -508,6 +533,7 @@ class SACTrainer:
             if not frozen:  # a frozen actor keeps its params and Adam state
                 state.opt_actor.zero_grad(set_to_none=False)
                 a_loss.backward()
+                self._pmean_grads(actor.parameters())
                 state.opt_actor.step()
         finally:
             qs.requires_grad_(True)
@@ -516,6 +542,7 @@ class SACTrainer:
                                      * (logp.detach() + self.target_entropy))
             state.opt_alpha.zero_grad(set_to_none=False)
             alpha_loss.backward()
+            self._pmean_grads([state.log_alpha])
             state.opt_alpha.step()
 
         with torch.no_grad():

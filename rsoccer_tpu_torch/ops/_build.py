@@ -133,6 +133,13 @@ def check_key(key, device):
                          f"{tuple(key.shape)} on {key.device}")
 
 
+def check_env_base(env_base: int, batch: int):
+    """Raise unless the global env indices ``[env_base, env_base + batch)``
+    fit the Philox counter's 32-bit env word (and the C entries' int)."""
+    if not 0 <= env_base <= 0x7FFFFFFF - batch:
+        raise ValueError(f"env_base {env_base} with {batch} envs leaves the 31-bit env range")
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every C entry's
@@ -142,26 +149,28 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vss_params_fields.argtypes = []
     lib.vss_params_fields.restype = ctypes.c_char_p
+    lib.kernels_abi_version.argtypes = []
+    lib.kernels_abi_version.restype = i
     # n_blue, n_yellow, emit_final, rng_kernel, exact_trig, params*, st,
-    # act, ou, sp, th, key, st_out, obs_out, aux_out, B, stream
-    lib.vss_full_step.argtypes = [i] * 5 + [p] * 10 + [i, p]
+    # act, ou, sp, th, key, st_out, obs_out, aux_out, env_base, B, stream
+    lib.vss_full_step.argtypes = [i] * 5 + [p] * 10 + [i, i, p]
     lib.vss_full_step.restype = i
     lib.vss_full_step_one_thread.argtypes = lib.vss_full_step.argtypes
     lib.vss_full_step_one_thread.restype = i
-    # key, out, n_blk, B, stream
-    lib.philox_words.argtypes = [p, p, i, i, p]
+    # key, out, n_blk, env_base, B, stream
+    lib.philox_words.argtypes = [p, p, i, i, i, p]
     lib.philox_words.restype = i
     lib.ssl_params_fields.argtypes = []
     lib.ssl_params_fields.restype = ctypes.c_char_p
     # emit_final, rng_kernel, params*, st, act, ball_u, spawn_u, theta_u,
-    # key, st_out, obs_out, aux_out, B, stream
-    lib.ssl_sd_full_step.argtypes = [i, i] + [p] * 10 + [i, p]
+    # key, st_out, obs_out, aux_out, env_base, B, stream
+    lib.ssl_sd_full_step.argtypes = [i, i] + [p] * 10 + [i, i, p]
     lib.ssl_sd_full_step.restype = i
     lib.ssl_sd_full_step_one_thread.argtypes = lib.ssl_sd_full_step.argtypes
     lib.ssl_sd_full_step_one_thread.restype = i
     # emit_final, rng_kernel, params*, st, act, enemy_u, key, st_out,
-    # obs_out, aux_out, B, stream
-    lib.ssl_cp_full_step.argtypes = [i, i] + [p] * 8 + [i, p]
+    # obs_out, aux_out, env_base, B, stream
+    lib.ssl_cp_full_step.argtypes = [i, i] + [p] * 8 + [i, i, p]
     lib.ssl_cp_full_step.restype = i
     # emit_final, rng_kernel, params*, st, act, st_out, obs_out, aux_out,
     # B, stream
@@ -170,8 +179,8 @@ def load() -> ctypes.CDLL:
     lib.ssl_dr_full_step_one_thread.argtypes = lib.ssl_dr_full_step.argtypes
     lib.ssl_dr_full_step_one_thread.restype = i
     # emit_final, rng_kernel, params*, st, act, ball_u, recv_u, key, st_out,
-    # obs_out, aux_out, B, stream
-    lib.ssl_pe_full_step.argtypes = [i, i] + [p] * 9 + [i, p]
+    # obs_out, aux_out, env_base, B, stream
+    lib.ssl_pe_full_step.argtypes = [i, i] + [p] * 9 + [i, i, p]
     lib.ssl_pe_full_step.restype = i
     lib.vss_physics_params_fields.argtypes = []
     lib.vss_physics_params_fields.restype = ctypes.c_char_p

@@ -6,7 +6,10 @@ comes from ONE mapping
     (key[2], step, env, slot) -> u32
     counter = (env, slot // 4, step_lo, step_hi), word = slot % 4
 
-so the fused kernel's in-kernel draws (``fused_rng="kernel"``) and the
+where ``env`` is the global env index: ``env_base`` plus the column.
+``env_base`` is 0 unless the batch is one shard of a larger one
+(``parallel/``): shard ``r`` of ``W`` then draws the words that columns
+``[r B, (r + 1) B)`` of the unsharded batch draw.  So the fused kernel's in-kernel draws (``fused_rng="kernel"``) and the
 plain ``envs/base.draw_noise`` (``fused_rng="input"``, the XLA-style twin
 path) give the same numbers on any device.  A key is a small int64 tensor
 ``[k0, k1, step]`` that lives on the device of the data it feeds: the
@@ -28,6 +31,9 @@ _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
 N_ROUNDS = 10
+# the counter's last word in a fold_in draw: no env step reaches a step
+# whose high word is this, so a folded key never repeats a step's words
+_FOLD_TAG = 0xF01D_0001
 
 
 def make_key(seed: int, stream: int = 0, device="cuda") -> torch.Tensor:
@@ -61,23 +67,37 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def philox_words(key: torch.Tensor, n_slots: int, batch: int, first_block: int = 0) -> torch.Tensor:
+def philox_words(key: torch.Tensor, n_slots: int, batch: int, first_block: int = 0,
+                 env_base: int = 0) -> torch.Tensor:
     """Words for slots ``[4 * first_block, 4 * first_block + n_slots)`` of
-    every env at ``key``'s current step: ``(n_slots, batch)`` int64 in
-    [0, 2^32).  Does not advance.  The env steps draw from block 0 up;
-    a draw beside them (``models/selfplay``'s OU lanes) starts at a block
-    no env step reaches."""
+    the envs ``[env_base, env_base + batch)`` at ``key``'s current step:
+    ``(n_slots, batch)`` int64 in [0, 2^32).  Does not advance.  The env
+    steps draw from block 0 up; a draw beside them (``models/selfplay``'s
+    OU lanes) starts at a block no env step reaches."""
     dev = key.device
     n_blk = -(-n_slots // 4)
     if not 0 <= first_block <= _MASK - n_blk:
         raise ValueError(f"first_block {first_block} leaves the 32-bit block counter")
-    env = torch.arange(batch, dtype=torch.int64, device=dev)[None, :]
+    if not 0 <= env_base <= _MASK + 1 - batch:
+        raise ValueError(f"env_base {env_base} with {batch} envs leaves the 32-bit env counter")
+    env = env_base + torch.arange(batch, dtype=torch.int64, device=dev)[None, :]
     blk = first_block + torch.arange(n_blk, dtype=torch.int64, device=dev)[:, None]
     step = key[2]
     words = philox4x32(
         env, blk, step & _MASK, (step >> 32) & _MASK, key[0], key[1]
     )
     return torch.stack(words, dim=1).reshape(4 * n_blk, batch)[:n_slots]
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """A new key for an independent stream derived from ``key`` and the
+    integer ``data`` (the counterpart of ``jax.random.fold_in``): ``[k0',
+    k1']`` are the first two words of Philox at counter ``(data, 0, 0,
+    _FOLD_TAG)`` under ``key``'s ``[k0, k1]``; the step is kept.  Device
+    ops only (no host sync)."""
+    data = int(data) & _MASK
+    w0, w1, _, _ = philox4x32(data, 0, 0, _FOLD_TAG, key[0], key[1])
+    return torch.stack([w0, w1, key[2]])
 
 
 def uniforms_from_words(words: torch.Tensor) -> torch.Tensor:

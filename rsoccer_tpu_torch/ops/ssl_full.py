@@ -35,8 +35,10 @@ the port's one Philox stream — in the kernel on the card (only on done
 lanes; the counter scheme has no state, so the words are the same), with
 ``envs/base.draw_noise`` on the CPU — at the slots of ``draw_noise``'s spec
 order (SD: ball 0-15, yellow i's candidates 16+16i, theta 112-117; CP:
-enemy 0-1; PE: ball 0-1, recv_x 2-17; DR draws nothing), and advances
-``key[2]`` by one (DR too, so every task keeps one key schedule).
+enemy 0-1; PE: ball 0-1, recv_x 2-17; DR draws nothing), for the global
+env indices from ``env_base`` on (a shard of a larger batch, ``parallel/``;
+an argument of the C entries that draw), and advances ``key[2]`` by one
+(DR too, so every task keeps one key schedule).
 
 The ``*_full_step`` wrappers run the plain versions ``*_full_step_plain``
 only for tensors on the CPU; for CUDA tensors they launch the kernel or
@@ -195,14 +197,16 @@ def cp_noise_rows(env, r_noise: dict):
     return (r_noise["enemy"].reshape(-1, r_noise["enemy"].shape[-1]),)
 
 
-def sd_draw_step_rows(env, key: torch.Tensor, batch: int):
-    """The step's SD noise rows from ``key``'s Philox stream; advances key."""
-    return sd_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
+def sd_draw_step_rows(env, key: torch.Tensor, batch: int, env_base: int = 0):
+    """The step's SD noise rows from ``key``'s Philox stream for the envs
+    from global index ``env_base`` on; advances key."""
+    return sd_noise_rows(env, draw_noise(key, step_noise_spec(env), batch, env_base))
 
 
-def cp_draw_step_rows(env, key: torch.Tensor, batch: int):
-    """The step's CP noise rows from ``key``'s Philox stream; advances key."""
-    return cp_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
+def cp_draw_step_rows(env, key: torch.Tensor, batch: int, env_base: int = 0):
+    """The step's CP noise rows from ``key``'s Philox stream for the envs
+    from global index ``env_base`` on; advances key."""
+    return cp_noise_rows(env, draw_noise(key, step_noise_spec(env), batch, env_base))
 
 
 def dr_noise_rows(env, r_noise: dict):
@@ -210,9 +214,9 @@ def dr_noise_rows(env, r_noise: dict):
     return ()
 
 
-def dr_draw_step_rows(env, key: torch.Tensor, batch: int):
+def dr_draw_step_rows(env, key: torch.Tensor, batch: int, env_base: int = 0):
     """No rows; advances key by one as every step's draw does."""
-    return dr_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
+    return dr_noise_rows(env, draw_noise(key, step_noise_spec(env), batch, env_base))
 
 
 def pe_noise_rows(env, r_noise: dict):
@@ -220,9 +224,10 @@ def pe_noise_rows(env, r_noise: dict):
     return r_noise["ball"], r_noise["recv_x"]
 
 
-def pe_draw_step_rows(env, key: torch.Tensor, batch: int):
-    """The step's PE noise rows from ``key``'s Philox stream; advances key."""
-    return pe_noise_rows(env, draw_noise(key, step_noise_spec(env), batch))
+def pe_draw_step_rows(env, key: torch.Tensor, batch: int, env_base: int = 0):
+    """The step's PE noise rows from ``key``'s Philox stream for the envs
+    from global index ``env_base`` on; advances key."""
+    return pe_noise_rows(env, draw_noise(key, step_noise_spec(env), batch, env_base))
 
 
 # -------------------------------------------------------- plain versions
@@ -382,7 +387,7 @@ def routed_entry(entry: str, batch: int) -> str:
 
 
 def _launch(wrapper, entry: str, env, n_robots: int, state_rows: int, n_aux: int, state, action,
-            noise, noise_rows, key, emit_final):
+            noise, noise_rows, key, emit_final, env_base):
     """Check the operands, allocate the outputs and launch ``entry``'s
     kernel for the batch (:func:`route`); count the launch on ``wrapper``."""
     if env.n_robots != n_robots or env.physics_cfg.n_substeps != N_SUBSTEPS:
@@ -398,6 +403,7 @@ def _launch(wrapper, entry: str, env, n_robots: int, state_rows: int, n_aux: int
     rng_kernel = key is not None
     if rng_kernel:
         _build.check_key(key, dev)
+        _build.check_env_base(env_base, b)
     else:
         for i, (t, rows) in enumerate(zip(noise, noise_rows)):
             _build.check_operand(t, f"noise[{i}]", rows, b, dev)
@@ -407,15 +413,17 @@ def _launch(wrapper, entry: str, env, n_robots: int, state_rows: int, n_aux: int
     st_out = torch.empty_like(state)
     obs = torch.empty((env.obs_size * (2 if emit_final else 1), b), dtype=torch.float32, device=dev)
     aux = torch.empty((n_aux, b), dtype=torch.float32, device=dev)
-    # DR has no noise operands, and so no key pointer either
+    # DR has no noise operands, and so no key pointer and no env_base either
     ptrs = [None if rng_kernel else t.data_ptr() for t in noise]
+    base = ()
     if noise_rows:
         ptrs.append(key.data_ptr() if rng_kernel else None)
+        base = (env_base,)
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
             int(emit_final), int(rng_kernel), ctypes.byref(_params_struct(env)),
             state.data_ptr(), action.data_ptr(), *ptrs,
-            st_out.data_ptr(), obs.data_ptr(), aux.data_ptr(), b,
+            st_out.data_ptr(), obs.data_ptr(), aux.data_ptr(), *base, b,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -443,11 +451,12 @@ def _dispatch(name, env, state, noise, key):
 
 
 def sd_full_step(env, state, action, ball_u=None, spawn_u=None, theta_u=None, *,
-                 key=None, emit_final: bool = False):
+                 key=None, emit_final: bool = False, env_base: int = 0):
     """One fused SSLStaticDefenders-v0 step.
 
     Noise either as input rows (``ball_u``, ``spawn_u``, ``theta_u``), or
-    drawn from ``key`` (int64 ``[k0, k1, step]``, advanced by one).
+    drawn from ``key`` (int64 ``[k0, k1, step]``, advanced by one) for the
+    envs from global index ``env_base`` on (a shard of a larger batch).
     Returns ``(state, obs, aux)``.  On the card it launches the 8-lane group
     kernel up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel
     above (:func:`route`): the crossover the H100 measured (PERF.md,
@@ -457,54 +466,59 @@ def sd_full_step(env, state, action, ball_u=None, spawn_u=None, theta_u=None, *,
     if _dispatch("sd_full_step", env, state, noise, key):
         return _launch(sd_full_step, "ssl_sd_full_step", env, SD_ROBOTS, sd_state_size(),
                        3 + len(SD_KEYS), state, action, noise,
-                       (2 * K, env.n_yellow * 2 * K, env.n_yellow), key, emit_final)
+                       (2 * K, env.n_yellow * 2 * K, env.n_yellow), key, emit_final, env_base)
     if key is not None:
-        noise = sd_draw_step_rows(env, key, state.shape[-1])
+        noise = sd_draw_step_rows(env, key, state.shape[-1], env_base)
     return sd_full_step_plain(env, state, action, *noise, emit_final)
 
 
-def cp_full_step(env, state, action, enemy_u=None, *, key=None, emit_final: bool = False):
+def cp_full_step(env, state, action, enemy_u=None, *, key=None, emit_final: bool = False,
+                 env_base: int = 0):
     """One fused SSLContestedPossession-v0 step.
 
     Noise either as the input row block ``enemy_u`` (2, B), or drawn from
-    ``key`` (advanced by one).  Returns ``(state, obs, aux)``.
+    ``key`` (advanced by one) for the envs from global index ``env_base``
+    on.  Returns ``(state, obs, aux)``.
     """
     noise = (enemy_u,)
     if _dispatch("cp_full_step", env, state, noise, key):
         return _launch(cp_full_step, "ssl_cp_full_step", env, CP_ROBOTS, cp_state_size(),
-                       3 + len(CP_KEYS), state, action, noise, (2,), key, emit_final)
+                       3 + len(CP_KEYS), state, action, noise, (2,), key, emit_final, env_base)
     if key is not None:
-        noise = cp_draw_step_rows(env, key, state.shape[-1])
+        noise = cp_draw_step_rows(env, key, state.shape[-1], env_base)
     return cp_full_step_plain(env, state, action, *noise, emit_final)
 
 
-def dr_full_step(env, state, action, *, key=None, emit_final: bool = False):
+def dr_full_step(env, state, action, *, key=None, emit_final: bool = False,
+                 env_base: int = 0):
     """One fused SSLDribbling-v0 step.  It draws no noise; ``key``, where
-    given (the kernel-RNG mode), is advanced by one all the same.  Returns
+    given (the kernel-RNG mode), is advanced by one all the same, and
+    ``env_base`` (a shard's first global env index) reaches no word.  Returns
     ``(state, obs, aux)``.  On the card it launches the 8-lane group kernel
     up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel above
     (:func:`route`): the crossover the H100 measured (PERF.md, section 6)."""
     if _dispatch("dr_full_step", env, state, (), key):
         return _launch(dr_full_step, "ssl_dr_full_step", env, DR_ROBOTS, dr_state_size(), 3,
-                       state, action, (), (), key, emit_final)
+                       state, action, (), (), key, emit_final, env_base)
     if key is not None:
-        dr_draw_step_rows(env, key, state.shape[-1])
+        dr_draw_step_rows(env, key, state.shape[-1], env_base)
     return dr_full_step_plain(env, state, action, emit_final)
 
 
 def pe_full_step(env, state, action, ball_u=None, recv_u=None, *, key=None,
-                 emit_final: bool = False):
+                 emit_final: bool = False, env_base: int = 0):
     """One fused SSLPassEndurance-v0 step.
 
     Noise either as input rows (``ball_u`` (2, B), ``recv_u`` (16, B)), or
-    drawn from ``key`` (advanced by one).  Returns ``(state, obs, aux)``.
+    drawn from ``key`` (advanced by one) for the envs from global index
+    ``env_base`` on.  Returns ``(state, obs, aux)``.
     """
     noise = (ball_u, recv_u)
     if _dispatch("pe_full_step", env, state, noise, key):
         return _launch(pe_full_step, "ssl_pe_full_step", env, PE_ROBOTS, pe_state_size(),
-                       3 + len(PE_KEYS), state, action, noise, (2, N_CAND), key, emit_final)
+                       3 + len(PE_KEYS), state, action, noise, (2, N_CAND), key, emit_final, env_base)
     if key is not None:
-        noise = pe_draw_step_rows(env, key, state.shape[-1])
+        noise = pe_draw_step_rows(env, key, state.shape[-1], env_base)
     return pe_full_step_plain(env, state, action, *noise, emit_final)
 
 

@@ -41,7 +41,9 @@ RNG — a deliberate departure from the TPU.  There, ``rng="input"`` and
 hardware PRNG).  Here both are the one Philox stream of ``ops/philox.py``:
 ``rng="kernel"`` draws the words in the kernel from the device key tensor
 ``[k0, k1, step]``; the plain path draws the same words with
-``envs/base.draw_noise``.  So the kernel-RNG variant is testable against
+``envs/base.draw_noise``.  Both count envs from ``env_base`` (the global
+index of column 0, an argument of the C entries): a shard of a larger
+batch (``parallel/``) draws that batch's columns.  So the kernel-RNG variant is testable against
 its plain version and, through the input rows, against the JAX kernel.
 
 :func:`vss_full_step` runs the plain version :func:`vss_full_step_plain`
@@ -137,9 +139,10 @@ def noise_rows(env: VSSEnv, t_noise: dict, r_noise: dict):
     )
 
 
-def draw_step_rows(env: VSSEnv, key: torch.Tensor, batch: int):
-    """The step's noise rows from ``key``'s Philox stream; advances key."""
-    noise = draw_noise(key, step_noise_spec(env), batch)
+def draw_step_rows(env: VSSEnv, key: torch.Tensor, batch: int, env_base: int = 0):
+    """The step's noise rows from ``key``'s Philox stream for the envs from
+    global index ``env_base`` on; advances key."""
+    noise = draw_noise(key, step_noise_spec(env), batch, env_base)
     return noise_rows(env, noise, noise)
 
 
@@ -279,7 +282,7 @@ def _library():
     return lib
 
 
-def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
+def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final, env_base):
     n, nb = env.n_robots, env.n_blue
     dev = state.device
     b = state.shape[-1]
@@ -289,6 +292,7 @@ def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
     rng_kernel = key is not None
     if rng_kernel:
         _build.check_key(key, dev)
+        _build.check_env_base(env_base, b)
     else:
         _build.check_operand(ou_noise, "ou_noise", 2 * n, b, dev)
         _build.check_operand(spawn_u, "spawn_u", (1 + n) * 2 * spawn_mod.N_CANDIDATES, b, dev)
@@ -309,7 +313,7 @@ def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
             nb, n - nb, int(emit_final), int(rng_kernel),
             int(not taylor_rotation_holds(env)), ctypes.byref(params),
             ptr(state), ptr(action), ptr(ou_noise), ptr(spawn_u), ptr(theta_u),
-            ptr(key), st_out.data_ptr(), obs.data_ptr(), aux.data_ptr(), b,
+            ptr(key), st_out.data_ptr(), obs.data_ptr(), aux.data_ptr(), env_base, b,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -323,26 +327,27 @@ def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final):
 
 
 def vss_full_step(env: VSSEnv, state, action, ou_noise=None, spawn_u=None,
-                  theta_u=None, *, key=None, emit_final: bool = False):
+                  theta_u=None, *, key=None, emit_final: bool = False, env_base: int = 0):
     """One fused VSS step.
 
     Noise either as input rows (``ou_noise``, ``spawn_u``, ``theta_u``), or
     drawn from ``key`` (int64 ``[k0, k1, step]``, advanced by one) — in the
-    kernel on a CUDA device, by :func:`draw_step_rows` on the CPU.
+    kernel on a CUDA device, by :func:`draw_step_rows` on the CPU — for the
+    envs from global index ``env_base`` on (a shard of a larger batch).
     Returns ``(state, obs, aux)``.
     """
     if (key is None) == (ou_noise is None):
         raise ValueError("pass exactly one of: the noise rows, key")
     if state.device.type == "cuda":
         return _launch(env, state, action, ou_noise, spawn_u, theta_u, key,
-                       emit_final)
+                       emit_final, env_base)
     if state.device.type != "cpu":
         raise NotImplementedError(
             f"vss_full_step runs on CUDA (kernel) or CPU (plain version), "
             f"not {state.device.type}"
         )
     if key is not None:
-        ou_noise, spawn_u, theta_u = draw_step_rows(env, key, state.shape[-1])
+        ou_noise, spawn_u, theta_u = draw_step_rows(env, key, state.shape[-1], env_base)
     return vss_full_step_plain(env, state, action, ou_noise, spawn_u, theta_u,
                                emit_final)
 

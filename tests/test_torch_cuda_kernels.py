@@ -122,15 +122,16 @@ def test_kernel_matches_plain_ragged(cuda, batch, rng_mode, emit_final):
     assert dones >= batch  # every env reset at least once
 
 
-def test_philox_words_bit_equal(cuda):
+@pytest.mark.parametrize("env_base", [0, 3 * B])
+def test_philox_words_bit_equal(cuda, env_base):
     lib = vf._library()
     key = make_key(99, stream=2, device=cuda)
     key[2] = (3 << 32) + 1
     n_blk = 36
     out = torch.empty((4 * n_blk, B), dtype=torch.int32, device=cuda)
-    assert lib.philox_words(key.data_ptr(), out.data_ptr(), n_blk, B,
+    assert lib.philox_words(key.data_ptr(), out.data_ptr(), n_blk, env_base, B,
                             torch.cuda.current_stream().cuda_stream) == 0
-    assert torch.equal(out.to(torch.int64) & 0xFFFFFFFF, philox_words(key, 4 * n_blk, B))
+    assert torch.equal(out.to(torch.int64) & 0xFFFFFFFF, philox_words(key, 4 * n_blk, B, env_base=env_base))
 
 
 def test_main_path_goes_through_the_kernel(cuda):
@@ -189,7 +190,7 @@ def vss_entry(entry, env, st, act, rows, key, emit_final):
     err = getattr(vf._library(), entry)(
         env.n_blue, env.n_yellow, int(emit_final), int(rng), int(not vf.taylor_rotation_holds(env)),
         ctypes.byref(vf._params_struct(env)), st.data_ptr(), act.data_ptr(), ou, sp, th,
-        key.data_ptr() if rng else None, *(t.data_ptr() for t in outs), b,
+        key.data_ptr() if rng else None, *(t.data_ptr() for t in outs), 0, b,  # env_base 0
         torch.cuda.current_stream().cuda_stream)
     assert err == 0, entry
     torch.cuda.synchronize()
