@@ -142,6 +142,20 @@ the ranks, each ring holding its envs' transitions), each one-rank run
 bit for bit its unsharded counterpart; ``elastic_resume`` crashes and
 resumes ``rsoccer_tpu_torch/tools/elastic_train.py`` (PPO, SAC) to equal
 digests.
+Last, the tools (``rsoccer_tpu_torch/tools/``), each in-process through
+its ``main(argv)``, the launch counts zeroed before and read after:
+``tool_bench_all`` (the five ids at 8192 envs in modes 0, full and
+full-krng, VSS-v0 in mode 1: every fused point one launch of its routed
+entry per env step), ``tool_profile_step`` (VSS-v0 full-krng: K1 once
+per step in the profiled window), ``tool_profile_ppo`` and
+``tool_profile_sac`` (SD at 4096 and 512 envs, fused: K4's
+``emit_final`` variant once per env step), ``tool_roofline_ppo`` and
+``tool_roofline_sac`` (the matmul FLOPs the profiler counts equal the
+towers' count from their shapes, MFU at most 100%, the kernel classes
+summing to the device total) and ``tool_sd_spawn_slice`` (``sd_ppo3`` at
+1024 envs x 2000 steps on K4: every spawn bin's goal rate inside the
+two-sample 3-sigma band around the JAX tool's own output); each phase
+line lists its depth cuts.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -157,6 +171,11 @@ import time
 from types import SimpleNamespace
 
 import torch
+
+from rsoccer_tpu_torch.ops.bounds import (
+    CP_OPS, DR_OPS, PE_OPS, SD_OPS, bound_ms, vss_full_ops, vss_physics_ops,
+)
+from rsoccer_tpu_torch.tools import _trace
 
 B = 8192
 RAGGED_B = 8191  # leaves the last 32-env block of the group kernels part empty
@@ -184,10 +203,6 @@ PHYSICS_DEPTH = dict(warm_rollouts=1, timed_rollouts=2, profile_steps=5)
 TIMED_LAUNCHES = 200
 ATOL = 5e-5
 OUT_DIR = "chiprun_out"
-# the least time the card could take (H100 SXM data sheet, 700 W): bytes
-# over the HBM rate, f32 operations over the non-tensor-core f32 rate
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 
 
 _T0 = time.perf_counter()
@@ -204,31 +219,8 @@ def make_env(task):
     return rt.make(task.env_id, **task.env_kwargs)
 
 
-def vss_full_ops(n):
-    """K1's f32 operations per env (ops_env) and per done env (ops_reset),
-    counted from the kernel source for n robots: OU + wheels ~17 per robot
-    and the n + 1 Philox blocks of the OU slots; 5 substeps x (n robots x 30
-    + n(n-1)/2 pairs x 25 + walls 8 per robot + ball 60 + n contacts x 20);
-    obs ~10 per robot.  A reset: spawn placement (n + 1 entities x 8
-    candidates against the points placed before, ~4 each, and their
-    setup) and its 4(n + 1) Philox blocks, the theta block."""
-    ops_env = 17 * n + (n + 1) * 40 + 5 * (38 * n + 25 * n * (n - 1) // 2 + 60 + 20 * n) + 10 * n
-    ops_reset = 16 * n * (n + 1) + 32 * (n + 1) + 40 * (4 * (n + 1) + 1)
-    return ops_env, ops_reset
-
-
-def vss_physics_ops(n):
-    """K2's f32 operations per env for n robots: commands and trig 12 per
-    robot, 5 substeps x (n robots x 35 + n(n-1)/2 pairs x 35 + apply 4 and
-    walls 16 per robot + ball 24 + n contacts x 28 + 4 + ball walls 20)."""
-    return 12 * n + 5 * (55 * n + 35 * n * (n - 1) // 2 + 28 * n + 48)
-
-
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    return _trace.card_line(torch.device("cuda", 0))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -605,30 +597,19 @@ def time_cuda(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def _device_kernels(fn, n: int, match: str, table: str) -> list:
-    """The profiler's device events over ``n`` calls of ``fn`` (after one
-    call unprofiled), taken again where the window saw no kernel matching
-    ``match``; ``table`` names a file under chiprun_out/ for its full
-    table.  A user annotation's range on the device
-    (``Optimizer.step#Adam.step``) spans kernels counted on their own: left
-    out."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _device_kernels(fn, n: int, match: str, table: str) -> dict:
+    """{kernel name: [device us, launches]} over ``n`` calls of ``fn``
+    (after one call unprofiled) through ``tools/_trace.profile``, which
+    takes the window again where it saw no kernel matching ``match`` and
+    leaves out a user annotation's range on the device; ``table`` names a
+    file under chiprun_out/ for the top 40 kernels."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        if any(e.device_type == DeviceType.CUDA and re.search(match, e.key) for e in prof.key_averages()):
-            break
+    trace = _trace.profile(fn, n, None, "cuda", match=match)
     if table:
         with open(os.path.join(OUT_DIR, table), "w") as fh:
-            fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+            fh.write(trace.table(40))
+    return trace.kernels
 
 
 def _top(kernels: dict) -> dict:
@@ -643,8 +624,8 @@ def device_us(fn, n: int, match: str = "", table: str = "") -> tuple[float, dict
     kernels).  With a ``match``, each matched kernel is taken to launch
     once per call: its time per call is its time per launch the profiler
     saw (a window that misses events stays right)."""
-    kernels = {e.key: e.self_device_time_total / (e.count if match else n)
-               for e in _device_kernels(fn, n, match, table) if re.search(match, e.key)}
+    kernels = {k: us / (c if match else n) for k, (us, c) in _device_kernels(fn, n, match, table).items()
+               if re.search(match, k)}
     total = sum(kernels.values())
     if total <= 0:
         raise RuntimeError(f"the profiler saw no device time for {match or 'any kernel'!r}")
@@ -656,26 +637,11 @@ def device_us_split(fn, n: int, match: str, table: str = "") -> tuple[float, flo
     per launch of the kernels ``match`` finds, us per call of all device
     kernels, the top kernels per call)."""
     events = _device_kernels(fn, n, match, table)
-    matched = sum(e.self_device_time_total / e.count for e in events if re.search(match, e.key))
-    kernels = {e.key: e.self_device_time_total / n for e in events}
+    matched = sum(us / c for k, (us, c) in events.items() if re.search(match, k))
+    kernels = {k: us / n for k, (us, _) in events.items()}
     if matched <= 0 or not kernels:
         raise RuntimeError(f"the profiler saw no device time for {match!r}")
     return matched, sum(kernels.values()), _top(kernels)
-
-
-def bound_ms(task, ins, outs, n_done: int) -> tuple[float, str, float, float]:
-    """The least time for one step on these inputs: each input read once
-    and each output written once over the HBM rate, against the f32
-    operations over the f32 rate.  Returns (bound, "bytes" or
-    "operations", bytes time, operations time), in ms.  Operations: task.ops_env per env
-    plus task.ops_reset per lane that this call resets (counted from the
-    kernel source: one per f32 add, multiply, divide, compare, min/max,
-    square root or transcendental; each Philox block as 40)."""
-    n_bytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
-    n_ops = task.ops_env * ins[0].shape[-1] + task.ops_reset * n_done
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops
 
 
 def fused_calls(task, env, carry):
@@ -768,7 +734,7 @@ def time_at_scale(card, k1, k2, ssl_tasks):
             dev_us[name], _ = device_us(fn, TIMED_LAUNCHES, task.kernel_match)
             outs = fn()
             n_done = 0 if task is k2 else int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum())
-            bound, by, _, _ = bound_ms(task, ins, outs, n_done)
+            bound, by, _, _ = bound_ms(ins, outs, task.ops_env, task.ops_reset, n_done)
             bound_us[name] = [bound * 1e3, by]
         torch.cuda.synchronize()
         phase("kernel_scale", card=card, B=batch, device_us=dev_us, bound_us=bound_us,
@@ -1194,10 +1160,10 @@ def main_path(task, tasks, card):
                                       table=f"profile_rollout_{task.name}.txt")
     rollout_us_per_step = roll_ms * 1e3 / n_steps
     outs = calls["kernel"]()
-    bound, bound_by, bytes_ms, ops_ms = bound_ms(task, calls["ins"], outs, calls["n_done"](outs))
+    bound, bound_by, bytes_ms, ops_ms = bound_ms(calls["ins"], outs, task.ops_env, task.ops_reset, calls["n_done"](outs))
     extra = {}
     if "ins_input" in calls:
-        b_in = bound_ms(task, calls["ins_input"], outs, calls["n_done"](outs))
+        b_in = bound_ms(calls["ins_input"], outs, task.ops_env, task.ops_reset, calls["n_done"](outs))
         extra = {"bound_input_rows_us": b_in[0] * 1e3, "bound_input_rows_by": b_in[1]}
     phase(f"main_path_{task.name}", card=card, env=task.env_id, env_kwargs=task.env_kwargs, B=B,
           steps=n_steps, launches=launches[task.wrapper.__name__], entry=routed_entry(task, B),
@@ -1423,7 +1389,7 @@ def ppo_profile(card, trainer, state, k1, train_out):
     kern_dev_us, _ = device_us(kernel, TIMED_LAUNCHES, k1.kernel_match)
     plain_dev_us, _ = device_us(plain, 10)
     n_done = int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum())
-    bound, by, _, _ = bound_ms(k1, (st, act, key), outs, n_done)
+    bound, by, _, _ = bound_ms((st, act, key), outs, k1.ops_env, k1.ops_reset, n_done)
     share = k1_us * PPO_CONFIG["rollout_steps"] / (train_out["collect_ms_per_update"] * 1e3)
     phase("ppo_profile", card=card, k1_emit_final_device_us_per_launch_in_train_step=k1_us,
           train_step_device_ms=step_us / 1e3, k1_share_of_collect=share,
@@ -1664,7 +1630,7 @@ def sac_profile(card, trainer, state, k4, train_out):
     kern_dev_us, _ = device_us(kernel, TIMED_LAUNCHES, k4.kernel_match)
     plain_dev_us, _ = device_us(plain, 10)
     n_done = int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum())
-    bound, by, bytes_ms, ops_ms = bound_ms(k4, (st, act, key), outs, n_done)
+    bound, by, bytes_ms, ops_ms = bound_ms((st, act, key), outs, k4.ops_env, k4.ops_reset, n_done)
     phase("sac_profile", card=card, B=SAC_ENVS, k4_emit_final_device_us_per_launch_in_train_step=k4_us,
           k4_share_of_collect=k4_us / (train_out["collect_ms_per_iter"] * 1e3),
           train_iter_device_ms=iter_us / 1e3,
@@ -2001,7 +1967,7 @@ def physics_record(name, k2, env, state, launches: int, err: float) -> dict:
     calls = physics_calls(k2, env, SimpleNamespace(state=state))
     kern_us, _ = device_us(calls["kernel"], TIMED_LAUNCHES, k2.kernel_match)
     plain_us, _ = device_us(calls["plain"], 10)
-    bound, by, _, _ = bound_ms(k2, calls["ins"], calls["kernel"](), 0)
+    bound, by, _, _ = bound_ms(calls["ins"], calls["kernel"](), k2.ops_env, k2.ops_reset, 0)
     return {"name": name, "route": "cuda", "source": k2.source, "replaces": k2.replaces,
             "launches": launches, "max_abs_err": err, "ms": kern_us / 1e3, "plain_ms": plain_us / 1e3,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
@@ -2699,6 +2665,214 @@ def elastic_resume(card, wrappers):
     phase("elastic_resume", card=card, args=ELASTIC_ARGS, crash_at=ELASTIC_CRASH_AT, runs=out)
 
 
+# ---- the tools (rsoccer_tpu_torch/tools/), each in-process through its
+# main(argv) on the card, every launch count zeroed just before and read
+# just after
+TOOL_DIR = os.path.join(OUT_DIR, "tools")
+BENCH_IDS = ("VSS-v0", "SSLStaticDefenders-v0", "SSLDribbling-v0", "SSLContestedPossession-v0",
+             "SSLPassEndurance-v0")
+BENCH_STEPS = 20  # the tool's default 100 (the plain path's points take ~2 s each at 20)
+BENCH_TIMED = 2  # timed calls (the tool's default: from 5, grown to a 2 s window)
+PROFILE_STEP_STEPS = 20  # the tool's default 100
+PROFILE_PPO_ENVS, PROFILE_PPO_ITERS = 4096, 2  # the tool's default iters 5
+PROFILE_SAC_CHAIN = 20  # the tool's default 200 (the tool's default iters 5: 1 here)
+# the JAX docstring's 50 and 200; SAC's 25 puts the profiled window past
+# the 50 warmup collects of its two warm-up calls
+ROOFLINE_CHAIN = {"ppo": 1, "sac": 25}
+# The JAX tool's own output on its XLA path, on the CPU, at the size the
+# phase runs: `JAX_PLATFORMS=cpu python tools/sd_spawn_slice.py --params
+# artifacts/sd_ppo3.ckpt --envs 1024 --steps 2000` (episodes, goal rate)
+SPAWN_ENVS, SPAWN_STEPS = 1024, 2000
+SPAWN_JAX = {
+    "by_defender_dist": {"<0.3": (748, 0.7620320855614974), "0.3-0.6": (3146, 0.8312142403051493),
+                         "0.6-1.0": (5015, 0.8753738783649053), "1.0-2.0": (7618, 0.8972171173536361),
+                         ">=2.0": (1836, 0.8986928104575164)},
+    "by_ball_x": {"0.2-1": (3739, 0.8210751537844343), "1-2": (4683, 0.8641896220371557),
+                  "2-3": (4730, 0.9010570824524313), "3-4": (3992, 0.9183366733466933),
+                  "4-4.4": (1219, 0.8326497128794094)},
+}
+SPAWN_JAX_TOTAL = (18363, 0.8745847628383162)
+# docs/training.md:128-134: the published slice (2048 episodes of an 87.1%
+# policy; the ball at x >= 4.0 m: 0.792)
+SPAWN_PUBLISHED = {"<0.3": (78, 0.654), "0.3-0.6": (328, 0.784), "0.6-1.0": (593, 0.862),
+                   "1.0-2.0": (828, 0.882), ">=2.0": (221, 0.950)}
+
+
+def check_counts(tag, wrappers, want: dict):
+    """After a run that began with ``zero_counts(wrappers)``: each wrapper
+    named in ``want`` (its ``__name__`` -> (C entry, launches, emit_final
+    launches)) launched that often, all through that entry; every other
+    wrapper never.  Returns the launch counts."""
+    launches = {w.__name__: w.launches for w in wrappers}
+    for w in wrappers:
+        entry, n, final = want.get(w.__name__, (None, 0, 0))
+        by_entry = dict(w.entry_launches)
+        finals = getattr(w, "final_launches", 0)
+        if w.launches != n or by_entry != ({entry: n} if n else {}) or finals != final:
+            raise AssertionError(f"{tag}: {w.__name__} launched {w.launches} by entry {by_entry}, "
+                                 f"emit_final {finals}; want {n} through {entry}, emit_final {final}")
+    return launches
+
+
+def kernel_launches(summary: dict, match: str) -> int:
+    """Launches in a profiled window of the kernels ``match`` finds."""
+    return sum(c for name, (_, c) in summary["kernels"].items() if re.search(match, name))
+
+
+def tool_bench_all(card, wrappers, tasks):
+    """tools/bench_all.py over the five ids at B envs in modes 0, full and
+    full-krng, then VSS-v0 in mode 1: every fused point one launch of its
+    env's routed entry per env step (2 warm-up and BENCH_TIMED timed calls
+    of BENCH_STEPS steps), no other launch."""
+    from rsoccer_tpu_torch.tools import bench_all
+
+    task_of = {t.env_id: t for t in tasks if t.name in GYM_TASKS}
+    per_point = (2 + BENCH_TIMED) * BENCH_STEPS
+    args = ["--envs", str(B), "--steps", str(BENCH_STEPS), "--iters", str(BENCH_TIMED), "--min-seconds", "0"]
+    t0 = time.perf_counter()
+    zero_counts(wrappers)
+    rows = bench_all.main(["--ids", ",".join(BENCH_IDS), "--modes", "0,full,full-krng", *args,
+                           "--out", os.path.join(TOOL_DIR, "bench_all.json")])
+    want = {task_of[i].wrapper.__name__: (routed_entry(task_of[i], B), 2 * per_point, 0) for i in BENCH_IDS}
+    launches = check_counts("tool_bench_all", wrappers, want)
+    zero_counts(wrappers)
+    rows += bench_all.main(["--ids", "VSS-v0", "--modes", "1", *args,
+                            "--out", os.path.join(TOOL_DIR, "bench_all_mode1.json")])
+    check_counts("tool_bench_all mode 1", wrappers, {"vss_physics": ("vss_physics_step", per_point, 0)})
+    bad = [r for r in rows if not (math.isfinite(r["value"]) and r["value"] > 0)]
+    if bad or len(rows) != 3 * len(BENCH_IDS) + 1:
+        raise AssertionError(f"tool_bench_all: rows {rows}")
+    phase("tool_bench_all", card=card, B=B, cut=f"--steps {BENCH_STEPS} (100), --min-seconds 0 (2.0), "
+          f"--iters {BENCH_TIMED} (5)", launches=launches, vss_physics_launches=per_point,
+          env_steps_per_s={f"{r['env_id']} {r['mode']}": r["value"] for r in rows}, timer=rows[0]["timer"],
+          seconds=time.perf_counter() - t0)
+
+
+def tool_profiles(card, wrappers, k1, k4):
+    """tools/profile_step.py (VSS-v0 full-krng at B envs), profile_ppo.py
+    (SD at PROFILE_PPO_ENVS, fused, kernel RNG) and profile_sac.py (SD at
+    SAC_ENVS, fused, kernel RNG), each checked by its launches: one of the
+    routed entry per env step (the learners' the emit_final variant), and
+    the profiled window's."""
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.tools import profile_ppo, profile_sac, profile_step
+
+    t0 = time.perf_counter()
+    zero_counts(wrappers)
+    out = profile_step.main(["--env-id", "VSS-v0", "--envs", str(B), "--steps", str(PROFILE_STEP_STEPS),
+                             "--mode", "full-krng", "--out", os.path.join(TOOL_DIR, "profile_step")])
+    check_launches("tool_profile_step", wrappers, vf.vss_full_step, "vss_full_step",
+                   (2 + out["calls_run"]) * PROFILE_STEP_STEPS, final=0)
+    in_window = kernel_launches(out, k1.kernel_match)
+    if in_window != PROFILE_STEP_STEPS:
+        raise AssertionError(f"tool_profile_step: K1 launched {in_window} times in the window")
+    phase("tool_profile_step", card=card, B=B, steps=PROFILE_STEP_STEPS, cut="--steps 20 (100)",
+          k1_launches_in_window=in_window, busy_share=out["busy_share"], device_us=out["total_us"],
+          top=out["top"][:6], trace=out["trace"], seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    zero_counts(wrappers)
+    out = profile_ppo.main(["--envs", str(PROFILE_PPO_ENVS), "--fused", "--fused-rng", "kernel",
+                            "--iters", str(PROFILE_PPO_ITERS), "--out", os.path.join(TOOL_DIR, "profile_ppo")])
+    n = (2 + PROFILE_PPO_ITERS + out["trace"]["calls_run"]) * 128  # warm-up, timed, profiled updates
+    entry = sf.routed_entry("ssl_sd_full_step", PROFILE_PPO_ENVS)
+    check_launches("tool_profile_ppo", wrappers, sf.sd_full_step, entry, n, final=n)
+    in_window = kernel_launches(out["trace"], k4.kernel_match)
+    if in_window != 128:
+        raise AssertionError(f"tool_profile_ppo: K4 launched {in_window} times in the window")
+    phase("tool_profile_ppo", card=card, B=PROFILE_PPO_ENVS, cut=f"--iters {PROFILE_PPO_ITERS} (5)",
+          emit_final_launches=n, k4_launches_in_window=in_window,
+          **{k: out[k] for k in ("timer", "ms_per_update", "env_steps_per_s", "phase_ms")},
+          busy_share=out["trace"]["busy_share"], device_ms=out["trace"]["total_us"] / 1e3,
+          top=out["trace"]["top"][:6], seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    zero_counts(wrappers)
+    out = profile_sac.main(["--envs", str(SAC_ENVS), "--fused", "--fused-rng", "kernel", "--chain",
+                            str(PROFILE_SAC_CHAIN), "--iters", "1", "--out", os.path.join(TOOL_DIR, "profile_sac")])
+    n = (2 + 1 + out["trace"]["calls_run"]) * PROFILE_SAC_CHAIN
+    check_launches("tool_profile_sac", wrappers, sf.sd_full_step, sf.routed_entry("ssl_sd_full_step", SAC_ENVS),
+                   n, final=n)
+    in_window = kernel_launches(out["trace"], k4.kernel_match)
+    if in_window != PROFILE_SAC_CHAIN:
+        raise AssertionError(f"tool_profile_sac: K4 launched {in_window} times in the window")
+    phase("tool_profile_sac", card=card, B=SAC_ENVS, cut=f"--chain {PROFILE_SAC_CHAIN} (200), --iters 1 (5)",
+          emit_final_launches=n, k4_launches_in_window=in_window,
+          **{k: out[k] for k in ("timer", "us_per_iter", "env_steps_per_s")},
+          busy_share=out["trace"]["busy_share"], device_ms=out["trace"]["total_us"] / 1e3,
+          top=out["trace"]["top"][:6], seconds=time.perf_counter() - t0)
+
+
+def tool_rooflines(card, wrappers):
+    """tools/roofline.py on the JAX docstring's two runs, chains cut (and
+    SAC's on the fused path, as PPO's: K4 kernel RNG): the matmul FLOPs the
+    profiler counts equal the towers' count from their shapes, the MFU is
+    at most 100%, the classes sum to the device total, K4 once per env
+    step through the emit_final variant."""
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.tools import roofline
+
+    runs = {"ppo": (["--envs", "4096", "--num-epochs", "2", "--minibatch-mode", "time"], 4096, 128),
+            "sac": (["--envs", str(SAC_ENVS)], SAC_ENVS, 1)}
+    for learner, (extra, b, steps) in runs.items():
+        t0 = time.perf_counter()
+        chain = ROOFLINE_CHAIN[learner]
+        zero_counts(wrappers)
+        out = roofline.main(["--learner", learner, *extra, "--chain", str(chain), "--fused", "--fused-rng",
+                             "kernel", "--out", os.path.join(TOOL_DIR, f"roofline_{learner}"),
+                             "--json", os.path.join(TOOL_DIR, f"roofline_{learner}.json")])
+        n = (2 + out["calls_run"]) * chain * steps  # two warm-up calls and the profiler's
+        check_launches(f"tool_roofline_{learner}", wrappers, sf.sd_full_step,
+                       sf.routed_entry("ssl_sd_full_step", b), n, final=n)
+        class_ms = sum(v["ms"] for v in out["by_category"].values())
+        total_ms = out["us_per_iter"] * chain / 1e3
+        gates = {"matmul_flops_equal": out["matmul_flops"] == out["matmul_flops_towers"],
+                 "mfu_at_most_100": out["mfu_pct"] <= 100.0,
+                 "classes_sum_to_total": abs(class_ms - total_ms) <= 1e-9 * total_ms,
+                 "env_launches_in_window": out["env_kernel"]["launches"] == chain * steps}
+        phase(f"tool_roofline_{learner}", card=card, B=b, cut=f"--chain {chain} (JAX docstring: "
+              f"{ {'ppo': 50, 'sac': 200}[learner]})", emit_final_launches=n, gates=gates,
+              **{k: out[k] for k in ("us_per_iter", "env_steps_per_s", "busy_share", "matmul_flops",
+                                     "matmul_flops_towers", "achieved_tflops", "gemm_tflops", "towers_dtype",
+                                     "peak_tflops", "mfu_pct", "by_category", "env_kernel")},
+              seconds=time.perf_counter() - t0)
+        if not all(gates.values()):
+            raise AssertionError(f"tool_roofline_{learner}: {gates}")
+
+
+def tool_sd_spawn_slice(card, wrappers):
+    """tools/sd_spawn_slice.py with sd_ppo3 on K4 (fused, kernel RNG) at
+    the JAX tool's size: each defender-distance and ball-x bin's goal rate
+    inside the two-sample 3-sigma band around the JAX tool's own output;
+    one K4 launch per step, no other launch."""
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.tools import sd_spawn_slice
+
+    t0 = time.perf_counter()
+    zero_counts(wrappers)
+    out = sd_spawn_slice.main(["--params", os.path.join(ARTIFACTS, "sd_ppo3.ckpt"), "--envs", str(SPAWN_ENVS),
+                               "--steps", str(SPAWN_STEPS), "--fused"])
+    check_launches("tool_sd_spawn_slice", wrappers, sf.sd_full_step,
+                   sf.routed_entry("ssl_sd_full_step", SPAWN_ENVS), SPAWN_STEPS, final=0)
+    bins, misses = {}, {}
+    for table, refs in SPAWN_JAX.items():
+        for label, (n_ref, p_ref) in refs.items():
+            got = out[table][label]
+            band = two_sample_band(p_ref, p_ref * (1 - p_ref), n_ref, got["episodes"])
+            bins[f"{table} {label}"] = {"episodes": got["episodes"], "goal_rate": got["goal_rate"],
+                                        "jax": [n_ref, p_ref], "band_3sigma": band}
+            if not band[0] <= got["goal_rate"] <= band[1]:
+                misses[f"{table} {label}"] = bins[f"{table} {label}"]
+    phase("tool_sd_spawn_slice", card=card, envs=SPAWN_ENVS, steps=SPAWN_STEPS, episodes=out["episodes"],
+          goal_rate=out["goal_rate"], jax_total=SPAWN_JAX_TOTAL, bins=bins,
+          published_by_defender_dist=SPAWN_PUBLISHED,
+          termination_modes=out["termination_modes_by_defender_dist"], inside=not misses,
+          seconds=time.perf_counter() - t0)
+    if misses:
+        raise AssertionError(f"tool_sd_spawn_slice: outside the band: {misses}")
+
+
 def make_tasks():
     """The kernels' tasks: each fused env step, the physics kernel and the
     configurations beyond 3v3, with what main() checks, drives and times
@@ -2735,12 +2909,7 @@ def make_tasks():
             entry="ssl_sd_full_step",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:456",
-            # trig + actions ~40, 5 substeps x (7 robots x 20 + 21 pairs x 25
-            # + ball 45 + 7 contacts x 20 + 2 face zones x 12), shaping and
-            # obs ~120; a reset: ball 8 x 6, defenders 6 x 8 x (4.5 x 5 + 4),
-            # 30 Philox blocks
-            ops_env=40 + 5 * (140 + 525 + 45 + 140 + 24) + 120,
-            ops_reset=48 + 6 * 8 * 27 + 30 * 40,
+            ops_env=SD_OPS[0], ops_reset=SD_OPS[1],
             **fused,
         ),
         SimpleNamespace(
@@ -2750,10 +2919,7 @@ def make_tasks():
             entry="ssl_cp_full_step",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:824",
-            # trig + actions ~25, 5 substeps x (2 robots x 20 + 1 pair x 25
-            # + ball 45 + 2 contacts x 20 + 2 face zones x 12), epilogue ~110;
-            # a reset: ~10 and one Philox block
-            ops_env=25 + 5 * (40 + 25 + 45 + 40 + 24) + 110, ops_reset=10 + 40,
+            ops_env=CP_OPS[0], ops_reset=CP_OPS[1],
             **fused,
         ),
         SimpleNamespace(
@@ -2763,11 +2929,7 @@ def make_tasks():
             entry="ssl_dr_full_step",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:1086",
-            # trig 10 + actions ~20, 5 substeps x (5 robots x 20 + 10 pairs
-            # x 25 + ball 45 + 5 contacts x 20 + 3 face zones x 12), epilogue
-            # (collision 8, box 5, automaton ~30, obs 21 x 4) ~130; a reset:
-            # ~20 stores, 2 transcendentals
-            ops_env=30 + 5 * (100 + 250 + 45 + 100 + 36) + 130, ops_reset=22,
+            ops_env=DR_OPS[0], ops_reset=DR_OPS[1],
             make_benv=fused_benv, calls=fused_calls, prepare=dr_gate_states, events=dr_events,
             need_events=("crossings", "completions", "built_reverse_even"),
         ),
@@ -2778,12 +2940,7 @@ def make_tasks():
             entry="ssl_pe_full_step",
             source="rsoccer_tpu_torch/csrc/ssl_full.cu",
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:1327",
-            # trig 4 + actions ~5, 5 substeps x (2 robots x 20 + 1 pair x 25
-            # + ball 45 + 2 contacts x 20 + 2 pull zones x 30 + 4 face zones
-            # x 12), epilogue (distances, bbox, counters, shaping ~55, obs
-            # 16 x 4) ~120; a reset: 5 Philox blocks, 16 candidates x 5,
-            # atan2, sin/cos, rsqrt ~35
-            ops_env=9 + 5 * (40 + 25 + 45 + 40 + 60 + 48) + 120, ops_reset=5 * 40 + 16 * 5 + 35,
+            ops_env=PE_OPS[0], ops_reset=PE_OPS[1],
             make_benv=fused_benv, calls=fused_calls, prepare=pe_pass_states, events=pe_events,
             need_events=("received", "built_stopped_wrong", "built_out_wrong"),
         ),
@@ -3028,6 +3185,14 @@ def main() -> int:
     parallel_phases(card, wrappers, k4)
     elastic_resume(card, wrappers)
     phase("parallel_total", card=card, seconds=time.perf_counter() - t_par)
+
+    # ---- 11. the tools: bench_all, the profilers, the rooflines, the SD spawn slice
+    t_tools = time.perf_counter()
+    tool_bench_all(card, wrappers, tasks)
+    tool_profiles(card, wrappers, k1, k4)
+    tool_rooflines(card, wrappers)
+    tool_sd_spawn_slice(card, wrappers)
+    phase("tools_total", card=card, seconds=time.perf_counter() - t_tools)
     phase("total", card=card, seconds=time.perf_counter() - _T0)
 
     print(json.dumps({"kernels": kernels}))

@@ -18,27 +18,21 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import torch
+
+from rsoccer_tpu_torch.tools._trace import time_calls
 
 
 def time_rollouts(roll, carry, iters: int, device: torch.device):
     """Seconds for ``iters`` calls of ``roll`` after the carry; CUDA events
     on the card, the host clock on the CPU.  Returns (seconds, carry)."""
-    if device.type == "cuda":
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            carry, ms = roll(carry)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3, carry
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        carry, ms = roll(carry)
-    float(ms.total_reward)
-    return time.perf_counter() - t0, carry
+    box = [carry]
+
+    def call():
+        box[0], _ = roll(box[0])
+
+    return time_calls(call, iters, device), box[0]
 
 
 def main(argv=None) -> list:
