@@ -22,18 +22,20 @@ empty), as are the ContestedPossession and PassEndurance steps, and the
 StaticDefenders and Dribbling steps also at 16384 envs, where their
 wrappers launch the one-thread kernels.  VSS-v0 at 5v5 on its own
 field, at 1v0 and at 3v3 beyond the Taylor bound (``time_step`` 0.1) is
-held the same way at 8192 and 8191 envs (the one-thread VSS kernels; at
-3v3 the group kernel's exact-trig policy), the physics kernel at 5v5 and
-1v0, and at 3v3 the one-thread VSS kernels are held bit for bit to the
-group kernels at 32768 envs.  The VSS kernels and K4-K7 are timed at
-32768 and 131072 envs through their wrappers' routes.  Then it drives each
-main path —
+held the same way at 8192 and 8191 envs (5v5 on the 16-lane group kernel,
+and on the one-thread kernel just above its crossover; 1v0 on the
+one-thread kernel; at 3v3 the group kernel's exact-trig policy),
+the physics kernel at 5v5 (16 lanes) and 1v0 (one thread), and at 3v3 and
+5v5 the one-thread VSS kernels are held bit for bit to the group kernels
+at 32768 envs.  The VSS kernels and K4-K7 are timed at 32768 and 131072
+envs through their wrappers' routes.  Then it drives each main path —
 ``BatchedEnv(<id>, 8192, device="cuda", fused=True, fused_rng="kernel")``,
 ``BatchedEnv(VSS-v0, 8192, device="cuda", fused_physics=True)``, and
 ``make_vec("VSS-v0", 8192, ..., field_type=1, n_robots_blue=5,
-n_robots_yellow=5)`` fused and ``fused_physics`` —
+n_robots_yellow=5)`` and ``make_vec("VSS-v0", 8192, ..., n_robots_blue=1,
+n_robots_yellow=0)`` fused and ``fused_physics`` —
 through ``make_rollout_fn`` with every launch count set to 0 just before and
-read just after (the SSL steps and 5v5 also by C entry), and times it;
+read just after (also by the C entry the wrapper's route names), and times it;
 for the ContestedPossession and PassEndurance paths it prints the share of
 envs, and of 32-env warps, that hold a done env per step.  Each phase
 prints one line; any failure exits non-zero.  The last two lines are the
@@ -44,7 +46,11 @@ built from another tree's sources in DIR (its ``rsoccer_tpu_torch/csrc``,
 for example the parent commit's, unpacked with ``git archive``): the 3v3
 VSS kernels bit for bit, this tree's one-thread VSS kernels with them, all
 timed in turns (baseline, group, one thread, one thread, group, baseline)
-from 8192 to 131072 envs (the group-vs-one-thread crossover); all four SSL
+from 8192 to 131072 envs (the group-vs-one-thread crossover); the 5v5
+group kernels bit for bit against the baseline's one-thread kernels and
+this tree's (both RNG modes, both obs variants, both trig policies),
+timed in turns the same way against them, with the route beside the
+faster design (the 5v5 crossover); all four SSL
 steps, outputs bit for bit at 8192 to 131072 envs (in both RNG modes and
 both obs variants), then each timed in turns (baseline, this, this,
 baseline), the StaticDefenders and Dribbling steps with this tree's
@@ -181,7 +187,7 @@ B = 8192
 RAGGED_B = 8191  # leaves the last 32-env block of the group kernels part empty
 ONE_THREAD_B = 16384  # above ops/ssl_full.GROUP_MAX_ENVS: the one-thread SD and DR kernels
 SCALE_BATCHES = (32768, 131072)
-VSS_THREAD_B = 32768  # above VSS_GROUP_MAX_ENVS: the one-thread VSS kernels, checked bit for bit at 3v3
+VSS_THREAD_B = 32768  # the VSS group and one-thread kernels, checked bit for bit at 3v3 and 5v5
 # VSS-v0 beyond 3v3 and the Taylor bound: 5v5 on its own field (state 95
 # rows, obs 64), 1v0 (no robot pairs), 3v3 with exact trig each substep
 VSS_CONFIGS = {
@@ -189,8 +195,9 @@ VSS_CONFIGS = {
     "1v0": dict(n_robots_blue=1, n_robots_yellow=0),
     "3v3_dt0.1": dict(time_step=0.1),
 }
+VSS_5V5_EXACT = dict(VSS_CONFIGS["5v5"], time_step=0.1)  # 5v5 beyond the Taylor bound
 # the group-vs-one-thread crossover of the VSS kernels, timed in turns
-VSS_CROSSOVER_BATCHES = (B, 10240, 16384, 24576, 32768, 131072)
+VSS_CROSSOVER_BATCHES = (B, 10240, 16384, 24576, 32768, 65536, 131072)
 N_CHECK_STEPS = 5
 WARM_STEPS = 60  # SSL checks start mid-episode: contacts, dribbling, kicks
 ROLLOUT_STEPS = 100
@@ -773,6 +780,9 @@ def build_baseline(csrc_dir):
     base = [i] if takes_env_base(lib) else []
     lib.vss_full_step.argtypes = [i] * n_int + [p] * 10 + base + [i, p]
     lib.vss_physics_step.argtypes = [p] * 6 + [i, i, p]
+    if hasattr(lib, "vss_full_step_one_thread"):  # the same arguments as the group entries
+        lib.vss_full_step_one_thread.argtypes = lib.vss_full_step.argtypes
+        lib.vss_physics_step_one_thread.argtypes = lib.vss_physics_step.argtypes
     for entry, n_ptr in SSL_ENTRIES.values():
         drawn = base if entry != "ssl_dr_full_step" else []
         getattr(lib, entry).argtypes = [i, i] + [p] * n_ptr + drawn + [i, p]
@@ -898,11 +908,16 @@ def ssl_against_baseline(lib, tasks, card):
 
 
 def routed_entry(task, batch: int) -> str:
-    """The C entry that ``task``'s wrapper launches at ``batch`` envs: the
-    SSL steps by their route, the others their one entry."""
+    """The C entry that ``task``'s wrapper launches at ``batch`` envs, by
+    the wrapper's route: the SSL steps by their C entry, the VSS steps and
+    the physics kernel by the env's team size."""
     from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
 
-    return sf.routed_entry(task.entry, batch) if task.name in SSL_ENTRIES else task.entry
+    if task.name in SSL_ENTRIES:
+        return sf.routed_entry(task.entry, batch)
+    return (vf if task.wrapper is vf.vss_full_step else vp).routed_entry(make_env(task), batch)
 
 
 def done_shares(task, steps: int = ROLLOUT_STEPS) -> dict:
@@ -992,40 +1007,48 @@ def vss_operands(batch, **env_kwargs):
     return env, st, act, key, rows, rb, bl, cmd
 
 
-def check_thread_vs_group(batch: int = VSS_THREAD_B):
-    """At 3v3 the one-thread VSS kernels against the group kernels, through
-    their C entries on the same operands: K1 in both RNG modes, both obs
-    variants and both trig policies (the Taylor rotation at the default
-    time step, exact trig at 0.1 s), K2; every output bit for bit.  Returns
-    the number of comparisons."""
+def vss_outs(env, batch, emit_final=False):
+    """NaN-filled outputs of a VSS fused step (state, obs, aux)."""
     from rsoccer_tpu_torch.ops import vss_full as vf
-    from rsoccer_tpu_torch.ops import vss_physics as vp
+
+    return (torch.full((vf.state_size(env.n_robots), batch), float("nan"), device="cuda"),
+            torch.full((env.obs_size * (2 if emit_final else 1), batch), float("nan"), device="cuda"),
+            torch.full((vf.N_AUX, batch), float("nan"), device="cuda"))
+
+
+def check_thread_vs_group(batch: int = VSS_THREAD_B):
+    """At 3v3 and 5v5 the one-thread VSS kernels against the group kernels
+    (8 lanes at 3v3, 16 at 5v5), through their C entries on the same
+    operands: K1 in both RNG modes, both obs variants and both trig
+    policies (the Taylor rotation at the default time step, exact trig at
+    0.1 s), K2 (N = 6 and 10); every output bit for bit.  Returns the number
+    of comparisons by team size."""
+    from rsoccer_tpu_torch.ops import vss_full as vf
 
     lib = vf._library()
-    n_cmp = 0
-    for kwargs in ({}, VSS_CONFIGS["3v3_dt0.1"]):
+    n_cmp = {"3v3": 0, "5v5": 0}
+    for team, kwargs in (("3v3", {}), ("3v3", VSS_CONFIGS["3v3_dt0.1"]), ("5v5", VSS_CONFIGS["5v5"]),
+                         ("5v5", VSS_5V5_EXACT)):
         env, st, act, key, rows, rb, bl, cmd = vss_operands(batch, **kwargs)
         for rng in (False, True):
             for emit_final in (False, True):
                 outs = {}
                 for entry in ("vss_full_step", "vss_full_step_one_thread"):
-                    outs[entry] = (torch.full_like(st, float("nan")),
-                                   torch.full((env.obs_size * (2 if emit_final else 1), batch), float("nan"),
-                                              device="cuda"),
-                                   torch.full((vf.N_AUX, batch), float("nan"), device="cuda"))
+                    outs[entry] = vss_outs(env, batch, emit_final)
                     vss_entry_call(lib, entry, env, st, act, rows, key if rng else None, outs[entry], emit_final)
                 if not bit_equal(*outs.values()):
                     raise AssertionError(f"vss_full_step one-thread vs group kernel at {batch} envs {kwargs} "
                                          f"(rng_kernel={rng}, final={emit_final}): outputs differ")
-                n_cmp += 1
-        if not kwargs:
+                n_cmp[team] += 1
+        if "time_step" not in kwargs:
             outs = {}
             for entry in ("vss_physics_step", "vss_physics_step_one_thread"):
                 outs[entry] = (torch.full_like(rb, float("nan")), torch.full_like(bl, float("nan")))
                 vss_physics_entry_call(lib, entry, env, rb, bl, cmd, outs[entry])
             if not bit_equal(*outs.values()):
-                raise AssertionError(f"vss_physics one-thread vs group kernel at {batch} envs: outputs differ")
-            n_cmp += 1
+                raise AssertionError(f"vss_physics one-thread vs group kernel at {batch} envs, "
+                                     f"N = {env.n_robots}: outputs differ")
+            n_cmp[team] += 1
     torch.cuda.synchronize()
     return n_cmp
 
@@ -1079,6 +1102,70 @@ def vss_against_baseline(lib, card):
               route={"vss_full": vf.route(env, batch)})
 
 
+def vss_5v5_against_baseline(lib, card):
+    """This tree's 16-lane group kernels (K1 at 5v5, K2 at N = 10) against
+    the baseline library's one-thread kernels and this tree's, every output
+    bit for bit: K1 in both RNG modes, both obs variants and both trig
+    policies (5v5 at the default time step and at 0.1 s), K2 on the
+    commands of :func:`vss_operands`.  Then device us per launch of each at
+    each of VSS_CROSSOVER_BATCHES, in turns (baseline one thread, group, one
+    thread, one thread, group, baseline one thread), on the state after 20
+    5v5 steps: the 5v5 crossover, with the route beside the faster design.
+    One phase per batch.  Raises if an output differs."""
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+
+    this = vf._library()
+    trio = ((this, "vss_full_step"), (this, "vss_full_step_one_thread"), (lib, "vss_full_step_one_thread"))
+    phys_trio = ((this, "vss_physics_step"), (this, "vss_physics_step_one_thread"),
+                 (lib, "vss_physics_step_one_thread"))
+    for batch in VSS_CROSSOVER_BATCHES:
+        n_cmp = 0
+        for kwargs in (VSS_5V5_EXACT, VSS_CONFIGS["5v5"]):  # the timed operands last
+            env, st, act, key, rows, rb, bl, cmd = vss_operands(batch, **kwargs)
+            for rng in (False, True):
+                for emit_final in (False, True):
+                    got = [vss_outs(env, batch, emit_final) for _ in trio]
+                    for (lib_, entry), o in zip(trio, got):
+                        vss_entry_call(lib_, entry, env, st, act, rows, key if rng else None, o, emit_final)
+                    if not (bit_equal(got[0], got[1]) and bit_equal(got[0], got[2])):
+                        raise AssertionError(f"vss_full_step at 5v5, {batch} envs {kwargs} (rng_kernel={rng}, "
+                                             f"final={emit_final}): the group, one-thread and baseline outputs differ")
+                    n_cmp += 1
+        got = [(torch.full_like(rb, float("nan")), torch.full_like(bl, float("nan"))) for _ in phys_trio]
+        for (lib_, entry), o in zip(phys_trio, got):
+            vss_physics_entry_call(lib_, entry, env, rb, bl, cmd, o)
+        if not (bit_equal(got[0], got[1]) and bit_equal(got[0], got[2])):
+            raise AssertionError(f"vss_physics at N = 10, {batch} envs: the group, one-thread and baseline "
+                                 "outputs differ")
+        n_cmp += 1
+        outs, phys_outs = vss_outs(env, batch), got[0]
+
+        def full(lib_, entry, rng):
+            return lambda: vss_entry_call(lib_, entry, env, st, act, rows, key if rng else None, outs)
+
+        def phys(lib_, entry):
+            return lambda: vss_physics_entry_call(lib_, entry, env, rb, bl, cmd, phys_outs)
+
+        kernels = {  # name: (baseline one thread, group, one thread, device kernel names)
+            "vss_full_kernel_rng": (full(lib, "vss_full_step_one_thread", True), full(this, "vss_full_step", True),
+                                    full(this, "vss_full_step_one_thread", True), r"vss_(full|thread)_kernel"),
+            "vss_full_input_rows": (full(lib, "vss_full_step_one_thread", False),
+                                    full(this, "vss_full_step", False),
+                                    full(this, "vss_full_step_one_thread", False), r"vss_(full|thread)_kernel"),
+            "vss_physics": (phys(lib, "vss_physics_step_one_thread"), phys(this, "vss_physics_step"),
+                            phys(this, "vss_physics_step_one_thread"), r"vss_physics_(thread_)?kernel"),
+        }
+        turns = {name: [device_us(fn, TIMED_LAUNCHES, match)[0] for fn in (base, group, thread, thread, group, base)]
+                 for name, (base, group, thread, match) in kernels.items()}
+        mean_us = {n: {"baseline_thread": (t[0] + t[5]) / 2, "group": (t[1] + t[4]) / 2, "thread": (t[2] + t[3]) / 2}
+                   for n, t in turns.items()}
+        phase("vss_5v5_baseline_turns", card=card, B=batch, bit_equal=True, comparisons=n_cmp,
+              baselinethread_group_thread_thread_group_baselinethread_us=turns, mean_us=mean_us,
+              route={"vss_full": vf.route(env, batch), "vss_physics": vp.route(env, batch)},
+              faster={n: "group" if m["group"] <= m["thread"] else "thread" for n, m in mean_us.items()})
+
+
 def tensor_leaves(tree):
     """Leaves of a tensor or of (nested) NamedTuples of tensors."""
     if isinstance(tree, tuple):
@@ -1120,12 +1207,11 @@ def main_path(task, tasks, card):
     want = {w.__name__: (n_steps if w is task.wrapper else 0) for w in wrappers}
     if launches != want:
         raise AssertionError(f"{task.name} main path: launches {launches}, want {want}")
-    if task.entry is not None:  # the wrapper's kernel that the main path must run
-        by_entry = dict(task.wrapper.entry_launches)
-        entry = routed_entry(task, B)
-        if by_entry != {entry: n_steps}:
-            raise AssertionError(f"{task.name} main path: launches by C entry {by_entry}, "
-                                 f"want {entry} x {n_steps}")
+    by_entry = dict(task.wrapper.entry_launches)  # the C entry the route names must take every launch
+    entry = routed_entry(task, B)
+    if by_entry != {entry: n_steps}:
+        raise AssertionError(f"{task.name} main path: launches by C entry {by_entry}, "
+                             f"want {entry} x {n_steps}")
     obs = carry.obs
     if tuple(obs.shape) != (env.obs_size, B) or not bool(torch.isfinite(obs).all()):
         raise AssertionError(f"{task.name}: main-path obs not finite or of the wrong shape")
@@ -1272,7 +1358,7 @@ def vss_entry(benv):
     """The C entry of K1 that a fused VSS ``benv`` launches."""
     from rsoccer_tpu_torch.ops import vss_full as vf
 
-    return "vss_full_step" if vf.route(benv.env, benv.n_envs) == "group" else "vss_full_step_one_thread"
+    return vf.routed_entry(benv.env, benv.n_envs)
 
 
 def ppo_train(card, wrappers):
@@ -2629,7 +2715,8 @@ def parallel_phases(card, wrappers, k4):
           w2_iters_per_s=[s["iters_per_s"] for s in sides], w1_iters_per_s=one["sac"]["iters_per_s"],
           w2_k4_us_per_launch=[s["k4_us_per_launch"] for s in sides],
           w1_k4_us_per_launch=one["sac"]["k4_us_per_launch"],
-          w2_metrics=sides[0]["metrics"], w1_metrics=one["sac"]["metrics"])
+          w2_metrics=sides[0]["metrics"], w1_metrics=one["sac"]["metrics"],
+          w2_param_digests=[s["param_digest"] for s in sides], w1_param_digest=one["sac"]["param_digest"])
     if not (sac["w2_ranks_equal"] and sac["w1_equals_plain"] and sac["finite"]
             and all(f == PAR_SAC_ITERS * SAC_ENVS // PAR_WORLD for f in sac["w2_filled"])):
         raise AssertionError(f"parallel_sac: {sac}")
@@ -2891,7 +2978,7 @@ def make_tasks():
 
     fused = dict(make_benv=fused_benv, calls=fused_calls, prepare=None, events=None,
                  need_events=())
-    k1_ops, k1_ops_5v5 = vss_full_ops(6), vss_full_ops(10)
+    k1_ops, k1_ops_5v5, k1_ops_1v0 = vss_full_ops(6), vss_full_ops(10), vss_full_ops(1)
     tasks = [
         SimpleNamespace(
             name="vss_full_step", env_id="VSS-v0", wrapper=vf.vss_full_step,
@@ -2953,15 +3040,26 @@ def make_tasks():
             calls=physics_calls, **PHYSICS_DEPTH,
         ),
         # VSS's 5v5 division on its own field, through make_vec: the
-        # one-thread kernels
+        # 16-lane group kernels (the C entry their route names)
         SimpleNamespace(
-            name="vss_5v5", kernel="vss_thread_kernel", env_id="VSS-v0", env_kwargs=VSS_CONFIGS["5v5"],
+            name="vss_5v5", kernel="vss_full_kernel (5v5, 16 lanes)", env_id="VSS-v0",
+            env_kwargs=VSS_CONFIGS["5v5"], wrapper=vf.vss_full_step, plain=vf.vss_full_step_plain,
+            draw=vf.draw_step_rows, actions=random_actions(2), warm_steps=0, kernel_match="vss_full_kernel",
+            source="rsoccer_tpu_torch/csrc/vss_full.cu", replaces="rsoccer_tpu/ops/pallas_vss_full.py:142",
+            entry="vss_full_step", ops_env=k1_ops_5v5[0], ops_reset=k1_ops_5v5[1],
+            make_benv=lambda env: rt.make_vec("VSS-v0", B, device="cuda", fused=True, fused_rng="kernel",
+                                              **VSS_CONFIGS["5v5"]),
+            calls=fused_calls, prepare=None, events=None, need_events=(),
+        ),
+        # 1v0, which has no group kernel: the one-thread kernels
+        SimpleNamespace(
+            name="vss_1v0", kernel="vss_thread_kernel", env_id="VSS-v0", env_kwargs=VSS_CONFIGS["1v0"],
             wrapper=vf.vss_full_step, plain=vf.vss_full_step_plain, draw=vf.draw_step_rows,
             actions=random_actions(2), warm_steps=0, kernel_match="vss_thread_kernel",
             source="rsoccer_tpu_torch/csrc/vss_full.cu", replaces="rsoccer_tpu/ops/pallas_vss_full.py:142",
-            entry="vss_full_step_one_thread", ops_env=k1_ops_5v5[0], ops_reset=k1_ops_5v5[1],
+            entry="vss_full_step_one_thread", ops_env=k1_ops_1v0[0], ops_reset=k1_ops_1v0[1],
             make_benv=lambda env: rt.make_vec("VSS-v0", B, device="cuda", fused=True, fused_rng="kernel",
-                                              **VSS_CONFIGS["5v5"]),
+                                              **VSS_CONFIGS["1v0"]),
             calls=fused_calls, prepare=None, events=None, need_events=(),
         ),
         # VSSMultiAgent-v0: three policy blues, K2 its one kernel path
@@ -2974,12 +3072,21 @@ def make_tasks():
             calls=physics_calls, **PHYSICS_DEPTH,
         ),
         SimpleNamespace(
-            name="vss_5v5_fused_physics", kernel="vss_physics_thread_kernel", env_id="VSS-v0",
-            env_kwargs=VSS_CONFIGS["5v5"], wrapper=vp.vss_physics, kernel_match="vss_physics_thread_kernel",
+            name="vss_5v5_fused_physics", kernel="vss_physics_kernel (N = 10, 16 lanes)", env_id="VSS-v0",
+            env_kwargs=VSS_CONFIGS["5v5"], wrapper=vp.vss_physics, kernel_match="vss_physics_kernel",
             source="rsoccer_tpu_torch/csrc/vss_physics.cu", replaces="rsoccer_tpu/ops/pallas_vss.py:37",
-            entry="vss_physics_step_one_thread", ops_env=vss_physics_ops(10), ops_reset=0,
+            entry="vss_physics_step", ops_env=vss_physics_ops(10), ops_reset=0,
             make_benv=lambda env: rt.make_vec("VSS-v0", B, device="cuda", fused_physics=True,
                                               **VSS_CONFIGS["5v5"]),
+            calls=physics_calls, **PHYSICS_DEPTH,
+        ),
+        SimpleNamespace(
+            name="vss_1v0_fused_physics", kernel="vss_physics_thread_kernel", env_id="VSS-v0",
+            env_kwargs=VSS_CONFIGS["1v0"], wrapper=vp.vss_physics, kernel_match="vss_physics_thread_kernel",
+            source="rsoccer_tpu_torch/csrc/vss_physics.cu", replaces="rsoccer_tpu/ops/pallas_vss.py:37",
+            entry="vss_physics_step_one_thread", ops_env=vss_physics_ops(1), ops_reset=0,
+            make_benv=lambda env: rt.make_vec("VSS-v0", B, device="cuda", fused_physics=True,
+                                              **VSS_CONFIGS["1v0"]),
             calls=physics_calls, **PHYSICS_DEPTH,
         ),
     ]
@@ -3015,8 +3122,8 @@ def main() -> int:
 
     if ONE_THREAD_B <= sf.GROUP_MAX_ENVS:
         raise AssertionError(f"ONE_THREAD_B {ONE_THREAD_B} must exceed GROUP_MAX_ENVS {sf.GROUP_MAX_ENVS}")
-    if not B <= min(vf.VSS_GROUP_MAX_ENVS, vp.VSS_GROUP_MAX_ENVS) < VSS_THREAD_B:
-        raise AssertionError("the VSS main path must run the group kernels and VSS_THREAD_B the one-thread ones")
+    if not B <= min(*vf.GROUP_MAX_ENVS.values(), *vp.GROUP_MAX_ENVS.values()):
+        raise AssertionError("the VSS main paths at 3v3 and 5v5 must run the group kernels")
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -3025,7 +3132,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
 
     tasks = make_tasks()
-    new_vss = ("vss_5v5", "vss_5v5_fused_physics", "vss_multiagent")  # checked by configuration below
+    # checked by configuration below
+    new_vss = ("vss_5v5", "vss_1v0", "vss_5v5_fused_physics", "vss_1v0_fused_physics", "vss_multiagent")
 
     # ---- 2. build: one nvcc per source, all at once, then one link
     t0 = time.perf_counter()
@@ -3044,6 +3152,8 @@ def main() -> int:
         lib, base_ptxas = build_baseline(baseline)
         phase("baseline_build", source=baseline, ptxas=base_ptxas)
         vss_against_baseline(lib, card)
+        if hasattr(lib, "vss_full_step_one_thread"):  # a tree with the one-thread VSS kernels
+            vss_5v5_against_baseline(lib, card)
         ssl_against_baseline(lib, ssl_tasks, card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3099,25 +3209,32 @@ def main() -> int:
                 errs[task.name] = max(errs[task.name], err)
 
     # ---- 3c. VSS-v0 at the other team sizes and beyond the Taylor bound,
-    # each error charged to the kernel that ran (the route)
+    # each error charged to the kernel that ran (the route): the 3v3 and
+    # 5v5 group kernels, the one-thread kernels (1v0; 5v5 above its
+    # crossover)
     k1, k2 = tasks[0], next(t for t in tasks if t.name == "vss_physics")
     errs.update({n: 0.0 for n in new_vss})
     for cname, kwargs in VSS_CONFIGS.items():
         task = SimpleNamespace(**{**vars(k1), "env_kwargs": kwargs})
-        for batch in (B, RAGGED_B):
-            route = vf.route(make_env(task), batch)
+        env = make_env(task)
+        above = (vf.VSS_5V5_GROUP_MAX_ENVS + 1,) if cname == "5v5" else ()  # the one-thread kernel
+        for batch in (B, RAGGED_B, *above):
+            route = vf.route(env, batch)
             for rng_mode in ("input", "kernel"):
                 err, at, dones, _ = check_kernel_vs_plain(task, rng_mode, batch)
                 phase(f"kernel_vs_plain_{cname}_{rng_mode}_vss_full_step", B=batch, route=route,
-                      steps=N_CHECK_STEPS, max_abs_err=err, worst_at=at, atol=ATOL, dones=dones)
-                name = "vss_full_step" if route == "group" else "vss_5v5"
+                      entry=vf.routed_entry(env, batch), steps=N_CHECK_STEPS, max_abs_err=err, worst_at=at,
+                      atol=ATOL, dones=dones)
+                name = "vss_1v0" if route == "thread" else "vss_5v5" if cname == "5v5" else "vss_full_step"
                 errs[name] = max(errs[name], err)
     for cname in ("5v5", "1v0"):
+        env = rt.make("VSS-v0", **VSS_CONFIGS[cname])
         for batch in (B, RAGGED_B):
             err, dones = check_physics_vs_plain(batch, VSS_CONFIGS[cname])
-            phase(f"kernel_vs_plain_{cname}_vss_physics", B=batch, steps=N_CHECK_STEPS, max_abs_err=err,
-                  atol=ATOL, dones=dones)
-            errs["vss_5v5_fused_physics"] = max(errs["vss_5v5_fused_physics"], err)
+            phase(f"kernel_vs_plain_{cname}_vss_physics", B=batch, route=vp.route(env, batch),
+                  entry=vp.routed_entry(env, batch), steps=N_CHECK_STEPS, max_abs_err=err, atol=ATOL, dones=dones)
+            name = "vss_5v5_fused_physics" if vp.route(env, batch) == "group" else "vss_1v0_fused_physics"
+            errs[name] = max(errs[name], err)
     phase("thread_vs_group_bit_equal", B=VSS_THREAD_B, comparisons=check_thread_vs_group())
     # the physics kernel under multi-agent and self-play actions (policy-like,
     # every robot's wheels), through auto-resets

@@ -1,6 +1,6 @@
-// Fused VSS-v0 env step: the whole step for one env, on a group of 8 lanes
-// (vss_full_kernel, 3v3) or on one thread (vss_thread_kernel, every team
-// size from 1v0 to 5v5).
+// Fused VSS-v0 env step: the whole step for one env, on a group of lanes
+// (vss_full_kernel: 3v3 on 8 lanes, 5v5 on 16) or on one thread
+// (vss_thread_kernel, every team size from 1v0 to 5v5).
 //
 // Replaces the TPU kernel rsoccer_tpu/ops/pallas_vss_full.py:142
 // (make_pallas_vss_full_step, body `compute` at :243).  Per env it runs:
@@ -14,30 +14,39 @@
 // Layout: every operand is a flat row-major (rows, B) f32 array read as
 // p[row * B + b], the TPU kernel's (S, B) state layout byte for byte.
 //
-// The group kernel (vss_full_kernel): a block of 256 threads steps 32
-// envs: each row of the block's envs passes through a shared-memory tile in
-// one coalesced 128-byte access, and each input row is read once and each
-// output row written once.  Work split inside an env's group of 8 lanes (vss_world.cuh): lane k < 6
-// owns robot k (its OU noise, wheels, substep chain, state and obs rows);
-// lane l evaluates robot pairs l and l + 8; every lane carries the ball;
-// lane 6 writes the ball's rows, lane 7 the env's scalars and the aux
-// rows.  The reward cascade runs on every lane (each needs `done`).  A
-// done env places its 7 entities in order with candidate k on lane k: the
-// first valid candidate is the lowest set bit of the group's byte of a
-// warp ballot.
+// The group kernel (vss_full_kernel<NB, NY, G>): a block of 256 threads
+// steps 256 / G envs (32 at 3v3, 16 at 5v5): each row of the block's envs
+// passes through a shared-memory tile in one coalesced access (128 bytes,
+// or two full 32-byte sectors at 16 envs), and each input row is read once
+// and each output row written once.  Work split inside an env's group of G
+// lanes (vss_world.cuh): lane k < N owns robot k (its OU noise, wheels,
+// substep chain, state and obs rows); lane l evaluates robot pairs l,
+// l + G, ... (2 of 15 at 3v3, 3 of 45 at 5v5); every lane carries the
+// ball; lane N writes the ball's rows, lane N + 1 the env's scalars and the
+// aux rows.  The reward cascade runs on every lane (each needs `done`).  A
+// done env places its N + 1 entities in order with candidate k on lane
+// k < 8 (lanes 8..15 at 5v5 vote no): the first valid candidate is the
+// lowest set bit of the group's G bits of a warp ballot.  Shared memory per
+// block: the tile and the exchange slots share one buffer, the slots the
+// larger: 24,576 bytes at 3v3 (32 envs x 48 float4), 31,744 at 5v5 (16 x
+// 124), under the 48 KB static limit; two blocks per SM at 3v3 and four
+// at 5v5 by the launch bounds (kVssMinBlocks, vss_world.cuh).
 //
-// What bounds it: at B = 8192 the step moves ~5.8 MB (state in/out, obs,
-// aux, actions), about 1.7 us of HBM time.  One thread per env ran a long
-// dependent chain with 256 warps on 132 SMs: latency bound.  Eight lanes
-// per env give 2048 warps and cut each lane's chain per substep from ~780
-// operations to ~150, each pair still evaluated once.  The reset work (28
-// spawn Philox blocks, 7 x 8 candidates, the theta draw) runs only on done
-// envs.  In the kernel-RNG variant the group draws the 7 Philox blocks
-// that hold its OU slots once, one per lane, and shares the words.  From
-// large batches, where the card is full, the eight lanes issue more
-// instructions per env than one thread does (the replicated ball work and
-// the exchanges), and the wrapper launches the one-thread kernel instead
-// (ops/vss_full.VSS_GROUP_MAX_ENVS, measured in PERF.md).
+// What bounds it: at B = 8192 the 3v3 step moves ~5.8 MB (state in/out,
+// obs, aux, actions), about 1.7 us of HBM time, the 5v5 step 8.7 MB, 2.6
+// us.  One thread per env ran a long dependent chain with 256 warps on
+// 132 SMs (at 5v5 10 robots, 45 pairs and 10 ball contacts per substep in
+// 254-255 registers): latency bound.  A group of lanes per env gives 2048
+// warps at 3v3 (8 lanes) and 4096 at 5v5 (16 lanes), and cuts each lane's
+// chain per substep to one robot, two or three pairs, its partner sums and
+// the ball's, each pair still evaluated once.  The reset work (the spawn
+// Philox blocks, (N + 1) x 8 candidates, the theta draw) runs only on done
+// envs.  In the kernel-RNG variant the group draws the Philox blocks that
+// hold its OU slots once, one per lane (7 at 3v3, 11 at 5v5), and shares
+// the words.  From large batches, where the card is full, the lanes issue
+// more instructions per env than one thread does (the replicated ball
+// work and the exchanges), and the wrapper launches the one-thread kernel
+// instead (ops/vss_full.GROUP_MAX_ENVS, measured in PERF.md).
 //
 // The one-thread kernel (vss_thread_kernel<N>): one env per thread, 64
 // threads per block, the whole env in registers (loops over the
@@ -46,9 +55,9 @@
 // team size and variant); each row read or written by consecutive threads
 // at consecutive addresses, so every access is coalesced without staging.
 // It runs the group kernel's operations on the same values
-// (vss_thread_substep), so at 3v3 both give the same bits.  The reset work
-// runs only in done envs; the kernel-RNG variant draws the 5N slots after
-// the spawn block (theta, OU u1, u2) in registers.
+// (vss_thread_substep), so at 3v3 and 5v5 both give the same bits.  The
+// reset work runs only in done envs; the kernel-RNG variant draws the 5N
+// slots after the spawn block (theta, OU u1, u2) in registers.
 //
 // Numerics: the reduced-range Taylor rotation and the rsqrt normals of the
 // TPU kernel are kept (the 5e-5 kernel-vs-plain tolerance was set against
@@ -138,48 +147,52 @@ __device__ __forceinline__ VssOutcome vss_outcome(const VssParams& p, const VssB
   return o;
 }
 
-template <int NB, int NY, bool EMIT_FINAL, bool RNG_KERNEL, class Pol>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int NB, int NY, int G, bool EMIT_FINAL, bool RNG_KERNEL, class Pol>
+__global__ void __launch_bounds__(kThreads, kVssMinBlocks<G>)
     vss_full_kernel(const VssParams p, const float* __restrict__ st, const float* __restrict__ act,
                     const float* __restrict__ ou_in, const float* __restrict__ sp_in,
                     const float* __restrict__ th_in, const long long* __restrict__ key, uint32_t env_base,
                     float* __restrict__ st_out, float* __restrict__ obs_out, float* __restrict__ aux_out,
                     int B) {
   constexpr int N = NB + NY;
-  using L = VssLayout<N>;
-  static_assert(K == kGroup, "spawn candidate k sits on lane k");
+  using LG = LaneGroup<G>;
+  using L = VssLayout<N, G>;
+  constexpr int E = LG::kEnvsPerBlock;
+  static_assert(K <= G, "spawn candidate k sits on lane k");
+  static_assert(N + 2 <= G, "lane N writes the ball's rows, lane N + 1 the env's scalars");
   constexpr int S = 15 + 8 * N;               // state rows
   constexpr int NSP = (1 + N) * 2 * K;        // spawn uniforms: slots [0, NSP)
   constexpr int OU1 = NSP + N, OU2 = NSP + 3 * N;  // OU u1, u2 slots (theta: NSP + r)
   static_assert(OU1 % 2 == 0, "a robot's two OU slots share a Philox block");
   constexpr int OU_BLK0 = OU1 / 4, OU_NBLK = (OU2 + 2 * N - 1) / 4 - OU_BLK0 + 1;  // blocks of the OU slots
-  static_assert(OU_NBLK <= kGroup, "one OU Philox block per lane");
+  static_assert(OU_NBLK <= G, "one OU Philox block per lane");
   constexpr int OBS = 4 + 7 * NB + 5 * NY;
   constexpr int OBS_ROWS = OBS * (EMIT_FINAL ? 2 : 1);
   constexpr int IN_ROWS = S + 2 + (RNG_KERNEL ? 0 : 2 * N);  // state, action, OU normals
   constexpr int OUT_ROWS = S + OBS_ROWS + 9;                  // state, obs, aux
-  constexpr int TILE_FLOATS = (IN_ROWS > OUT_ROWS ? IN_ROWS : OUT_ROWS) * kTileStride;
-  constexpr int XCHG_FLOATS = kEnvsPerBlock * L::kSlots * 4;
+  constexpr int TILE_FLOATS = (IN_ROWS > OUT_ROWS ? IN_ROWS : OUT_ROWS) * LG::kTileStride;
+  constexpr int XCHG_FLOATS = E * L::kSlots * 4;
   // the row tile (before and after the substeps) and the groups' exchange
-  // slots (during them) share one buffer
+  // slots (during them) share one buffer: at 5v5 (G = 16) 31,744 bytes of
+  // slots against a 16,704-byte tile (232 output rows with emit_final)
   __shared__ float4 buf[((TILE_FLOATS > XCHG_FLOATS ? TILE_FLOATS : XCHG_FLOATS) + 3) / 4];
-  __shared__ int4 desc[2 * kGroup];
+  __shared__ int4 desc[L::kDescs];
   float* tile = reinterpret_cast<float*>(buf);
 
-  const int k = threadIdx.x % kGroup;  // lane in the env's group
-  const int e = threadIdx.x / kGroup;  // env in the block
-  const int b0 = blockIdx.x * kEnvsPerBlock;
+  const int k = threadIdx.x % G;  // lane in the env's group
+  const int e = threadIdx.x / G;  // env in the block
+  const int b0 = blockIdx.x * E;
   const int b = b0 + e;
   const bool live = b < B;  // lanes past B take part in every exchange, store nothing
   const int rr = k < N ? k : 0;  // lanes past the robots carry robot 0
   float4* grp = buf + e * L::kSlots;
-#define T(row) tile[(row) * kTileStride + e]
+#define T(row) tile[(row) * LG::kTileStride + e]
 
   // ---- stage in
-  load_rows<S>(tile, 0, st, b0, B);
-  load_rows<2>(tile, S, act, b0, B);
-  if constexpr (!RNG_KERNEL) load_rows<2 * N>(tile, S + 2, ou_in, b0, B);
-  if (threadIdx.x < 2 * kGroup) desc[threadIdx.x] = pair_desc<N>(threadIdx.x);
+  load_rows<S, E>(tile, 0, st, b0, B);
+  load_rows<2, E>(tile, S, act, b0, B);
+  if constexpr (!RNG_KERNEL) load_rows<2 * N, E>(tile, S + 2, ou_in, b0, B);
+  if (threadIdx.x < L::kDescs) desc[threadIdx.x] = pair_desc<N>(threadIdx.x);
   __syncthreads();
 
   VssRobot r;
@@ -238,12 +251,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   r.c = cosf(r.th);
   r.s = sinf(r.th);
 #pragma unroll 1  // kept rolled: the unrolled body would be 5x the code
-  for (int sub = 0; sub < kSubsteps; ++sub) vss_substep<Pol, N>(p, k, grp, desc, r, ball);
+  for (int sub = 0; sub < kSubsteps; ++sub) vss_substep<Pol, N, G>(p, k, grp, desc, r, ball);
   __syncthreads();  // the buffer now takes the output rows
 
   // ---- reward & termination cascade (envs/vss.post_physics), every lane
-  const float x0 = __shfl_sync(kFullMask, r.x, 0, kGroup), y0 = __shfl_sync(kFullMask, r.y, 0, kGroup);
-  const float vx0 = __shfl_sync(kFullMask, r.vx, 0, kGroup), vy0 = __shfl_sync(kFullMask, r.vy, 0, kGroup);
+  const float x0 = __shfl_sync(kFullMask, r.x, 0, G), y0 = __shfl_sync(kFullMask, r.y, 0, G);
+  const float vx0 = __shfl_sync(kFullMask, r.vx, 0, G), vy0 = __shfl_sync(kFullMask, r.vy, 0, G);
   const VssOutcome out = vss_outcome(p, ball, x0, y0, vx0, vy0, wl0, wr0, steps, ball_pot, has_pot, shaping);
   const bool done = out.done;
 
@@ -277,7 +290,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   // ---- done envs only: spawn placement (envs/spawn.place_separated, first
-  // valid) and the reset headings; then the auto-reset select
+  // valid) and the reset headings; then the auto-reset select.  Candidate
+  // k sits on lane k < K; lanes K..G-1 (at G = 16) vote with ok = false.
   const bool reset = done && live;
   const unsigned reset_mask = __ballot_sync(kFullMask, reset);
   if (reset) {
@@ -287,27 +301,31 @@ __global__ void __launch_bounds__(kThreads, 2)
     float px[1 + N], py[1 + N];
 #pragma unroll
     for (int i = 0; i < 1 + N; ++i) {
-      float ux, uy;  // candidate k's uniforms: slots i*2K + k and i*2K + K + k
-      if constexpr (RNG_KERNEL) {
-        ux = philox_slot_uniform(pk, (uint32_t)b, i * 2 * K + k);
-        uy = philox_slot_uniform(pk, (uint32_t)b, i * 2 * K + K + k);
-      } else {
-        ux = sp_in[(size_t)(i * 2 * K + k) * B + b];
-        uy = sp_in[(size_t)(i * 2 * K + K + k) * B + b];
-      }
-      const float cx = p.x_lo + ux * p.x_span;
-      const float cy = p.y_lo + uy * p.y_span;
-      bool ok = true;
+      float cx = 0.0f, cy = 0.0f;
+      bool ok = false;
+      if (k < K) {
+        float ux, uy;  // candidate k's uniforms: slots i*2K + k and i*2K + K + k
+        if constexpr (RNG_KERNEL) {
+          ux = philox_slot_uniform(pk, (uint32_t)b, i * 2 * K + k);
+          uy = philox_slot_uniform(pk, (uint32_t)b, i * 2 * K + K + k);
+        } else {
+          ux = sp_in[(size_t)(i * 2 * K + k) * B + b];
+          uy = sp_in[(size_t)(i * 2 * K + K + k) * B + b];
+        }
+        cx = p.x_lo + ux * p.x_span;
+        cy = p.y_lo + uy * p.y_span;
+        ok = true;
 #pragma unroll
-      for (int q = 0; q < i; ++q) {
-        const float ddx = cx - px[q];
-        const float ddy = cy - py[q];
-        ok = ok && (ddx * ddx + ddy * ddy) >= p.min_d2;
+        for (int q = 0; q < i; ++q) {
+          const float ddx = cx - px[q];
+          const float ddy = cy - py[q];
+          ok = ok && (ddx * ddx + ddy * ddy) >= p.min_d2;
+        }
       }
-      const unsigned valid = (__ballot_sync(reset_mask, ok) >> (threadIdx.x & 24u)) & 0xffu;
+      const unsigned valid = LG::own_bits(__ballot_sync(reset_mask, ok));
       const int first = valid ? __ffs(valid) - 1 : 0;  // none valid: candidate 0
-      px[i] = __shfl_sync(reset_mask, cx, first, kGroup);
-      py[i] = __shfl_sync(reset_mask, cy, first, kGroup);
+      px[i] = __shfl_sync(reset_mask, cx, first, G);
+      py[i] = __shfl_sync(reset_mask, cy, first, G);
     }
     ball = VssBall{px[0], py[0], p.r_ball, 0.0f, 0.0f, 0.0f};
 #pragma unroll
@@ -359,19 +377,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
 
   // ---- stage out
-  store_rows<S>(tile, 0, st_out, b0, B);
-  store_rows<OBS_ROWS>(tile, S, obs_out, b0, B);
-  store_rows<9>(tile, S + OBS_ROWS, aux_out, b0, B);
+  store_rows<S, E>(tile, 0, st_out, b0, B);
+  store_rows<OBS_ROWS, E>(tile, S, obs_out, b0, B);
+  store_rows<9, E>(tile, S + OBS_ROWS, aux_out, b0, B);
 }
 
-template <int NB, int NY, class Pol>
+template <int NB, int NY, int G, class Pol>
 cudaError_t launch(int emit_final, int rng_kernel, const VssParams& p, const float* st, const float* act,
                    const float* ou, const float* sp, const float* th, const long long* key, uint32_t env_base,
                    float* st_out, float* obs_out, float* aux_out, int B, cudaStream_t stream) {
-  const dim3 grid((B + kEnvsPerBlock - 1) / kEnvsPerBlock), block(kThreads);
-#define VSS_LAUNCH(EF, RK)                                                                        \
-  vss_full_kernel<NB, NY, EF, RK, Pol><<<grid, block, 0, stream>>>(p, st, act, ou, sp, th, key, env_base, st_out, \
-                                                                    obs_out, aux_out, B)
+  constexpr int E = LaneGroup<G>::kEnvsPerBlock;
+  const dim3 grid((B + E - 1) / E), block(kThreads);
+#define VSS_LAUNCH(EF, RK)                                                                                   \
+  vss_full_kernel<NB, NY, G, EF, RK, Pol><<<grid, block, 0, stream>>>(p, st, act, ou, sp, th, key, env_base, \
+                                                                       st_out, obs_out, aux_out, B)
   if (emit_final && rng_kernel) VSS_LAUNCH(true, true);
   else if (emit_final) VSS_LAUNCH(true, false);
   else if (rng_kernel) VSS_LAUNCH(false, true);
@@ -617,20 +636,27 @@ const char* vss_params_fields() {
 // takes env_base (the global index of column 0) before B.
 int kernels_abi_version() { return 1; }
 
-// One fused step on the group kernel: 3v3 (VSS-v0) only; exact_trig picks
-// the turn (ExactRsqrt beyond the Taylor bound).  Returns a cudaError_t
-// (cudaErrorInvalidValue for another team size).
+// One fused step on the group kernel: 3v3 (VSS-v0) on 8 lanes per env,
+// 5v5 on 16; exact_trig picks the turn (ExactRsqrt beyond the Taylor
+// bound).  Returns a cudaError_t (cudaErrorInvalidValue for another team
+// size).
 int vss_full_step(int n_blue, int n_yellow, int emit_final, int rng_kernel, int exact_trig, const VssParams* p,
                   const float* st, const float* act, const float* ou, const float* sp, const float* th,
                   const long long* key, float* st_out, float* obs_out, float* aux_out, int env_base, int B,
                   void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (n_blue != 3 || n_yellow != 3) return (int)cudaErrorInvalidValue;
-  if (exact_trig)
-    return launch<3, 3, ExactRsqrt>(emit_final, rng_kernel, *p, st, act, ou, sp, th, key, (uint32_t)env_base,
-                                    st_out, obs_out, aux_out, B, s);
-  return launch<3, 3, TaylorRsqrt>(emit_final, rng_kernel, *p, st, act, ou, sp, th, key, (uint32_t)env_base, st_out,
-                                   obs_out, aux_out, B, s);
+#define VSS_GROUP(NB, NY, G)                                                                                       \
+  if (n_blue == NB && n_yellow == NY) {                                                                            \
+    if (exact_trig)                                                                                                \
+      return launch<NB, NY, G, ExactRsqrt>(emit_final, rng_kernel, *p, st, act, ou, sp, th, key, (uint32_t)env_base, \
+                                           st_out, obs_out, aux_out, B, s);                                         \
+    return launch<NB, NY, G, TaylorRsqrt>(emit_final, rng_kernel, *p, st, act, ou, sp, th, key, (uint32_t)env_base,  \
+                                          st_out, obs_out, aux_out, B, s);                                          \
+  }
+  VSS_GROUP(3, 3, 8)
+  VSS_GROUP(5, 5, 16)
+#undef VSS_GROUP
+  return (int)cudaErrorInvalidValue;
 }
 
 // The same step on the one-thread kernel: the same arguments and outputs,

@@ -1,6 +1,6 @@
 // VSS physics only: one control step (5 substeps) of the differential-drive
-// world, one env on a group of 8 lanes (vss_physics_kernel, N = 6) or on one
-// thread (vss_physics_thread_kernel, N = 1..10).
+// world, one env on a group of lanes (vss_physics_kernel: N = 6 on 8 lanes,
+// N = 10 on 16) or on one thread (vss_physics_thread_kernel, N = 1..10).
 //
 // Replaces the TPU kernel rsoccer_tpu/ops/pallas_vss.py:37
 // (make_pallas_vss_physics, pallas_call :194), which BatchedEnv's
@@ -12,27 +12,33 @@
 // (the dense N x N sums) -> robot wall clamp -> ball friction (divided by
 // the speed), vertical axis, integrate -> ball-robot contacts -> ball
 // walls with goal pockets.  The substep is vss_world.cuh's, under its
-// ExactTrig policy; in the group kernel lane k < 6 owns robot k and reads
-// its own command rows, lane l evaluates robot pairs l and l + 8; the
+// ExactTrig policy; in the group kernel lane k < N owns robot k and reads
+// its own command rows, lane l evaluates robot pairs l, l + G, ... (2 of
+// 15 on 8 lanes, 3 of 45 on 16), lane N writes the ball's rows; the
 // one-thread kernel runs the same operations on one thread
-// (vss_thread_substep), so at N = 6 both give the same bits.
+// (vss_thread_substep), so at N = 6 and N = 10 both give the same bits.
 //
 // Layout: robots (6, N, B) rows [x, y, theta, v_x, v_y, v_theta], ball
 // (6, B) [x, y, z, v_x, v_y, v_z], wheel commands (2, N, B) [left, right],
 // all flat row-major f32 read as p[row * B + b].  A block of 256 threads
-// steps 32 envs; each row passes through a shared-memory tile in one
-// coalesced 128-byte access, read once or written once.
+// steps 256 / G envs (32 on 8 lanes, 16 on 16); each row passes through a
+// shared-memory tile in one coalesced access (128 bytes, or two full
+// 32-byte sectors), read once or written once.  The tile and the exchange
+// slots share one buffer, the slots the larger: 24,576 bytes at N = 6
+// (32 envs x 48 float4), 31,744 at N = 10 (16 x 124).
 //
-// What bounds it: at B = 8192 it moves 3.1 MB (96 rows: robots and ball in
-// and out, commands in), 0.94 us of HBM time.  One thread per env ran 5
-// substeps x (6 robots + 15 pairs + 6 ball contacts) with 12 sinf/cosf per
-// substep as one dependent chain on 256 warps: latency bound.  Eight lanes
-// per env give 2048 warps, each lane running one robot's chain and two of
-// the 15 pairs.  At large batches, where the card is full, the eight lanes
-// issue more instructions per env than one thread does, and the wrapper
-// launches the one-thread kernel (64 threads per block, the env in
-// registers, every row access coalesced) instead
-// (ops/vss_physics.VSS_GROUP_MAX_ENVS, measured in PERF.md).
+// What bounds it: at B = 8192 it moves 3.1 MB at N = 6 (96 rows: robots
+// and ball in and out, commands in), 0.94 us of HBM time; at N = 10 its 5
+// substeps x (10 robots + 45 pairs + 10 ball contacts), 1.5 us of f32 work
+// by the operation count, bound it.  One thread per env ran them, with 2N
+// sinf/cosf per substep, as one dependent chain on 256 warps: latency
+// bound.  A group of lanes per env gives 2048 warps at N = 6 and 4096 at
+// N = 10, each lane running one robot's chain and two or three pairs.  At
+// large batches, where the card is full, the lanes issue more instructions
+// per env than one thread does, and the wrapper launches the one-thread
+// kernel (64 threads per block, the env in registers, every row access
+// coalesced) instead (ops/vss_physics.GROUP_MAX_ENVS, measured in
+// PERF.md).
 //
 // Numerics: --fmad=false and no fast math (ops/_build.py), and sqrtf with
 // true division where physics/vss.py divides, so the kernel rounds as its
@@ -57,30 +63,32 @@ namespace {
 constexpr int kSubsteps = 5;  // PhysicsConfig.n_substeps (the wrapper checks)
 constexpr int kThreadBlock = 64;  // the one-thread kernel's block
 
-template <int N>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int N, int G>
+__global__ void __launch_bounds__(kThreads, kVssMinBlocks<G>)
     vss_physics_kernel(const VssPhysParams p, const float* __restrict__ rb_in, const float* __restrict__ ball_in,
                        const float* __restrict__ cmd, float* __restrict__ rb_out, float* __restrict__ ball_out,
                        int B) {
-  using L = VssLayout<N>;
-  static_assert(N + 1 <= kGroup, "lane N writes the ball");
-  constexpr int TILE_FLOATS = (6 * N + 6 + 2 * N) * kTileStride;  // robots, ball, commands
-  constexpr int XCHG_FLOATS = kEnvsPerBlock * L::kSlots * 4;
+  using LG = LaneGroup<G>;
+  using L = VssLayout<N, G>;
+  constexpr int E = LG::kEnvsPerBlock;
+  static_assert(N + 1 <= G, "lane N writes the ball");
+  constexpr int TILE_FLOATS = (6 * N + 6 + 2 * N) * LG::kTileStride;  // robots, ball, commands
+  constexpr int XCHG_FLOATS = E * L::kSlots * 4;
   // the row tile (before and after the substeps) and the groups' exchange
   // slots (during them) share one buffer
   __shared__ float4 buf[((TILE_FLOATS > XCHG_FLOATS ? TILE_FLOATS : XCHG_FLOATS) + 3) / 4];
-  __shared__ int4 desc[2 * kGroup];
+  __shared__ int4 desc[L::kDescs];
   float* tile = reinterpret_cast<float*>(buf);
-  const int k = threadIdx.x % kGroup;  // lane in the env's group
-  const int e = threadIdx.x / kGroup;  // env in the block
-  const int b0 = blockIdx.x * kEnvsPerBlock;
+  const int k = threadIdx.x % G;  // lane in the env's group
+  const int e = threadIdx.x / G;  // env in the block
+  const int b0 = blockIdx.x * E;
   const int rr = k < N ? k : 0;  // lanes past the robots carry robot 0
-#define T(row) tile[(row) * kTileStride + e]
+#define T(row) tile[(row) * LG::kTileStride + e]
 
-  load_rows<6 * N>(tile, 0, rb_in, b0, B);
-  load_rows<6>(tile, 6 * N, ball_in, b0, B);
-  load_rows<2 * N>(tile, 7 * N, cmd, b0, B);
-  if (threadIdx.x < 2 * kGroup) desc[threadIdx.x] = pair_desc<N>(threadIdx.x);
+  load_rows<6 * N, E>(tile, 0, rb_in, b0, B);
+  load_rows<6, E>(tile, 6 * N, ball_in, b0, B);
+  load_rows<2 * N, E>(tile, 7 * N, cmd, b0, B);
+  if (threadIdx.x < L::kDescs) desc[threadIdx.x] = pair_desc<N>(threadIdx.x);
   __syncthreads();
 
   VssRobot r;
@@ -103,7 +111,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   float4* grp = buf + e * L::kSlots;
 #pragma unroll 1  // kept rolled: the unrolled body would be 5x the code
-  for (int sub = 0; sub < kSubsteps; ++sub) vss_substep<ExactTrig, N>(p, k, grp, desc, r, ball);
+  for (int sub = 0; sub < kSubsteps; ++sub) vss_substep<ExactTrig, N, G>(p, k, grp, desc, r, ball);
   __syncthreads();  // the buffer now takes the output rows
 
   if (k < N) {
@@ -123,8 +131,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 #undef T
   __syncthreads();
-  store_rows<6 * N>(tile, 0, rb_out, b0, B);
-  store_rows<6>(tile, 6 * N, ball_out, b0, B);
+  store_rows<6 * N, E>(tile, 0, rb_out, b0, B);
+  store_rows<6, E>(tile, 6 * N, ball_out, b0, B);
+}
+
+template <int N, int G>
+cudaError_t launch_group(const VssPhysParams& p, const float* robots, const float* ball, const float* cmd,
+                         float* robots_out, float* ball_out, int B, cudaStream_t stream) {
+  constexpr int E = LaneGroup<G>::kEnvsPerBlock;
+  vss_physics_kernel<N, G><<<(B + E - 1) / E, kThreads, 0, stream>>>(p, robots, ball, cmd, robots_out, ball_out, B);
+  return cudaGetLastError();
 }
 
 template <int N>
@@ -187,14 +203,14 @@ const char* vss_physics_params_fields() {
 }
 
 // One physics step of B VSS worlds on the group kernel: n_robots = 6
-// (VSS-v0's 3v3).  Returns a cudaError_t (cudaErrorInvalidValue for another
-// n_robots).
+// (VSS-v0's 3v3) on 8 lanes per env, n_robots = 10 (5v5) on 16.  Returns a
+// cudaError_t (cudaErrorInvalidValue for another n_robots).
 int vss_physics_step(const VssPhysParams* p, const float* robots, const float* ball, const float* cmd,
                      float* robots_out, float* ball_out, int n_robots, int B, void* stream) {
-  if (n_robots != 6) return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + kEnvsPerBlock - 1) / kEnvsPerBlock), block(kThreads);
-  vss_physics_kernel<6><<<grid, block, 0, (cudaStream_t)stream>>>(*p, robots, ball, cmd, robots_out, ball_out, B);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n_robots == 6) return (int)launch_group<6, 8>(*p, robots, ball, cmd, robots_out, ball_out, B, s);
+  if (n_robots == 10) return (int)launch_group<10, 16>(*p, robots, ball, cmd, robots_out, ball_out, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The same step on the one-thread kernel, n_robots = 1..10

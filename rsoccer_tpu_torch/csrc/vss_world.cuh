@@ -1,14 +1,19 @@
-// One VSS world substep run cooperatively by a group of kGroup = 8 lanes
-// per env: the substep of the fused VSS step (vss_full.cu, K1) and of the
-// physics-only kernel (vss_physics.cu, K2).
+// One VSS world substep run cooperatively by a group of G lanes per env
+// (lane_group.cuh): the substep of the fused VSS step (vss_full.cu, K1) and
+// of the physics-only kernel (vss_physics.cu, K2); G = 8 at 3v3 / N = 6,
+// G = 16 at 5v5 / N = 10.
 //
-// Layout: the env of a group runs on 8 consecutive lanes of a warp (4 envs
-// per warp).  Lane k < N owns robot k (lanes k >= N carry a copy of robot
-// 0 that nothing reads) and evaluates pairs k and k + 8 of the N(N-1)/2
-// robot pairs (lexicographic over i < j; 15 for N = 6).  Every lane carries
-// the ball and updates it with the same operations on the same values, so
-// the ball needs no broadcast.  The group exchanges values through its
-// slots in shared memory, between __syncwarp()s.  A substep:
+// Layout (VssLayout<N, G>): the env of a group runs on G consecutive lanes
+// of a warp (32 / G envs per warp).  Lane k < N owns robot k (lanes k >= N
+// carry a copy of robot 0 that nothing reads) and evaluates pairs k,
+// k + G, ... (kPairsPerLane of them: 2 for 15 pairs on 8 lanes, 3 for 45
+// on 16) of the N(N-1)/2 robot pairs (lexicographic over i < j); the slots
+// past the last pair are padding pairs that write two spare slots.  Every
+// lane carries the ball and updates it with the same operations on the same
+// values, so the ball needs no broadcast.  The group exchanges values
+// through its kSlots float4 slots in shared memory, between __syncwarp()s
+// (48 at N = 6, G = 8: 768 bytes; 124 at N = 10, G = 16: 1,984 bytes,
+// 31,744 for a block's 16 envs).  A substep:
 //   1. every lane drives, turns and integrates its robot and posts the
 //      robot's (x, y, v_x, v_y); every lane applies the ball's rolling
 //      friction, vertical axis and integration (before its contacts the
@@ -21,20 +26,22 @@
 //   4. robot k posts its ball-contact term; every lane sums the N terms in
 //      robot order and applies the ball walls with goal pockets.
 //
-// Why the results are the one-thread-per-env kernels' to the bit: each
-// pair's terms are computed as there, once and from the lower robot's
-// side; robot k's corrections are added in the order of the pair-list pass
-// (pair_collide.cuh) and of the dense N x N row sums, which both visit
-// robot k's partners 0..N-1 in order; adding a negated term rounds as
-// subtracting it.  (The dense sums compute robot k's row from its own side,
-// x_k - x_q; IEEE subtraction and division are sign-symmetric, so those
-// terms are the exact negations: tests/test_torch_vss_pair_order.py.)
+// Why the results are the one-thread-per-env kernels' to the bit, at any
+// G: each pair's terms are computed as there, once and from the lower
+// robot's side, whichever lane evaluates the pair; robot k's corrections
+// are added in the order of the pair-list pass (pair_collide.cuh) and of
+// the dense N x N row sums, which both visit robot k's partners 0..N-1 in
+// order; adding a negated term rounds as subtracting it.  Neither the lane
+// that evaluates a pair nor the width G enters any value.  (The dense sums
+// compute robot k's row from its own side, x_k - x_q; IEEE subtraction and
+// division are sign-symmetric, so those terms are the exact negations:
+// tests/test_torch_vss_pair_order.py.)
 //
 // The one-thread kernels (K1's vss_thread_kernel, K2's
 // vss_physics_thread_kernel) step an env on one thread with
 // vss_thread_substep: the same operations on the same values, each pair
 // once from the lower robot's side, each robot's terms in partner order, so
-// at 3v3 the two designs agree to the bit.
+// at 3v3 and 5v5 the two designs agree to the bit.
 //
 // Numerics are a policy:
 //   TaylorRsqrt (K1): the TPU kernel's reduced-range Taylor rotation of a
@@ -79,19 +86,31 @@ struct VssBall {
   float x, y, z, vx, vy, vz;
 };
 
-template <int N>
+template <int N, int G>
 struct VssLayout {
   static constexpr int kPairs = N * (N - 1) / 2;
-  static constexpr int kPairsPerLane = (kPairs + kGroup - 1) / kGroup;
-  static_assert(N <= kGroup && kPairsPerLane == 2, "one robot and two pairs per lane");
-  // a group's float4 slots in shared memory: robot states (8), partner
+  static constexpr int kPairsPerLane = (kPairs + G - 1) / G;
+  static_assert(N <= G && kPairsPerLane <= 3, "one robot and at most three pairs per lane");
+  static constexpr int kDescs = kPairsPerLane * G;  // pairs, then padding pairs
+  // a group's float4 slots in shared memory: robot states (G), partner
   // terms (robot q's partner t at q (N - 1) + t, then 2 slots that the
-  // padding pair writes), contact terms (8)
-  static constexpr int kXs = 0, kPt = kGroup, kCt = kPt + N * (N - 1) + 2, kSlots = kCt + kGroup;
+  // padding pairs write), contact terms (G)
+  static constexpr int kXs = 0, kPt = G, kCt = kPt + N * (N - 1) + 2, kSlots = kCt + G;
 };
 
-// Pair p's (i, j, i's slot, j's slot), p < 2 kGroup; a padding pair reads
-// robots 0, 1 and writes the two spare slots.
+// The VSS group kernels' blocks per SM (launch bounds): 2 on 8 lanes (K1
+// at 3v3: 63-90 registers, K2 at N = 6: 56, no spills), 4 on 16 (K1 at
+// 5v5, K2 at N = 10): 64 registers, so the 512 blocks of 8192 envs run in
+// one wave on 132 SMs.  At 5v5 that costs K1 44-84 bytes of spills per
+// thread and K2 4; measured in turns, both run faster than at 2 blocks
+// per SM (80-86 and 65 registers, no spills), and keeping K1's idle
+// values in shared memory cut its spills to 8-20 bytes for no gain
+// (PERF.md, section 6).
+template <int G>
+constexpr int kVssMinBlocks = G == 16 ? 4 : 2;
+
+// Pair p's (i, j, i's slot, j's slot), p < VssLayout::kDescs; a padding
+// pair reads robots 0, 1 and writes the two spare slots.
 template <int N>
 __device__ __forceinline__ int4 pair_desc(int p) {
   int4 d = make_int4(0, 1, N * (N - 1), N * (N - 1) + 1);
@@ -292,14 +311,14 @@ __device__ __forceinline__ void vss_ball_walls(const P& p, VssBall& b) {
   if (hit_y && b.vy * sy > 0.0f) b.vy = p.neg_rest_wall * b.vy;
 }
 
-// One substep of the env on this lane's group: k is the lane in the group,
-// grp the group's VssLayout::kSlots slots, desc the block's pair table
-// (pair_desc, one int4 per pair).  Called by every lane of the warp (it
-// synchronises the warp).
-template <class Pol, int N, class P>
+// One substep of the env on this lane's group of G lanes: k is the lane in
+// the group, grp the group's VssLayout<N, G>::kSlots slots, desc the block's
+// pair table (pair_desc, VssLayout<N, G>::kDescs int4s).  Called by every
+// lane of the warp (it synchronises the warp).
+template <class Pol, int N, int G, class P>
 __device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, const int4* desc, VssRobot& r,
                                             VssBall& b) {
-  using L = VssLayout<N>;
+  using L = VssLayout<N, G>;
   float4* xs = grp + L::kXs;
   float4* pt = grp + L::kPt;
   float4* ct = grp + L::kCt;
@@ -313,7 +332,7 @@ __device__ __forceinline__ void vss_substep(const P& p, int k, float4* grp, cons
   // ---- 2. this lane's pairs, each once, from the pre-pass values
 #pragma unroll
   for (int s = 0; s < L::kPairsPerLane; ++s) {
-    const int4 d = desc[s * kGroup + k];
+    const int4 d = desc[s * G + k];
     const float4 t = Pol::pair_term(p, xs[d.x], xs[d.y]);
     pt[d.z] = t;
     pt[d.w] = neg4(t);

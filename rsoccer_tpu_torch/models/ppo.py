@@ -28,7 +28,8 @@ the shards collect what the unsharded trainer collects.  Minibatches come
 from the global permutation, the advantage and obs moments are merged
 over the ranks, the losses are the rank's parts of the global means, and
 the gradients are summed over the ranks before the clip
-(``parallel/ppo.py``): every rank steps the same bits, and the update
+(``parallel/ppo.py``): every rank starts from the first rank's network
+and steps the same bits, and the update
 equals the unsharded one up to the order of the sums (bit for bit at one
 rank).
 
@@ -58,7 +59,7 @@ from rsoccer_tpu_torch.models.networks import (
 from rsoccer_tpu_torch.ops.philox import make_key
 from rsoccer_tpu_torch.parallel import ppo as dp
 from rsoccer_tpu_torch.parallel.mesh import (
-    EnvMesh, all_reduce_grads, all_reduce_sum, batch_slice, gather_rows, local_benv,
+    EnvMesh, all_reduce_grads, all_reduce_sum, batch_slice, broadcast_params, gather_rows, local_benv,
 )
 
 
@@ -215,6 +216,8 @@ class PPOTrainer:
     def init(self, seed: int) -> TrainState:
         cfg, benv, dev = self.cfg, self.benv, self.device
         net = ActorCritic(benv.obs_size, benv.action_size, cfg.hidden, device=dev, seed=seed)
+        if self.mesh is not None:  # every rank starts from the first rank's network
+            broadcast_params(net.parameters(), self.mesh)
         key = make_key(seed, stream=1, device=dev)
         env_state, obs = benv.reset(key)
         return TrainState(

@@ -28,7 +28,8 @@ Philox key (``SACState.env_key``), everything else from the
 With ``mesh`` (``parallel/mesh.EnvMesh``) the trainer is one rank's half
 of a data-parallel SAC (``parallel/sac.py``, the counterpart of the JAX
 trainer's ``axis_name``): each of the three gradients is averaged over
-the ranks before its optimiser steps, so the replicated networks stay
+the ranks before its optimiser steps, so the replicated networks, which
+:meth:`SACTrainer.init` takes from the mesh's first rank, stay
 bit-identical on every rank.
 
 Two departures from the JAX package, both deliberate:
@@ -58,7 +59,7 @@ from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 from rsoccer_tpu_torch.models.networks import check_device
 from rsoccer_tpu_torch.models.ppo import PhaseClock
 from rsoccer_tpu_torch.ops.philox import make_key
-from rsoccer_tpu_torch.parallel.mesh import EnvMesh, all_reduce_grads
+from rsoccer_tpu_torch.parallel.mesh import EnvMesh, all_reduce_grads, broadcast_params
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 # flax's lecun_normal: a normal cut at +-2 sigma, rescaled by this to keep
@@ -415,6 +416,8 @@ class SACTrainer:
         kw = dict(hidden=cfg.hidden, compute_dtype=cfg.compute_dtype, device=dev, gen=gen)
         actor = SquashedGaussianActor(benv.obs_size, benv.action_size, **kw)
         qs = TwinQCritic(benv.obs_size, benv.action_size, **kw)
+        if self.mesh is not None:  # every rank starts from the first rank's networks
+            broadcast_params([*actor.parameters(), *qs.parameters()], self.mesh)
         key = make_key(seed, stream=1, device=dev)
         env_state, obs = benv.reset(key)
         log_alpha = torch.log(torch.tensor(cfg.init_alpha, dtype=torch.float32)).to(dev)

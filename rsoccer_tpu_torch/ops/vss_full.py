@@ -9,20 +9,23 @@ and ``csrc/philox.cuh``): OU update -> wheel commands with the deadzone ->
 placement -> auto-reset select -> obs.  :func:`route` picks one of two
 designs per launch:
 
-- ``"group"`` (``vss_full_kernel``, 3v3 only): one env on a group of 8
-  lanes, one robot per lane.  At 8192 envs a step moves ~5.8 MB, about 2 us
-  of HBM time, while the env's work is a dependent scalar chain; eight
-  lanes per env split that chain by robot and put 2048 warps on 132 SMs;
-  each block stages its 32 envs' rows through shared memory.
+- ``"group"`` (``vss_full_kernel``, 3v3 and 5v5): one env on a group of
+  lanes, one robot per lane: 8 lanes at 3v3, 16 at 5v5.  At 8192 envs a
+  step moves 5.8 MB (3v3) or 8.7 MB (5v5), 2-3 us of HBM time, while the
+  env's work is a dependent scalar chain; the lanes split that chain by
+  robot and by pair and put 2048 (3v3) or 4096 (5v5) warps on 132 SMs;
+  each block stages its 32 (3v3) or 16 (5v5) envs' rows through shared
+  memory.
 - ``"thread"`` (``vss_thread_kernel``, every team size): one env per
-  thread, the whole env in registers.  Above ``VSS_GROUP_MAX_ENVS`` envs the
-  card is full and the group's replicated ball work costs more than its
-  lanes save, so 3v3 runs here too; every other team size always does.
+  thread, the whole env in registers.  Above the team size's entry of
+  ``GROUP_MAX_ENVS`` the card is full and the group's replicated ball work
+  costs more than its lanes save, so 3v3 and 5v5 run here too; every other
+  team size always does.
 
-Both give the same bits at 3v3.  ``rng="kernel"`` draws the random words
-in registers, the reset's only on done envs.  The state stays in the
-packed ``(S, B)`` layout across a whole rollout, so there is no per-step
-pack/unpack.
+Both give the same bits at 3v3 and 5v5.  ``rng="kernel"`` draws the
+random words in registers, the reset's only on done envs.  The state
+stays in the packed ``(S, B)`` layout across a whole rollout, so there is
+no per-step pack/unpack.
 
 State row layout (N = n_robots), identical to the TPU kernel's:
     0:6         ball x, y, z, v_x, v_y, v_z
@@ -50,7 +53,7 @@ its plain version and, through the input rows, against the JAX kernel.
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``vss_full_step.launches`` counts kernel launches, and
 ``vss_full_step.entry_launches`` counts them by C entry (``vss_full_step``:
-the group kernel, ``vss_full_step_one_thread``: the one-thread kernel),
+the group kernels, ``vss_full_step_one_thread``: the one-thread kernel),
 ``vss_full_step.final_launches`` those of the ``emit_final`` variant.
 """
 
@@ -74,12 +77,18 @@ from rsoccer_tpu_torch.physics.vss import HALF_AXLE, achieved_wheel_speeds
 N_AUX = 3 + len(_SHAPING_KEYS)
 N_BLUE = range(1, 6)  # team sizes the kernels run: 1v0 to 5v5
 N_YELLOW = range(0, 6)
-GROUP_TEAM_SIZE = (3, 3)  # (blue, yellow): the 8-lane group kernel's
 N_SUBSTEPS = 5  # compiled into the kernels
 # Up to this many envs 3v3 launches the 8-lane group kernel, above it the
 # one-thread kernel: measured in turns on the card, the group kernel wins
 # at 16384 envs and loses from 24576 on (PERF.md, section 6).
 VSS_GROUP_MAX_ENVS = 16384
+# Up to this many envs 5v5 launches the 16-lane group kernel, above it the
+# one-thread kernel: measured in turns on the card, the group kernel wins
+# at 16384 envs and loses from 24576 on (PERF.md, section 6).
+VSS_5V5_GROUP_MAX_ENVS = 16384
+# (blue, yellow) -> the batch up to which that team size launches its group
+# kernel; the team sizes not listed have only the one-thread kernel
+GROUP_MAX_ENVS = {(3, 3): VSS_GROUP_MAX_ENVS, (5, 5): VSS_5V5_GROUP_MAX_ENVS}
 
 
 def state_size(n_robots: int) -> int:
@@ -243,10 +252,10 @@ def taylor_rotation_holds(env: VSSEnv) -> bool:
 
 
 def route(env: VSSEnv, batch: int) -> str:
-    """Which kernel a step of ``batch`` envs launches: ``"group"`` (8 lanes
-    per env; 3v3 up to ``VSS_GROUP_MAX_ENVS`` envs) or ``"thread"`` (one
-    thread per env).  Raises ``NotImplementedError`` outside the team sizes
-    the kernels run."""
+    """Which kernel a step of ``batch`` envs launches: ``"group"`` (3v3 on
+    8 lanes per env up to ``VSS_GROUP_MAX_ENVS`` envs, 5v5 on 16 up to
+    ``VSS_5V5_GROUP_MAX_ENVS``) or ``"thread"`` (one thread per env).
+    Raises ``NotImplementedError`` outside the team sizes the kernels run."""
     nb, ny = env.n_blue, env.n_yellow
     if nb not in N_BLUE or ny not in N_YELLOW or env.physics_cfg.n_substeps != N_SUBSTEPS:
         raise NotImplementedError(
@@ -255,7 +264,13 @@ def route(env: VSSEnv, batch: int) -> str:
             f"{N_SUBSTEPS} substeps; got ({nb}, {ny}), "
             f"{env.physics_cfg.n_substeps} substeps"
         )
-    return "group" if (nb, ny) == GROUP_TEAM_SIZE and batch <= VSS_GROUP_MAX_ENVS else "thread"
+    return "group" if batch <= GROUP_MAX_ENVS.get((nb, ny), 0) else "thread"
+
+
+def routed_entry(env: VSSEnv, batch: int) -> str:
+    """The C entry that a step of ``batch`` envs launches (:func:`route`):
+    ``vss_full_step`` (the group kernels) or ``vss_full_step_one_thread``."""
+    return "vss_full_step" if route(env, batch) == "group" else "vss_full_step_one_thread"
 
 
 _PARAMS_CACHE: dict = {}
@@ -286,7 +301,7 @@ def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final, env
     n, nb = env.n_robots, env.n_blue
     dev = state.device
     b = state.shape[-1]
-    entry = "vss_full_step" if route(env, b) == "group" else "vss_full_step_one_thread"
+    entry = routed_entry(env, b)
     _build.check_operand(state, "state", state_size(n), b, dev)
     _build.check_operand(action, "action", env.action_size, b, dev)
     rng_kernel = key is not None

@@ -7,8 +7,10 @@ ball-robot contacts, goal-pocket walls) on stacked arrays, for N = 1..10
 robots.  The kernels are in ``csrc/vss_physics.cu`` (the VSS substep of
 ``csrc/vss_world.cuh``, shared with the fused VSS step); :func:`route`
 picks one per launch, as ``ops/vss_full.route`` does: one env on a group
-of 8 lanes (N = 6 up to ``VSS_GROUP_MAX_ENVS`` envs) or one env per thread
-(every other N, and N = 6 above it).  Both give the same bits at N = 6.
+of lanes (N = 6 on 8 lanes up to ``VSS_GROUP_MAX_ENVS`` envs, N = 10 on 16
+up to ``VSS_10_GROUP_MAX_ENVS``) or one env per thread (every other N, and
+N = 6 and 10 above those batches).  Both give the same bits at N = 6 and
+10.
 
 Arrays, as the TPU kernel's: robots ``(6, N, B)`` rows [x, y, theta, v_x,
 v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands
@@ -19,7 +21,7 @@ v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands
 CPU; for CUDA tensors it launches the kernel or raises.
 ``vss_physics.launches`` counts kernel launches,
 ``vss_physics.entry_launches`` counts them by C entry (``vss_physics_step``:
-the group kernel, ``vss_physics_step_one_thread``: the one-thread kernel).
+the group kernels, ``vss_physics_step_one_thread``: the one-thread kernel).
 :func:`world_step` is the ``physics/vss`` step's signature over it, which
 ``BatchedEnv(..., fused_physics=True)`` runs between the task's pre- and
 post-physics.
@@ -39,12 +41,18 @@ from rsoccer_tpu_torch.ops import _build
 from rsoccer_tpu_torch.physics.vss import HALF_AXLE, achieved_wheel_speeds, make_vss_step
 
 N_ROBOTS = range(1, 11)  # robot counts the kernels run
-GROUP_N_ROBOTS = 6  # the 8-lane group kernel's
 N_SUBSTEPS = 5  # compiled into the kernels
-# Up to this many envs N = 6 launches the group kernel, above it the
+# Up to this many envs N = 6 launches the 8-lane group kernel, above it the
 # one-thread kernel: measured in turns on the card, the group kernel wins
 # at 24576 envs and loses at 32768 (PERF.md, section 6).
 VSS_GROUP_MAX_ENVS = 24576
+# Up to this many envs N = 10 (5v5) launches the 16-lane group kernel,
+# above it the one-thread kernel: measured in turns on the card, the group
+# kernel wins at 24576 envs and loses from 32768 on (PERF.md, section 6).
+VSS_10_GROUP_MAX_ENVS = 24576
+# robot count -> the batch up to which it launches its group kernel; the
+# counts not listed have only the one-thread kernel
+GROUP_MAX_ENVS = {6: VSS_GROUP_MAX_ENVS, 10: VSS_10_GROUP_MAX_ENVS}
 
 PARAM_FIELDS = (
     "dts lat_keep a_lin a_ang max_wheel wheel_r two_half_axle half_len half_wid "
@@ -127,23 +135,31 @@ def vss_physics_plain(env, robots, ball, cmd):
 
 def route(env, batch: int) -> str:
     """Which kernel a physics step of ``batch`` envs of ``env`` launches:
-    ``"group"`` (8 lanes per env; N = 6 up to ``VSS_GROUP_MAX_ENVS`` envs) or
-    ``"thread"`` (one thread per env).  Raises ``NotImplementedError``
-    outside the robot counts the kernels run."""
+    ``"group"`` (N = 6 on 8 lanes per env up to ``VSS_GROUP_MAX_ENVS`` envs,
+    N = 10 on 16 up to ``VSS_10_GROUP_MAX_ENVS``) or ``"thread"`` (one thread
+    per env).  Raises ``NotImplementedError`` outside the robot counts the
+    kernels run."""
     n = env.n_robots
     if n not in N_ROBOTS or env.physics_cfg.n_substeps != N_SUBSTEPS:
         raise NotImplementedError(
             f"the CUDA kernels vss_physics run {N_ROBOTS.start}-{N_ROBOTS.stop - 1} robots "
             f"with {N_SUBSTEPS} substeps; got {n} robots, {env.physics_cfg.n_substeps} substeps"
         )
-    return "group" if n == GROUP_N_ROBOTS and batch <= VSS_GROUP_MAX_ENVS else "thread"
+    return "group" if batch <= GROUP_MAX_ENVS.get(n, 0) else "thread"
+
+
+def routed_entry(env, batch: int) -> str:
+    """The C entry that a physics step of ``batch`` envs launches
+    (:func:`route`): ``vss_physics_step`` (the group kernels) or
+    ``vss_physics_step_one_thread``."""
+    return "vss_physics_step" if route(env, batch) == "group" else "vss_physics_step_one_thread"
 
 
 def _launch(env, robots, ball, cmd):
     n = env.n_robots
     dev = robots.device
     b = robots.shape[-1]
-    entry = "vss_physics_step" if route(env, b) == "group" else "vss_physics_step_one_thread"
+    entry = routed_entry(env, b)
     _build.check_operand(robots, "robots", (6, n), b, dev)
     _build.check_operand(ball, "ball", 6, b, dev)
     _build.check_operand(cmd, "cmd", (2, n), b, dev)

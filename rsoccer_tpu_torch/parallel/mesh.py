@@ -14,10 +14,12 @@ whatever the caller set up with :func:`initialize_distributed`: ``nccl``
 with one rank per card, or ``gloo`` (CPU tensors, and several ranks
 sharing one card).  Nothing here picks a backend.
 
-Every collective is an ``all_reduce``, which both backends take with CUDA
-tensors; gloo's ``all_gather`` takes CPU tensors only, so
+Every collective but one is an ``all_reduce``, which both backends take
+with CUDA tensors; gloo's ``all_gather`` takes CPU tensors only, so
 :func:`gather_rows` gathers through an ``all_reduce`` of a zero-padded
-stack instead (exact: each element has one non-zero term).
+stack instead (exact: each element has one non-zero term).  The one is
+:func:`broadcast_params`, which both backends also take with CUDA tensors:
+a learner's replicated networks start from the mesh's first rank's.
 """
 
 from __future__ import annotations
@@ -128,6 +130,22 @@ def all_reduce_grads(params, mesh: EnvMesh, average: bool = False):
     for g in grads:
         g.copy_(flat[off:off + g.numel()].view_as(g))
         off += g.numel()
+
+
+def broadcast_params(params, mesh: EnvMesh):
+    """Overwrite every rank's ``params`` with the mesh's first rank's, bit
+    for bit, in one broadcast of their flattened values: the replicas'
+    common start, taken from one rank as DDP takes it, rather than trusted
+    to each process drawing the same bits from the same seed."""
+    params = list(params)
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    src = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+    dist.broadcast(flat, src=src, group=mesh.group)
+    off = 0
+    with torch.no_grad():
+        for p in params:
+            p.copy_(flat[off:off + p.numel()].view_as(p))
+            off += p.numel()
 
 
 def gather_rows(t: torch.Tensor, mesh: EnvMesh) -> torch.Tensor:

@@ -8,11 +8,12 @@ collectives entirely:
   their noise is the global batch's columns), and samples its own
   ``batch_size / W`` minibatch from it; the insert stride (the local env
   count) and the strided n-step chains stay rank-local;
-- **replicated networks**: each rank computes its gradients on its local
-  minibatch, and each of the three is averaged over the ranks before its
-  optimiser steps (``models/sac.SACTrainer(..., mesh=)``), so the applied
-  update is the gradient of the global minibatch's mean loss and the
-  networks stay bit-identical on every rank.  The iteration's draws come
+- **replicated networks**: they start as the first rank's draws
+  (``parallel/mesh.broadcast_params``); each rank computes its gradients
+  on its local minibatch, and each of the three is averaged over the ranks
+  before its optimiser steps (``models/sac.SACTrainer(..., mesh=)``), so
+  the applied update is the gradient of the global minibatch's mean loss
+  and the networks stay bit-identical on every rank.  The iteration's draws come
   from the iteration's generator folded with the rank
   (``models/sac.iteration_generator(..., rank=)``).
 
@@ -38,7 +39,8 @@ def make_sharded_sac(benv: BatchedEnv, cfg: SACConfig, mesh: EnvMesh):
       ring of ``buffer_size / W``, minibatch ``batch_size / W``, gradients
       averaged over the mesh); use it for ``make_policy`` and checkpoints;
     - ``init(seed) -> SACState``: the rank's state (networks from ``seed``,
-      alike on every rank; its envs reset as the global batch's columns);
+      the first rank's broadcast to every rank; its envs reset as the
+      global batch's columns);
     - ``step(state, seed, iteration) -> (state, metrics)``: one SAC
       iteration with the draws of ``iteration_generator(seed, iteration)``
       folded with the rank; the metrics are averaged over the mesh.

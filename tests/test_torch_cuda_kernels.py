@@ -27,8 +27,9 @@ pytestmark = pytest.mark.cuda
 B = 256
 ATOL = 5e-5
 RAGGED = [1, 37, 8191, 8193]  # batches that leave the last 32-env block part empty
-# VSS-v0 beyond 3v3 and the Taylor bound: what the one-thread kernel (and,
-# at 3v3, the group kernel's exact-trig policy) runs
+# VSS-v0 beyond 3v3 and the Taylor bound: what the 16-lane group kernel
+# (5v5), the one-thread kernel (1v0, 2v5) and, at 3v3, the group kernel's
+# exact-trig policy run
 VSS_CONFIGS = {
     "5v5": dict(field_type=1, n_robots_blue=5, n_robots_yellow=5),
     "1v0": dict(n_robots_blue=1, n_robots_yellow=0),
@@ -164,10 +165,10 @@ def test_bad_operands_raise(cuda):
 @pytest.mark.parametrize("batch", [B, 8191])
 @pytest.mark.parametrize("config", list(VSS_CONFIGS))
 def test_kernel_matches_plain_configs(cuda, config, batch, rng_mode, emit_final):
-    """VSS-v0 at other team sizes and beyond the Taylor bound (the
-    one-thread kernel; at 3v3 the group kernel's exact-trig policy up to
-    VSS_GROUP_MAX_ENVS), through auto-resets that fall on different steps
-    in one warp."""
+    """VSS-v0 at other team sizes and beyond the Taylor bound (5v5 on the
+    16-lane group kernel, 1v0 and 2v5 on the one-thread kernel, 3v3 on the
+    group kernel's exact-trig policy), through auto-resets that fall on
+    different steps in one warp."""
     env = rsoccer_tpu_torch.make("VSS-v0", **VSS_CONFIGS[config])
     env.max_episode_steps = 3
     key = make_key(8, device=cuda)
@@ -202,21 +203,33 @@ def bit_equal(got, want):
     return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
 
 
+# team size -> (env kwargs, batch) of the group kernels' bit-for-bit checks:
+# 3v3 on 8 lanes, 5v5 on 16 (also at a ragged batch: the last 16-env block
+# part empty)
+GROUP_TEAMS = {
+    "3v3": ({}, B),
+    "5v5": (VSS_CONFIGS["5v5"], B),
+    "5v5_ragged": (VSS_CONFIGS["5v5"], 8191),
+}
+
+
+@pytest.mark.parametrize("team", list(GROUP_TEAMS))
 @pytest.mark.parametrize("time_step", [0.025, 0.1], ids=["taylor", "exact_trig"])
 @pytest.mark.parametrize("rng_mode", ["input", "kernel"])
 @pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
-def test_one_thread_kernel_bit_equal_to_group_kernel(cuda, time_step, rng_mode, emit_final):
-    """At 3v3 the one-thread kernel gives the group kernel's bits, through
-    auto-resets, in both trig policies."""
-    env = rsoccer_tpu_torch.make("VSS-v0", time_step=time_step)
+def test_one_thread_kernel_bit_equal_to_group_kernel(cuda, team, time_step, rng_mode, emit_final):
+    """At 3v3 and 5v5 the one-thread kernel gives the group kernel's bits,
+    through auto-resets, in both trig policies."""
+    kwargs, batch = GROUP_TEAMS[team]
+    env = rsoccer_tpu_torch.make("VSS-v0", **kwargs, time_step=time_step)
     env.max_episode_steps = 3
     key = make_key(2, device=cuda)
-    st, _ = BatchedEnv(env, B, device=cuda, fused=True).reset(key)
-    st = stagger(st)
+    st, _ = BatchedEnv(env, batch, device=cuda, fused=True).reset(key)
+    st = stagger(st, env.n_robots)
     gen = torch.Generator(device=cuda).manual_seed(3)
     for t in range(5):
-        act = torch.rand((2, B), generator=gen, device=cuda) * 2 - 1
-        rows = vf.draw_step_rows(env, key.clone(), B)
+        act = torch.rand((2, batch), generator=gen, device=cuda) * 2 - 1
+        rows = vf.draw_step_rows(env, key.clone(), batch)
         k = key if rng_mode == "kernel" else None
         group = vss_entry("vss_full_step", env, st, act, rows, k, emit_final)
         thread = vss_entry("vss_full_step_one_thread", env, st, act, rows, k, emit_final)
@@ -410,12 +423,14 @@ def test_vss_physics_kernel_matches_plain_configs(cuda, config, batch):
     check_vss_physics(cuda, batch, **VSS_CONFIGS[config])
 
 
-def test_vss_physics_one_thread_kernel_bit_equal_to_group_kernel(cuda):
-    env = rsoccer_tpu_torch.make("VSS-v0")
+@pytest.mark.parametrize("n", [6, 10])
+def test_vss_physics_one_thread_kernel_bit_equal_to_group_kernel(cuda, n):
+    """N = 6 on 8 lanes and N = 10 on 16: the one-thread kernel's bits."""
+    env = rsoccer_tpu_torch.make("VSS-v0", **(VSS_CONFIGS["5v5"] if n == 10 else {}))
     gen = torch.Generator(device=cuda).manual_seed(4)
     lib = vp._library()
     for trial in range(5):
-        rb, ball, cmd = random_vss_arrays(gen, cuda)
+        rb, ball, cmd = random_vss_arrays(gen, cuda, n=n)
         outs = {}
         for entry in ("vss_physics_step", "vss_physics_step_one_thread"):
             outs[entry] = (torch.full_like(rb, float("nan")), torch.full_like(ball, float("nan")))

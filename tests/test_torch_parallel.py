@@ -4,7 +4,8 @@ batch's columns, on every draw path), the mesh helpers and their
 divisibility errors (``tests/test_sharding.py``'s counterparts), the
 sharded rollout at two ranks against the unsharded one env for env (plain
 path, both RNG modes), the per-shard (``shard_map``) variant, and the
-sharded PPO's moment merge and minibatch split.  Ranks are processes over
+sharded PPO's moment merge and minibatch split, and the learners' common
+start (every rank's networks the first rank's).  Ranks are processes over
 gloo (``tests/torch_dist_worker.py``)."""
 
 import numpy as np
@@ -178,6 +179,39 @@ def test_sharded_rollout_two_ranks_equal_unsharded(tmp_path, fused, fused_rng):
         for got, want in zip(r["metrics"], (m1, m2)):
             np.testing.assert_allclose(got.numpy(), stacked(want).numpy(), rtol=1e-6, atol=1e-6)
     assert float(m1.total_reward) != 0.0
+
+
+INIT = {"sac": dict(env_id="VSS-v0", envs=32, hidden=[16, 16], cfg=dict(buffer_size=64, batch_size=16)),
+        "ppo": dict(env_id="VSS-v0", envs=32, hidden=[16, 16], cfg=dict(rollout_steps=8, num_minibatches=2))}
+
+
+@pytest.mark.parametrize("learner", ["sac", "ppo"])
+def test_replicas_start_from_the_first_ranks_networks(tmp_path, learner):
+    """Two ranks of the sharded SAC / PPO, each rank's init given its own
+    seed (its rank): both end with the networks the unsharded trainer
+    draws from seed 0, bit for bit; seed 1's draws differ from them."""
+    spec = dict(INIT[learner], learner=learner)
+    ranks = launch("init", 2, spec, tmp_path)
+    benv = rt.make_vec(spec["env_id"], spec["envs"], device="cpu")
+    hidden = tuple(spec["hidden"])
+    if learner == "sac":
+        from rsoccer_tpu_torch.models.sac import SACTrainer
+
+        trainer = SACTrainer(benv, SACConfig(**spec["cfg"], hidden=hidden))
+
+        def params(seed):
+            st = trainer.init(seed)
+            return [p for m in (st.actor, st.qs, st.qs_target) for p in m.parameters()]
+    else:
+        trainer = PPOTrainer(benv, PPOConfig(**spec["cfg"], hidden=hidden))
+
+        def params(seed):
+            return list(trainer.init(seed).net.parameters())
+    want = params(0)
+    assert not all(torch.equal(a, b) for a, b in zip(params(1), want))
+    for r in ranks:
+        assert len(r["params"]) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(r["params"], want))
 
 
 def _leaves(tree):

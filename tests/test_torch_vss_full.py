@@ -204,7 +204,7 @@ def test_wrapper_dispatch_on_cpu():
     [
         ({}, "group"),
         (CONFIGS["3v3_dt0.1"], "group"),  # the group kernel's exact-trig policy
-        (CONFIGS["5v5"], "thread"),
+        (CONFIGS["5v5"], "group"),  # the 16-lane group kernel
         (CONFIGS["1v0"], "thread"),
         (dict(n_robots_blue=5, n_robots_yellow=0), "thread"),
         (dict(n_robots_blue=2, n_robots_yellow=4), "thread"),  # 6 robots, not 3v3
@@ -212,11 +212,13 @@ def test_wrapper_dispatch_on_cpu():
     ids=["3v3", "3v3_dt0.1", "5v5", "1v0", "5v0", "2v4"],
 )
 def test_route_by_team_size(kwargs, route):
-    """Only 3v3 runs on the 8-lane group kernel; every other team size on
-    the one-thread kernel, at any batch."""
+    """3v3 runs on the 8-lane group kernel and 5v5 on the 16-lane one, each
+    up to its crossover (GROUP_MAX_ENVS); every other team size on the
+    one-thread kernel, at any batch."""
     env = rsoccer_tpu_torch.make("VSS-v0", **kwargs)
     assert vf.route(env, B) == route
-    assert vf.route(env, vf.VSS_GROUP_MAX_ENVS + 1) == "thread"
+    assert vf.route(env, 8192) == route  # the main path's batch
+    assert vf.route(env, vf.GROUP_MAX_ENVS.get((env.n_blue, env.n_yellow), 0) + 1) == "thread"
 
 
 @pytest.mark.parametrize("delta", [-1, 0, 1, 4096])
@@ -224,6 +226,15 @@ def test_route_at_the_crossover(delta):
     env = rsoccer_tpu_torch.make("VSS-v0")
     want = "group" if delta <= 0 else "thread"
     assert vf.route(env, vf.VSS_GROUP_MAX_ENVS + delta) == want
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1, 4096])
+def test_route_at_the_5v5_crossover(delta):
+    env = rsoccer_tpu_torch.make("VSS-v0", **CONFIGS["5v5"])
+    want = "group" if delta <= 0 else "thread"
+    assert vf.route(env, vf.VSS_5V5_GROUP_MAX_ENVS + delta) == want
+    assert vf.routed_entry(env, vf.VSS_5V5_GROUP_MAX_ENVS + delta) == (
+        "vss_full_step" if want == "group" else "vss_full_step_one_thread")
 
 
 @pytest.mark.parametrize(

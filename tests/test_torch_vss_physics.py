@@ -192,15 +192,26 @@ def test_fused_physics_rollout_matches_unfused():
     torch.testing.assert_close(c_f.obs, c_t.obs, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("n, route", [(6, "group"), (1, "thread"), (10, "thread")])
+@pytest.mark.parametrize("n, route", [(6, "group"), (1, "thread"), (10, "group")])
 def test_route_by_robot_count(n, route):
-    """N = 6 runs on the 8-lane group kernel up to VSS_GROUP_MAX_ENVS envs,
-    every other N on the one-thread kernel; above the crossover every N
-    runs one thread per env."""
+    """N = 6 runs on the 8-lane group kernel and N = 10 on the 16-lane one,
+    each up to its crossover (GROUP_MAX_ENVS), every other N on the
+    one-thread kernel; above its crossover every N runs one thread per
+    env."""
     env = rsoccer_tpu_torch.make("VSS-v0", **TEAMS[n])
     assert vp.route(env, B) == route
-    assert vp.route(env, vp.VSS_GROUP_MAX_ENVS) == route
-    assert vp.route(env, vp.VSS_GROUP_MAX_ENVS + 1) == "thread"
+    assert vp.route(env, 8192) == route  # the main path's batch
+    assert vp.route(env, vp.GROUP_MAX_ENVS.get(n, vp.VSS_GROUP_MAX_ENVS)) == route
+    assert vp.route(env, vp.GROUP_MAX_ENVS.get(n, 0) + 1) == "thread"
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1, 4096])
+def test_route_at_the_5v5_crossover(delta):
+    env = rsoccer_tpu_torch.make("VSS-v0", **TEAMS[10])
+    want = "group" if delta <= 0 else "thread"
+    assert vp.route(env, vp.VSS_10_GROUP_MAX_ENVS + delta) == want
+    assert vp.routed_entry(env, vp.VSS_10_GROUP_MAX_ENVS + delta) == (
+        "vss_physics_step" if want == "group" else "vss_physics_step_one_thread")
 
 
 def test_route_refuses_outside_the_range():

@@ -13,7 +13,9 @@ as ``.npz``), runs one task on its shard and writes its results with
   key and the global metrics;
 - ``sac_fed``: ``parallel/sac.make_sharded_sac`` from a state and per-shard
   draws the test made with the JAX package (``spec["draws"]``), the rank's
-  final networks and ring count.
+  final networks and ring count;
+- ``init``: the sharded SAC's or PPO's ``init`` from a seed of the rank's
+  own (its rank), the rank's networks.
 """
 
 from __future__ import annotations
@@ -84,6 +86,22 @@ def sac_fed(mesh, spec: dict, npz) -> dict:
             "qs_target": convert.sac_critics_to_numpy(state.qs_target),
             "log_alpha": state.log_alpha.detach(), "filled": state.buffer.filled,
             "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def learner_init(mesh, spec: dict) -> dict:
+    from rsoccer_tpu_torch.models.ppo import PPOConfig, PPOTrainer
+    from rsoccer_tpu_torch.models.sac import SACConfig
+    from rsoccer_tpu_torch.parallel.sac import make_sharded_sac
+
+    benv = rt.make_vec(spec["env_id"], spec["envs"], device="cpu")
+    if spec["learner"] == "sac":
+        _, init, _ = make_sharded_sac(benv, SACConfig(**spec["cfg"], hidden=tuple(spec["hidden"])), mesh)
+        state = init(mesh.rank)
+        nets = [state.actor, state.qs, state.qs_target]
+    else:
+        state = PPOTrainer(benv, PPOConfig(**spec["cfg"], hidden=tuple(spec["hidden"])), mesh=mesh).init(mesh.rank)
+        nets = [state.net]
+    return {"params": [p.detach().clone() for m in nets for p in m.parameters()]}
 
 
 def fake_mesh(rank: int, world: int):
@@ -183,6 +201,8 @@ def main(argv) -> int:
         mesh = M.make_env_mesh("cpu")
         if task == "rollout":
             res = rollout(mesh, spec)
+        elif task == "init":
+            res = learner_init(mesh, spec)
         else:
             with np.load(spec["draws"].format(rank=rank)) as npz:
                 spec["state"] = spec["state"].format(rank=rank)
