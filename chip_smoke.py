@@ -162,6 +162,19 @@ summing to the device total) and ``tool_sd_spawn_slice`` (``sd_ppo3`` at
 1024 envs x 2000 steps on K4: every spawn bin's goal rate inside the
 two-sample 3-sigma band around the JAX tool's own output); each phase
 line lists its depth cuts.
+Last, the physics calibration and the C++ oracles
+(``rsoccer_tpu_torch/tools/calibrate.py``, ``ops/native.py``):
+``calibrate_selftest`` runs the calibration self-test on the card at the
+JAX tool's size (6 robots, T = 80, 300 iterations; the loss falls by 1e3,
+``robot_accel`` and ``ball_friction_decel`` recovered within
+tests/test_calibrate.py's bounds; the first loss and gradients within rel
+1e-4 of the CPU's), ``calibrate_timed_fit`` times a fit of 8192
+transitions (ms per iteration by CUDA events, device us and the busy
+share by the profiler), and ``native_oracle_vss_physics_{3v3,5v5}`` and
+``native_oracle_ssl_plain`` hold K2 at 8192 envs and the plain SSL
+physics at 1024 envs to the C++ oracle on each of 20 steps (2e-4, wheel
+speeds 5e-3, infrared exact), printing the worst error per leaf; K2
+launches once per step through its routed entry.
 Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 """
 
@@ -2960,6 +2973,251 @@ def tool_sd_spawn_slice(card, wrappers):
         raise AssertionError(f"tool_sd_spawn_slice: outside the band: {misses}")
 
 
+# the physics calibration (tools/calibrate.py) on the card: the self-test at
+# the JAX tool's size, then a fit at a log's size (8192 transitions)
+CAL_RTOL = 1e-4  # the card's first loss and gradients against the CPU's
+CAL_FIT_ENVS, CAL_FIT_STEPS, CAL_FIT_ITERS = 256, 32, 20
+# iterations of the profiled fit: the profiler's own cost per launch (~1500
+# launches an iteration) dominates a longer window
+CAL_PROFILE_ITERS = 2
+# the C++ oracles (ops/native.py): K2 at 3v3 and 5v5, the plain SSL physics
+ORACLE_B, ORACLE_SSL_B, ORACLE_STEPS = 8192, 1024, 20
+
+
+def calibrate_selftest(card):
+    """``tools/calibrate.py``'s self-test at the JAX tool's size (6
+    robots, T = 80, 300 iterations from its perturbed start) on
+    ``device``: the loss falls below 1e-3 of the first, ``robot_accel``
+    within 0.3 and ``ball_friction_decel`` within 0.1 of the truth
+    (tests/test_calibrate.py's bounds); the first loss and gradients
+    within rel ``CAL_RTOL`` of the same on the CPU (a gradient below one
+    float32 ulp of the largest, rounding noise, only below that ulp)."""
+    from rsoccer_tpu_torch.core.state import tree_map
+    from rsoccer_tpu_torch.physics.config import VSS_PHYSICS
+    from rsoccer_tpu_torch.tools import calibrate as cal
+
+    device = "cuda"
+    states, cmds, field = cal.synthetic_trajectory(device=device)
+    bad = cal.perturbed()
+    loss, grads = cal.value_and_grad(states, cmds, field, cal.DT, bad, device=device)
+    host = [tree_map(lambda t: t.cpu(), x) for x in (states, cmds)]
+    c_loss, c_grads = cal.value_and_grad(*host, field, cal.DT, bad, device="cpu")
+    loss_rel = abs(float(loss) - float(c_loss)) / abs(float(c_loss))
+    mismatches = cal.grad_mismatches(grads, c_grads, CAL_RTOL)
+    if not loss_rel <= CAL_RTOL or mismatches:
+        raise AssertionError(f"calibrate: first loss {float(loss)} vs the CPU's {float(c_loss)} (rel {loss_rel}), "
+                             f"gradients off the CPU's: {mismatches}")
+    t0 = time.perf_counter()
+    fitted, losses = cal.fit_vss_physics(states, cmds, field, cal.DT, init_cfg=bad, n_iters=300, device=device)
+    fit_s = time.perf_counter() - t0
+    errs = {k: abs(getattr(fitted, k) - getattr(VSS_PHYSICS, k)) for k in cal.TUNABLE}
+    if not (losses[-1] < 1e-3 * losses[0] and errs["robot_accel"] < 0.3 and errs["ball_friction_decel"] < 0.1):
+        raise AssertionError(f"calibrate: loss {losses[0]} -> {losses[-1]}, fitted {fitted}")
+    phase("calibrate_selftest", card=card, n_robots=6, T=80, iters=300,
+          loss_first=losses[0], loss_last=losses[-1], loss_cpu=float(c_loss), loss_rel_err=loss_rel,
+          grads={k: float(v) for k, v in grads.items()}, grads_cpu={k: float(v) for k, v in c_grads.items()},
+          fitted={k: getattr(fitted, k) for k in cal.TUNABLE}, abs_err=errs,
+          host_ms_per_iter=fit_s * 1e3 / 300)
+
+
+def calibrate_timed_fit(card):
+    """A fit at a log's size: ``CAL_FIT_ENVS`` x ``CAL_FIT_STEPS`` = 8192
+    transitions of the 3v3 field from random worlds under uniform wheel
+    commands through the port's plain step, ``CAL_FIT_ITERS`` iterations
+    from the self-test's start: ms per iteration (CUDA events), device us
+    per iteration and the busy share (``tools/_trace.py``)."""
+    from rsoccer_tpu_torch.core.field import vss_field
+    from rsoccer_tpu_torch.core.state import VSSCommands, make_world, tree_map
+    from rsoccer_tpu_torch.physics.config import VSS_PHYSICS
+    from rsoccer_tpu_torch.physics.vss import make_vss_step
+    from rsoccer_tpu_torch.tools import calibrate as cal
+
+    field, n, e, device = vss_field(0), 6, CAL_FIT_ENVS, "cuda"
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    xl, yl = field.half_length - field.rbt_radius, field.half_width - field.rbt_radius
+    w = make_world(n, batch=e, device=device)
+    w = w._replace(
+        ball=w.ball._replace(x=uniform(-xl, xl, e), y=uniform(-yl, yl, e),
+                             v_x=uniform(-1.5, 1.5, e), v_y=uniform(-1.5, 1.5, e)),
+        robots=w.robots._replace(x=uniform(-xl, xl, n, e), y=uniform(-yl, yl, n, e),
+                                 theta=uniform(-math.pi, math.pi, n, e)),
+    )
+    step = make_vss_step(field, VSS_PHYSICS, cal.DT)
+    states, cmds = [w], []
+    for _ in range(CAL_FIT_STEPS):
+        cmds.append(VSSCommands(uniform(-30, 30, n, e), uniform(-30, 30, n, e)))
+        states.append(step(states[-1], cmds[-1]))
+    stack = lambda *ls: torch.stack(ls, dim=-1)  # noqa: E731  time last, after the envs
+    states, cmds = tree_map(stack, *states), tree_map(stack, *cmds)
+    bad = cal.perturbed()
+
+    def fit(n_iters=CAL_FIT_ITERS):
+        return cal.fit_vss_physics(states, cmds, field, cal.DT, init_cfg=bad, n_iters=n_iters, device=device)
+
+    _, losses = fit()
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"calibrate timed fit: losses {losses}")
+    ms = _trace.time_calls(fit, 1, device) * 1e3 / CAL_FIT_ITERS
+    trace = _trace.profile(lambda: fit(CAL_PROFILE_ITERS), 1, None, device)
+    top = [{**k, "name": k["name"][:80]} for k in trace.top(5)]
+    phase("calibrate_timed_fit", card=card, transitions=e * CAL_FIT_STEPS, envs=e,
+          steps=CAL_FIT_STEPS, iters=CAL_FIT_ITERS, loss_first=losses[0], loss_last=losses[-1],
+          ms_per_iter=ms, profiled_iters=CAL_PROFILE_ITERS,
+          device_us_per_iter=trace.total_us / CAL_PROFILE_ITERS,
+          launches_per_iter=sum(c for _, c in trace.kernels.values()) / CAL_PROFILE_ITERS,
+          busy_share=trace.busy_share, events=trace.events, timer=trace.timer, top=top)
+
+
+def oracle_vss_worlds(field, n: int, batch: int, gen, device):
+    """Batch-last VSS worlds on ``field`` in three scenes by env (as
+    tests/test_torch_physics_vss.py's): everyone crowded around the ball;
+    the ball in or at the goal pockets, half of it in the air; the ball and
+    the robots pressed against the walls."""
+    from rsoccer_tpu_torch.core.state import make_world
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    def side(*shape):
+        return torch.where(torch.rand(shape, generator=gen, device=device) < 0.5, -1.0, 1.0)
+
+    hl, hw, r = field.half_length, field.half_width, field.rbt_radius
+    scene = torch.arange(batch, device=device) % 3
+    cx, cy = uniform(-0.5 * hl, 0.5 * hl, batch), uniform(-0.5 * hw, 0.5 * hw, batch)
+    crowd_x, crowd_y = cx + uniform(-0.12, 0.12, n, batch), cy + uniform(-0.12, 0.12, n, batch)
+    s = side(batch)
+    pocket_bx = s * uniform(hl - 0.05, hl + field.goal_depth - field.ball_radius, batch)
+    pocket_by = uniform(-field.goal_width / 2, field.goal_width / 2, batch)
+    pocket_rx, pocket_ry = s * uniform(hl - 0.2, hl - r, n, batch), uniform(-0.45 * hw, 0.45 * hw, n, batch)
+    wall_bx, wall_by = uniform(-hl + 0.01, hl - 0.01, batch), side(batch) * uniform(hw - 0.05, hw, batch)
+    wall_rx, wall_ry = side(n, batch) * uniform(hl - 0.15, hl, n, batch), uniform(-hw + r, hw - r, n, batch)
+    pick = lambda a, b, c: torch.where(scene == 0, a, torch.where(scene == 1, b, c))  # noqa: E731
+    air = (scene == 1) & (torch.rand(batch, generator=gen, device=device) < 0.5)
+    w = make_world(n, batch=batch, device=device, ball_radius=field.ball_radius)
+    return w._replace(
+        ball=w.ball._replace(
+            x=pick(cx, pocket_bx, wall_bx), y=pick(cy, pocket_by, wall_by),
+            z=field.ball_radius + torch.where(air, uniform(0.0, 0.3, batch), 0.0),
+            v_x=uniform(-1.5, 1.5, batch), v_y=uniform(-1.5, 1.5, batch),
+            v_z=torch.where(air, uniform(-1.0, 2.0, batch), 0.0)),
+        robots=w.robots._replace(
+            x=pick(crowd_x, pocket_rx, wall_rx), y=pick(crowd_y, pocket_ry, wall_ry),
+            theta=uniform(-math.pi, math.pi, n, batch), v_x=uniform(-0.8, 0.8, n, batch),
+            v_y=uniform(-0.8, 0.8, n, batch), v_theta=uniform(-8, 8, n, batch)),
+    )
+
+
+def oracle_ssl_worlds(field, n: int, batch: int, gen, device):
+    """Batch-last SSL worlds and commands in four scenes by env (as
+    tests/test_torch_physics_ssl.py's): velocity targets, wheel targets,
+    the ball on robot 0's kicker face under kicks, and under its dribbler."""
+    from rsoccer_tpu_torch.core.state import SSLCommands, make_world
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+    scene = torch.arange(batch, device=device) % 4
+    w = make_world(n, batch=batch, device=device, ball_radius=field.ball_radius)
+    x, y = uniform(-1.0, 1.0, n, batch), uniform(-0.8, 0.8, n, batch)
+    theta = uniform(-math.pi, math.pi, n, batch)
+    vx, vy, vth = uniform(-1, 1, n, batch), uniform(-1, 1, n, batch), uniform(-6, 6, n, batch)
+    bx, by = uniform(-1.0, 1.0, batch), uniform(-0.8, 0.8, batch)
+    bvx, bvy = uniform(-2, 2, batch), uniform(-2, 2, batch)
+    face = scene >= 2  # kick (2) and dribble (3): the ball on robot 0's face, the others away
+    lx = torch.where(scene == 2, uniform(0.100, 0.112, batch), uniform(0.113, 0.140, batch))
+    ly = uniform(-0.03, 0.03, batch)
+    c0, s0 = torch.cos(theta[0]), torch.sin(theta[0])
+    bx = torch.where(face, x[0] + lx * c0 - ly * s0, bx)
+    by = torch.where(face, y[0] + lx * s0 + ly * c0, by)
+    bvx = torch.where(face, vx[0] + uniform(-0.3, 0.3, batch), bvx)
+    bvy = torch.where(face, vy[0] + uniform(-0.3, 0.3, batch), bvy)
+    vth = torch.cat([torch.where(face, uniform(-1, 1, batch), vth[0])[None], vth[1:]])
+    away = torch.cat([torch.zeros(1, batch, device=device), torch.full((n - 1, batch), 2.5, device=device)])
+    x, y = x + face * away, y + face * away
+    world = w._replace(
+        ball=w.ball._replace(x=bx, y=by, v_x=bvx, v_y=bvy),
+        robots=w.robots._replace(x=x, y=y, theta=theta, v_x=vx, v_y=vy, v_theta=vth),
+    )
+
+    def commands():
+        v_theta = uniform(-8, 8, n, batch)
+        v_theta = torch.cat([torch.where(face, uniform(-2, 2, batch), v_theta[0])[None], v_theta[1:]])
+        kick = scene == 2
+        return SSLCommands(
+            wheel_speed=(scene == 1).expand(n, batch).clone(),
+            v_wheel=uniform(-60, 60, n, 4, batch), v_x=uniform(-2, 2, n, batch), v_y=uniform(-2, 2, n, batch),
+            v_theta=v_theta,
+            kick_v_x=torch.where(kick, uniform(-1, 5, n, batch), 0.0),
+            kick_v_z=torch.where(kick & (torch.rand(n, batch, generator=gen, device=device) < 0.5),
+                                 uniform(0, 3, n, batch), 0.0),
+            dribbler=(scene == 3).expand(n, batch).clone(),
+        )
+
+    return world, commands
+
+
+def native_oracle(card, wrappers):
+    """K2 (``vss_physics``) at ``ORACLE_B`` envs, 3v3 and 5v5, and the
+    port's plain SSL physics at ``ORACLE_SSL_B`` envs, each held against
+    the C++ oracle (``ops/native.batched_*_oracle``) on every one of
+    ``ORACLE_STEPS`` steps, both started from the same state (the kernel's
+    or the plain step's last), to the protocol of tests/test_native_oracle.py
+    (2e-4 on ball and robots, 5e-3 on wheel speeds, infrared exact).  K2's
+    launches are counted: one per step through its routed entry."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.core.state import VSSCommands
+    from rsoccer_tpu_torch.ops import native
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+    from rsoccer_tpu_torch.physics.ssl import make_ssl_step
+
+    def walk(step, oracle, world, commands, tag):
+        worst, oracle_s = {}, 0.0
+        for t in range(ORACLE_STEPS):
+            cmd = commands()
+            got = step(world, cmd)
+            t0 = time.perf_counter()
+            want = oracle(world, cmd)
+            oracle_s += time.perf_counter() - t0
+            errs = native.world_errors(got, want)
+            native.check_oracle(errs, f"{tag} step {t}")
+            worst = {k: max(v, worst.get(k, 0)) for k, v in errs.items()}
+            world = got
+        return worst, oracle_s
+
+    device = "cuda"
+    gen = torch.Generator(device=device).manual_seed(21)
+    for cname, kwargs in (("3v3", {}), ("5v5", VSS_CONFIGS["5v5"])):
+        env = rt.make("VSS-v0", **kwargs)
+        n, f = env.n_robots, env.field
+        world = oracle_vss_worlds(f, n, ORACLE_B, gen, device)
+
+        def commands():
+            return VSSCommands(*(torch.rand((2, n, ORACLE_B), generator=gen, device=device) * 100.0 - 50.0))
+
+        zero_counts(wrappers)
+        worst, oracle_s = walk(lambda w, c: vp.world_step(env, w, c),
+                               lambda w, c: native.batched_vss_oracle(w, c, f, env.physics_cfg, env.time_step),
+                               world, commands, f"native_oracle_vss_physics_{cname}")
+        launches = check_launches(f"native_oracle_vss_physics_{cname}", wrappers, vp.vss_physics,
+                                  vp.routed_entry(env, ORACLE_B), ORACLE_STEPS)
+        phase(f"native_oracle_vss_physics_{cname}", card=card, B=ORACLE_B, steps=ORACLE_STEPS,
+              route=vp.route(env, ORACLE_B), launches=launches, worst=worst, atol=native.ORACLE_ATOL,
+              wheel_atol=native.ORACLE_WHEEL_ATOL, oracle_s=oracle_s)
+    env = rt.make("SSLStaticDefenders-v0")
+    world, commands = oracle_ssl_worlds(env.field, env.n_robots, ORACLE_SSL_B, gen, device)
+    step = make_ssl_step(env.field, env.physics_cfg, env.time_step)
+    worst, oracle_s = walk(step, lambda w, c: native.batched_ssl_oracle(w, c, env.field, env.physics_cfg,
+                                                                         env.time_step),
+                           world, commands, "native_oracle_ssl_plain")
+    phase("native_oracle_ssl_plain", card=card, env="SSLStaticDefenders-v0", n_robots=env.n_robots,
+          B=ORACLE_SSL_B, steps=ORACLE_STEPS, worst=worst, atol=native.ORACLE_ATOL,
+          wheel_atol=native.ORACLE_WHEEL_ATOL, oracle_s=oracle_s)
+
+
 def make_tasks():
     """The kernels' tasks: each fused env step, the physics kernel and the
     configurations beyond 3v3, with what main() checks, drives and times
@@ -3310,6 +3568,14 @@ def main() -> int:
     tool_rooflines(card, wrappers)
     tool_sd_spawn_slice(card, wrappers)
     phase("tools_total", card=card, seconds=time.perf_counter() - t_tools)
+
+    # ---- 12. the physics calibration: the self-test, a fit at a log's size
+    t_cal = time.perf_counter()
+    calibrate_selftest(card)
+    calibrate_timed_fit(card)
+    # ---- 13. the C++ oracles: K2 at 3v3 and 5v5, the plain SSL physics
+    native_oracle(card, wrappers)
+    phase("calibrate_oracle_total", card=card, seconds=time.perf_counter() - t_cal)
     phase("total", card=card, seconds=time.perf_counter() - _T0)
 
     print(json.dumps({"kernels": kernels}))

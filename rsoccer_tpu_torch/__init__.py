@@ -21,6 +21,9 @@ through the same VSS physics kernel, and ``models/selfplay.py`` trains a
 learner against its frozen past (``examples/selfplay_vss.py``).
 ``parallel/`` shards the env batch, PPO and SAC over ``torch.distributed``
 ranks (``tools/distributed_smoke.py``, ``tools/elastic_train.py``).
+``tools/calibrate.py`` fits the VSS physics coefficients to trajectories
+through the differentiable plain step; ``ops/native.py`` binds the C++
+physics oracles (``csrc/*.cpp``).
 Imports ``torch`` and never ``jax``.
 """
 

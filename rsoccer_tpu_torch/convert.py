@@ -6,7 +6,11 @@
 tree — and builds the port's state of the class it is given on ``device``
 (the card unless the caller asks for the CPU).  ``state_to_numpy`` goes
 back: the port's state with numpy leaves, whose fields flatten in the JAX
-package's leaf order.  The same pair exists for noise dicts.
+package's leaf order.  The same pair exists for noise dicts, and for
+trajectories (``trajectory_from_numpy``, ``trajectory_to_numpy``): a JAX
+stack of single-env states or commands, time first (``(T+1, N)``,
+``(T+1,)``, ``v_wheel`` ``(T+1, N, 4)``), is the port's state with time as
+its batch axis (``(N, T+1)``, ``(T+1,)``, ``v_wheel`` ``(N, 4, T+1)``).
 
 The PPO policy crosses as the JAX package's ``{params, obs_norm}``
 checkpoint tree (``examples/train_ppo_vss.py``): ``ppo_to_numpy`` builds
@@ -80,6 +84,18 @@ def state_from_numpy(tree, cls, device="cuda"):
 def state_to_numpy(state):
     """Port env state -> the same NamedTuple with numpy leaves."""
     return tree_map(lambda t: t.detach().cpu().numpy(), state)
+
+
+def trajectory_from_numpy(tree, cls, device="cuda"):
+    """A JAX time-first stack (numpy leaves) of ``WorldState``s or
+    ``VSSCommands`` -> the port's ``cls`` with time as the last axis."""
+    return tree_map(lambda t: t.movedim(0, -1).contiguous(), state_from_numpy(tree, cls, device))
+
+
+def trajectory_to_numpy(traj):
+    """The port's time-last trajectory -> the same NamedTuple with numpy
+    leaves stacked time first, as the JAX package stacks them."""
+    return tree_map(lambda a: np.ascontiguousarray(np.moveaxis(a, -1, 0)), state_to_numpy(traj))
 
 
 def noise_from_numpy(noise: dict, device="cuda") -> dict:

@@ -41,6 +41,22 @@ class WorldState(NamedTuple):
     robots: RobotsState
 
 
+def make_world(n_robots: int, batch: int = 1, device="cuda", dtype=torch.float32,
+               ball_radius: float = 0.0215) -> WorldState:
+    """A zero-initialised world of ``batch`` envs with ``n_robots`` robots
+    each (``rsoccer_tpu/core/state.py::make_world``, batch-last).  The ball
+    rests on the ground: ``z = ball_radius`` (center height)."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((*shape, batch), dtype=dt, device=device)
+
+    rest = torch.full((batch,), ball_radius, dtype=dtype, device=device)
+    return WorldState(
+        ball=BallState(zeros(), zeros(), rest, zeros(), zeros(), zeros()),
+        robots=RobotsState(*(zeros(n_robots) for _ in range(6)),
+                           infrared=zeros(n_robots, dt=torch.bool), v_wheel=zeros(n_robots, 4)),
+    )
+
+
 class VSSCommands(NamedTuple):
     """Per-robot VSS wheel-speed targets, rad/s, leaves (N, B)."""
 

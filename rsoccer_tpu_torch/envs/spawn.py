@@ -4,7 +4,9 @@ Port of ``rsoccer_tpu/envs/spawn.py`` on batch-last tensors: each entity
 draws ``N_CANDIDATES`` uniform candidates and takes the first one at least
 ``min_dist`` from every entity placed before it, else candidate 0 (the
 reference's sequential rejection loop, vss_gym.py:214-231, with a fixed
-budget).
+budget).  :func:`sample_separated` and :func:`uniform_angles` are the
+keyed conveniences: they draw from the port's Philox key
+(``ops/philox.make_key``), so their numbers are not ``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from rsoccer_tpu_torch.envs.base import draw_noise
 
 # P(no valid candidate) <= 0.16^8 per point at reference densities
 N_CANDIDATES = 8
@@ -55,3 +59,18 @@ def place_separated(u, x_lo: float, x_hi: float, y_lo: float, y_hi: float,
 def angles_from_uniform(u):
     """Uniform [0, 1) samples -> headings in radians."""
     return u * (2.0 * math.pi)
+
+
+def sample_separated(key, n_points: int, x_lo: float, x_hi: float, y_lo: float, y_hi: float,
+                     min_dist: float, preplaced_x=(), preplaced_y=(), batch: int = 1):
+    """:func:`place_separated` with its uniforms drawn at ``key``'s step,
+    which advances; returns ``(xs, ys)``, each ``(n_points, batch)``."""
+    spec = {"u": ((n_points, 2, N_CANDIDATES), "uniform")}
+    u = draw_noise(key, spec, batch)["u"]
+    return place_separated(u, x_lo, x_hi, y_lo, y_hi, min_dist, preplaced_x, preplaced_y)
+
+
+def uniform_angles(key, n: int, batch: int = 1):
+    """``(n, batch)`` headings in [0, 2 pi) drawn at ``key``'s step, which
+    advances."""
+    return angles_from_uniform(draw_noise(key, {"u": ((n,), "uniform")}, batch)["u"])

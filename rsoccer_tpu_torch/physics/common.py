@@ -4,6 +4,14 @@ Port of ``rsoccer_tpu/physics/common.py`` onto batch-last tensors: robot
 leaves are ``(N, B)``, ball leaves ``(B,)``.  The robot-robot contact keeps
 the reference's dense N x N form (``(N, N, B)`` pair tensors); the fused
 kernel uses the pair-list form of ``ops/pair_collide.py`` instead.
+
+Clamps go through :func:`clip` and :func:`maximum` (``torch.minimum`` /
+``torch.maximum``), not ``torch.clamp``: the same bits forward, and at a
+tie the gradient splits evenly between the two sides as ``jnp.clip`` and
+``jnp.maximum``'s do (``torch.clamp`` passes all of it to the input).  A
+robot pinned at a wall sits exactly on its bound, and
+``tools/calibrate.py`` differentiates through here.  Coefficients may be
+floats or 0-d tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +21,22 @@ import math
 import torch
 
 _EPS = 1e-8
+
+
+def _tensor(v, like):
+    """A float as a 0-d tensor of ``like``'s dtype (rounded as
+    ``torch.clamp`` rounds a float bound); a tensor as it is."""
+    return v if isinstance(v, torch.Tensor) else torch.tensor(v, dtype=like.dtype)
+
+
+def maximum(x, lo):
+    """``jnp.maximum(x, lo)``: ``lo`` a float or a tensor."""
+    return torch.maximum(x, _tensor(lo, x))
+
+
+def clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)``: ``min(max(x, lo), hi)``."""
+    return torch.minimum(maximum(x, lo), _tensor(hi, x))
 
 
 def resolve_robot_robot(x, y, v_x, v_y, radius: float, restitution: float):
@@ -25,12 +49,12 @@ def resolve_robot_robot(x, y, v_x, v_y, radius: float, restitution: float):
     d2 = dx * dx + dy * dy
     n = x.shape[0]
     eye = torch.eye(n, dtype=torch.bool, device=x.device)[:, :, None]
-    d = torch.sqrt(torch.where(eye, 1.0, torch.clamp_min(d2, _EPS * _EPS)))
+    d = torch.sqrt(torch.where(eye, 1.0, maximum(d2, _EPS * _EPS)))
     overlap = torch.where(eye, 0.0, 2.0 * radius - d)
     colliding = overlap > 0.0
 
-    nx = dx / torch.clamp_min(d, _EPS)
-    ny = dy / torch.clamp_min(d, _EPS)
+    nx = dx / maximum(d, _EPS)
+    ny = dy / maximum(d, _EPS)
 
     # positional separation: each robot moves half the overlap away
     push = torch.where(colliding, 0.5 * overlap, 0.0)
@@ -60,14 +84,14 @@ def resolve_ball_robots(
     dx = bx - rx
     dy = by - ry
     d2 = dx * dx + dy * dy
-    d = torch.sqrt(torch.clamp_min(d2, _EPS * _EPS))
+    d = torch.sqrt(maximum(d2, _EPS * _EPS))
     overlap = (robot_radius + ball_radius) - d
     colliding = overlap > 0.0
     if active is not None:
         colliding = colliding & active
 
-    nx = dx / torch.clamp_min(d, _EPS)
-    ny = dy / torch.clamp_min(d, _EPS)
+    nx = dx / maximum(d, _EPS)
+    ny = dy / maximum(d, _EPS)
 
     bx = bx + torch.sum(torch.where(colliding, overlap, 0.0) * nx, dim=0)
     by = by + torch.sum(torch.where(colliding, overlap, 0.0) * ny, dim=0)
@@ -115,15 +139,15 @@ def clamp_robots_walls_vss(
     hit_y = torch.abs(y) > yl
     v_x = torch.where(hit_x & (v_x * torch.sign(x) > 0.0), 0.0, v_x)
     v_y = torch.where(hit_y & (v_y * torch.sign(y) > 0.0), 0.0, v_y)
-    x = torch.clamp(x, -xl, xl)
-    y = torch.clamp(y, -yl, yl)
+    x = clip(x, -xl, xl)
+    y = clip(y, -yl, yl)
     return x, y, v_x, v_y
 
 
 def apply_ball_friction(bvx, bvy, decel: float, dt: float):
     """Constant-deceleration rolling friction toward rest."""
     speed = torch.sqrt(bvx * bvx + bvy * bvy + _EPS * _EPS)
-    scale = torch.clamp_min(1.0 - decel * dt / speed, 0.0)
+    scale = maximum(1.0 - decel * dt / speed, 0.0)
     return bvx * scale, bvy * scale
 
 

@@ -4,6 +4,11 @@ Port of ``rsoccer_tpu/physics/vss.py``: commanded wheel speeds map to a
 target forward/angular velocity; the body tracks it under acceleration
 clamps while lateral slip decays; then robot-robot, robot-wall, ball and
 ball-robot/wall contacts, ``n_substeps`` times per control step.
+
+The coefficients of ``cfg`` may be 0-d tensors, as the JAX step's may be
+traced values: ``tools/calibrate.py`` differentiates the step with
+respect to them.  With float coefficients the constants fold in double
+precision as before, so the float path keeps its bits.
 """
 
 from __future__ import annotations
@@ -35,7 +40,10 @@ def achieved_wheel_speeds(v_x, v_y, theta, v_theta, wheel_radius: float):
 def make_vss_step(field: FieldParams, cfg: PhysicsConfig, dt: float):
     """Build ``step(world, commands) -> world`` with all constants folded."""
     dts = dt / cfg.n_substeps
-    lat_keep = math.exp(-cfg.lateral_decay * dts)
+    if isinstance(cfg.lateral_decay, torch.Tensor):
+        lat_keep = torch.exp(-cfg.lateral_decay * dts)
+    else:  # folded in double, as the kernels' plain versions expect
+        lat_keep = math.exp(-cfg.lateral_decay * dts)
     max_wheel = field.max_wheel_rad_s
     wheel_r = field.rbt_wheel_radius
     a_lin = cfg.robot_accel * dts
@@ -50,9 +58,9 @@ def make_vss_step(field: FieldParams, cfg: PhysicsConfig, dt: float):
         sin_t = torch.sin(rb.theta)
         u = rb.v_x * cos_t + rb.v_y * sin_t  # forward speed
         s = -rb.v_x * sin_t + rb.v_y * cos_t  # lateral slip
-        u = u + torch.clamp(v_tgt - u, -a_lin, a_lin)
+        u = u + common.clip(v_tgt - u, -a_lin, a_lin)
         s = s * lat_keep
-        w = rb.v_theta + torch.clamp(w_tgt - rb.v_theta, -a_ang, a_ang)
+        w = rb.v_theta + common.clip(w_tgt - rb.v_theta, -a_ang, a_ang)
 
         theta = common.wrap_angle(rb.theta + w * dts)
         cos_n = torch.cos(theta)
@@ -105,8 +113,8 @@ def make_vss_step(field: FieldParams, cfg: PhysicsConfig, dt: float):
         )
 
     def step(world: WorldState, commands: VSSCommands) -> WorldState:
-        wl = torch.clamp(commands.v_wheel0, -max_wheel, max_wheel)
-        wr = torch.clamp(commands.v_wheel1, -max_wheel, max_wheel)
+        wl = common.clip(commands.v_wheel0, -max_wheel, max_wheel)
+        wr = common.clip(commands.v_wheel1, -max_wheel, max_wheel)
         v_tgt = wheel_r * (wl + wr) / 2.0
         w_tgt = wheel_r * (wr - wl) / (2.0 * HALF_AXLE)
         for _ in range(cfg.n_substeps):

@@ -28,6 +28,12 @@ _REGISTRY: Dict[str, Callable] = {
 }
 
 
+def register(env_id: str, factory: Callable):
+    """Register ``factory(**kwargs) -> env`` under ``env_id`` (replacing
+    any factory already there), for :func:`make`."""
+    _REGISTRY[env_id] = factory
+
+
 def make(env_id: str, **kwargs):
     """Create a functional env by reference id (e.g. ``"VSS-v0"``)."""
     if env_id not in _REGISTRY:

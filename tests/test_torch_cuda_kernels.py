@@ -411,6 +411,28 @@ def test_vss_physics_kernel_matches_plain(cuda):
     check_vss_physics(cuda, B)
 
 
+@pytest.mark.parametrize("config", ["3v3", "5v5"])
+def test_vss_physics_kernel_matches_native_oracle(cuda, config):
+    """K2 against the C++ oracle (``ops/native.batched_vss_oracle``) on
+    each of 5 steps from the same state: 2e-4 on ball and robots, 5e-3 on
+    wheel speeds (tests/test_native_oracle.py's protocol)."""
+    from rsoccer_tpu_torch.core.state import VSSCommands
+    from rsoccer_tpu_torch.ops import native
+
+    env = rsoccer_tpu_torch.make("VSS-v0", **VSS_CONFIGS.get(config, {}))
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    rb, ball, _ = random_vss_arrays(gen, cuda, n=env.n_robots)
+    world = vp._world(rb, ball, env.field.rbt_wheel_radius)
+    launches = vp.vss_physics.launches
+    for t in range(5):
+        cmd = VSSCommands(*(torch.rand((2, env.n_robots, B), generator=gen, device=cuda) * 100 - 50))
+        got = vp.world_step(env, world, cmd)
+        want = native.batched_vss_oracle(world, cmd, env.field, env.physics_cfg, env.time_step)
+        native.check_oracle(native.world_errors(got, want), f"{config} step {t}")
+        world = got
+    assert vp.vss_physics.launches == launches + 5
+
+
 @pytest.mark.parametrize("batch", RAGGED)
 def test_vss_physics_kernel_matches_plain_ragged(cuda, batch):
     check_vss_physics(cuda, batch)

@@ -41,8 +41,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, rsoccer_tpu_torch, rsoccer_tpu_torch.batch.rollout, "
         "rsoccer_tpu_torch.ops.vss_full, rsoccer_tpu_torch.ops.ssl_full, "
-        "rsoccer_tpu_torch.ops.vss_physics, "
-        "rsoccer_tpu_torch.convert; "
+        "rsoccer_tpu_torch.ops.vss_physics, rsoccer_tpu_torch.ops.native, "
+        "rsoccer_tpu_torch.tools.calibrate, rsoccer_tpu_torch.convert; "
         "assert 'jax' not in sys.modules, 'jax was imported'; print('ok')"
     )
     out = subprocess.run(
@@ -212,3 +212,120 @@ def test_build_without_nvcc_raises(monkeypatch):
         pytest.skip("a system nvcc exists at /usr/local/cuda/bin")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+@pytest.mark.parametrize("n, batch", [(6, 1), (10, 3)])
+def test_make_world_equals_jax(n, batch):
+    """``core/state.make_world`` is the JAX package's, batch-last."""
+    from rsoccer_tpu.core import state as jstate
+    from rsoccer_tpu_torch.core import state as tstate
+
+    want = jax.tree.leaves(jax.tree.map(np.asarray, jstate.make_world(n)))
+    got = jax.tree.leaves(convert.state_to_numpy(tstate.make_world(n, batch=batch, device="cpu")))
+    assert len(got) == len(want) == 14
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, np.broadcast_to(w[..., None], w.shape + (batch,)))
+
+
+def test_register_then_make_custom_id(monkeypatch):
+    from rsoccer_tpu_torch import registry
+    from rsoccer_tpu_torch.envs.vss import VSSEnv
+
+    monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))  # a copy of its own
+    registry.register("VSSSolo-v0", lambda **kw: VSSEnv(**{"n_robots_blue": 1, "n_robots_yellow": 0, **kw}))
+    assert "VSSSolo-v0" in rsoccer_tpu_torch.registered_ids()
+    env = rsoccer_tpu_torch.make("VSSSolo-v0", time_step=0.1)
+    assert (env.n_robots, env.time_step) == (1, 0.1)
+    benv = rsoccer_tpu_torch.make_vec("VSSSolo-v0", 4, device="cpu")
+    assert benv.env.n_robots == 1
+    registry.register("VSS-v0", lambda **kw: "replaced")  # a later factory wins
+    assert rsoccer_tpu_torch.make("VSS-v0") == "replaced"
+
+
+def test_keyed_ou_step_is_its_pure_core():
+    """``ou_step`` is ``ou_update`` of the normals drawn at its key (which
+    advances); ``ou_update`` is the JAX package's; ``ou_reset`` zeros."""
+    from rsoccer_tpu.envs import ou as jou
+    from rsoccer_tpu_torch.envs import ou as tou
+    from rsoccer_tpu_torch.envs.base import draw_noise
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(6, 2, 512)).astype(np.float32))
+    key = make_key(5, device="cpu")
+    twin = key.clone()
+    got = tou.ou_step(x, key, 0.025, mu=0.1, sigma=0.4)
+    assert int(key[2]) == 1
+    noise = draw_noise(twin, {"n": ((6, 2), "normal")}, 512)["n"]
+    torch.testing.assert_close(got, tou.ou_update(x, noise, 0.025, mu=0.1, sigma=0.4), rtol=0, atol=0)
+    want = jou.ou_update(jnp.asarray(x.numpy()), jnp.asarray(noise.numpy()), 0.025, mu=0.1, sigma=0.4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    assert abs(float(noise.mean())) < 0.05 and abs(float(noise.std()) - 1.0) < 0.05
+    assert not torch.equal(tou.ou_step(x, key, 0.025), got)  # the next step draws anew
+    z = tou.ou_reset((6, 2, 4), device="cpu")
+    assert z.shape == (6, 2, 4) and not z.any()
+
+
+def test_keyed_spawn_is_its_pure_core():
+    """``sample_separated`` is ``place_separated`` of the uniforms drawn at
+    its key, which is the JAX package's on equal draws; its points lie in
+    the box, apart; ``uniform_angles`` likewise over
+    ``angles_from_uniform``."""
+    from rsoccer_tpu.envs import spawn as jspawn
+    from rsoccer_tpu_torch.envs import spawn as tspawn
+    from rsoccer_tpu_torch.envs.base import draw_noise
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    box, min_dist, b = (-0.6, 0.6, -0.5, 0.5), 0.15, 64
+    key = make_key(3, device="cpu")
+    twin = key.clone()
+    xs, ys = tspawn.sample_separated(key, 5, *box, min_dist, preplaced_x=(0.0,), preplaced_y=(0.0,), batch=b)
+    assert xs.shape == ys.shape == (5, b) and int(key[2]) == 1
+    u = draw_noise(twin, {"u": ((5, 2, tspawn.N_CANDIDATES), "uniform")}, b)["u"]
+    want = tspawn.place_separated(u, *box, min_dist, (0.0,), (0.0,))
+    assert torch.equal(xs, want[0]) and torch.equal(ys, want[1])
+    j_place = jax.vmap(lambda uu: jspawn.place_separated(uu, *box, min_dist, jnp.zeros(1), jnp.zeros(1)),
+                       in_axes=-1, out_axes=-1)
+    jx, jy = j_place(jnp.asarray(u.numpy()))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(ys.numpy(), np.asarray(jy))
+    assert ((xs >= box[0]) & (xs < box[1]) & (ys >= box[2]) & (ys < box[3])).all()
+    px, py = torch.cat([torch.zeros(1, b), xs]), torch.cat([torch.zeros(1, b), ys])
+    d = torch.hypot(px[:, None] - px[None], py[:, None] - py[None]) + torch.eye(6)[:, :, None]
+    assert (d >= min_dist).all()
+
+    twin = key.clone()
+    ang = tspawn.uniform_angles(key, 6, batch=b)
+    u = draw_noise(twin, {"u": ((6,), "uniform")}, b)["u"]
+    assert ang.shape == (6, b) and torch.equal(ang, tspawn.angles_from_uniform(u))
+    assert ((ang >= 0) & (ang < 2 * np.pi)).all()
+    np.testing.assert_allclose(ang.numpy(), np.asarray(jspawn.angles_from_uniform(jnp.asarray(u.numpy()))),
+                               rtol=0, atol=1e-6)
+
+
+def test_trajectory_from_numpy_round_trips():
+    """A JAX time-first stack of worlds and commands -> the port's
+    time-last trajectory and back."""
+    from rsoccer_tpu.core import state as jstate
+    from rsoccer_tpu_torch.core import state as tstate
+
+    rng = np.random.default_rng(2)
+    worlds = [jax.tree.map(lambda a: jnp.asarray(rng.normal(size=a.shape).astype(a.dtype)) if a.dtype != bool
+                           else jnp.asarray(rng.uniform(size=a.shape) < 0.5), jstate.make_world(6))
+              for _ in range(5)]
+    stack = jax.tree.map(lambda *ls: np.stack([np.asarray(x) for x in ls]), *worlds)
+    traj = convert.trajectory_from_numpy(stack, tstate.WorldState, device="cpu")
+    assert traj.ball.x.shape == (5,) and traj.robots.x.shape == (6, 5)
+    assert traj.robots.v_wheel.shape == (6, 4, 5) and traj.robots.infrared.dtype == torch.bool
+    for t in range(5):
+        np.testing.assert_array_equal(traj.robots.v_wheel[:, :, t].numpy(), stack.robots.v_wheel[t])
+        np.testing.assert_array_equal(traj.robots.theta[:, t].numpy(), stack.robots.theta[t])
+    back = convert.trajectory_to_numpy(traj)
+    for a, b in zip(jax.tree.leaves(stack), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and b.flags.c_contiguous
+        np.testing.assert_array_equal(a, b)
+    cmds = jstate.VSSCommands(*rng.uniform(-30, 30, (2, 4, 6)).astype(np.float32))
+    tc = convert.trajectory_from_numpy(cmds, tstate.VSSCommands, device="cpu")
+    assert tc.v_wheel0.shape == (6, 4)
+    np.testing.assert_array_equal(tc.v_wheel1.numpy(), cmds.v_wheel1.T)
+    np.testing.assert_array_equal(convert.trajectory_to_numpy(tc).v_wheel0, cmds.v_wheel0)
