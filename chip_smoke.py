@@ -27,8 +27,12 @@ and on the one-thread kernel just above its crossover; 1v0 on the
 one-thread kernel; at 3v3 the group kernel's exact-trig policy),
 the physics kernel at 5v5 (16 lanes) and 1v0 (one thread), and at 3v3 and
 5v5 the one-thread VSS kernels are held bit for bit to the group kernels
-at 32768 envs.  The VSS kernels and K4-K7 are timed at 32768 and 131072
-envs through their wrappers' routes.  Then it drives each main path —
+at 32768 envs (at 5v5 also their register-capped variants).  The VSS
+kernels and K4-K7 are timed at 32768 and 131072 envs through their
+wrappers' routes, and the one-thread VSS kernels (3v3, 5v5; K2 at N = 6,
+10) through the one-thread entry the route names there, with their
+registers, spills, warps per SM and SASS issue floor
+(``kernel_scale_one_thread``).  Then it drives each main path —
 ``BatchedEnv(<id>, 8192, device="cuda", fused=True, fused_rng="kernel")``,
 ``BatchedEnv(VSS-v0, 8192, device="cuda", fused_physics=True)``, and
 ``make_vec("VSS-v0", 8192, ..., field_type=1, n_robots_blue=5,
@@ -43,14 +47,17 @@ kernels' JSON record and ``{"ok": true, ...}``.
 
 With ``--baseline DIR`` it runs instead one comparison against the kernels
 built from another tree's sources in DIR (its ``rsoccer_tpu_torch/csrc``,
-for example the parent commit's, unpacked with ``git archive``): the 3v3
-VSS kernels bit for bit, this tree's one-thread VSS kernels with them, all
-timed in turns (baseline, group, one thread, one thread, group, baseline)
-from 8192 to 131072 envs (the group-vs-one-thread crossover); the 5v5
-group kernels bit for bit against the baseline's one-thread kernels and
-this tree's (both RNG modes, both obs variants, both trig policies),
-timed in turns the same way against them, with the route beside the
-faster design (the 5v5 crossover); all four SSL
+for example the parent commit's, unpacked with ``git archive``): this
+tree's one-thread VSS kernels bit for bit against DIR's at 1v0, 2v2, 3v3
+and 5v5 (K2 at N = 1, 4, 6, 10; both RNG modes, both obs variants, both
+trig policies, ``env_base`` 0 and 4096) at 8191, 16385 and 8192-131072
+envs; the 3v3 group kernels bit for bit against DIR's and the one-thread
+kernels, all timed in turns (DIR's one thread, group, one thread, one
+thread, group, DIR's one thread) from 8192 to 131072 envs (the
+group-vs-one-thread crossover), 1v0 likewise without a group kernel; the
+5v5 group kernels bit for bit against DIR's one-thread kernels and this
+tree's (with their capped variants), timed in turns the same way, with
+the routed entry beside the fastest design (the 5v5 crossovers); all four SSL
 steps, outputs bit for bit at 8192 to 131072 envs (in both RNG modes and
 both obs variants), then each timed in turns (baseline, this, this,
 baseline), the StaticDefenders and Dribbling steps with this tree's
@@ -105,8 +112,8 @@ the VSS physics kernel (``fused_physics``): it is held to its plain
 version under policy-like actions of every robot on both envs at 8192
 and 8191 envs (in section 3), ``VSSMultiAgent-v0``'s main path is driven
 and timed (section 4); ``selfplay_train`` runs
-``examples/selfplay_vss.py`` in-process at the round-5 recipe cut to 10
-updates (2048 envs, half the lanes OU, anchor-gated swaps every 5, a
+``examples/selfplay_vss.py`` in-process at the round-5 recipe cut to 6
+updates (2048 envs, half the lanes OU, anchor-gated swaps every 3, a
 ``selfplay_swap`` line each), ``selfplay_resume`` holds one more update
 from a saved and restored state (the frozen opponent's payload included)
 bit for bit, and ``selfplay_checkpoint`` scores the two shipped league
@@ -715,7 +722,8 @@ def time_at_scale(card, k1, k2, ssl_tasks):
     modes), the physics kernel (task ``k2``) and the SSL steps of
     ``ssl_tasks`` (K4-K7, each in its RNG modes) at each of SCALE_BATCHES envs,
     on the state after 20 main-path steps, through the wrappers (so through
-    each one's ``route``), with each call's bound.  One phase per batch."""
+    each one's ``route``), with each call's bound; then the one-thread VSS
+    kernels (:func:`thread_kernels_at`).  Two phases per batch."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch import rollout as R
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
@@ -723,6 +731,7 @@ def time_at_scale(card, k1, k2, ssl_tasks):
     from rsoccer_tpu_torch.ops import vss_physics as vp
     from rsoccer_tpu_torch.ops.philox import make_key
 
+    probe = thread_probe_state()
     for batch in SCALE_BATCHES:
         env = rt.make("VSS-v0")
         benv = BatchedEnv(env, batch, device="cuda", fused=True, fused_rng="kernel")
@@ -759,6 +768,76 @@ def time_at_scale(card, k1, k2, ssl_tasks):
         torch.cuda.synchronize()
         phase("kernel_scale", card=card, B=batch, device_us=dev_us, bound_us=bound_us,
               vss_route={"vss_full": vf.route(env, batch), "vss_physics": vp.route(env, batch)})
+        phase("kernel_scale_one_thread", card=card, B=batch, **thread_kernels_at(batch, probe))
+
+
+# the one-thread VSS kernels that kernel_scale reports on: (K1 or K2, env kwargs)
+SCALE_THREAD_KERNELS = {"k1_3v3": ("full", {}), "k1_5v5": ("full", VSS_CONFIGS["5v5"]),
+                        "k2_n6": ("physics", {}), "k2_n10": ("physics", VSS_CONFIGS["5v5"])}
+
+
+def thread_probe_state():
+    """What kernel_scale reads once about this tree's one-thread VSS
+    kernels: registers, spills and static shared memory (``-Xptxas -v`` of
+    the build), the static SASS per env (``cuobjdump``, tools/thread_probe)
+    and the SM clock (``nvidia-smi``)."""
+    from rsoccer_tpu_torch.ops import _build
+    from rsoccer_tpu_torch.tools import thread_probe as tp
+
+    path, log, _ = _build.build()
+    return SimpleNamespace(regs=tp.thread_kernel_regs(tp.ptxas_kernels(log)), sass=tp.kernel_sass(path),
+                           clocks=tp.sm_clocks())
+
+
+def thread_kernels_at(batch, probe) -> dict:
+    """Each of SCALE_THREAD_KERNELS at ``batch`` envs through the one-thread
+    C entry the wrapper's route names there (the capped variant for 10
+    robots above ops/vss_full.THREAD_UNCAPPED_MAX_ENVS), kernel RNG, on the
+    state after 20 steps: device us per launch, the bound, registers and
+    spills, resident warps per SM, the static SASS per env and the issue
+    floor (SASS per env x warps / (132 SMs x 4 schedulers x the SM
+    clock))."""
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+    from rsoccer_tpu_torch.tools import thread_probe as tp
+
+    lib, res, operands = vf._library(), {}, {}
+    for tag, (kind, kwargs) in SCALE_THREAD_KERNELS.items():
+        key_ = tuple(sorted(kwargs.items()))
+        if key_ not in operands:  # K1 and K2 of a team size on the same state
+            operands[key_] = vss_operands(batch, **kwargs)
+        env, st, act, key, rows, rb, bl, cmd = operands[key_]
+        n, wrapper = env.n_robots, vf if kind == "full" else vp
+        capped = n in wrapper.THREAD_CAPPED_ROBOTS and batch > wrapper.THREAD_UNCAPPED_MAX_ENVS
+        suffix = "_capped" if capped else ""
+        if kind == "full":
+            entry = "vss_full_step_one_thread" + suffix
+            outs = vss_outs(env, batch)
+            fn = lambda e=entry, env=env, st=st, act=act, key=key, rows=rows, o=outs: vss_entry_call(  # noqa: E731
+                lib, e, env, st, act, rows, key, o)
+            ins, (ops_env, ops_reset) = (st, act, key), vss_full_ops(n)
+        else:
+            entry = "vss_physics_step_one_thread" + suffix
+            outs = (torch.empty_like(rb), torch.empty_like(bl))
+            fn = lambda e=entry, env=env, rb=rb, bl=bl, cmd=cmd, o=outs: vss_physics_entry_call(  # noqa: E731
+                lib, e, env, rb, bl, cmd, o)
+            ins, ops_env, ops_reset = (rb, bl, cmd), vss_physics_ops(n), 0
+        routed = wrapper.routed_entry(env, batch)
+        if routed != entry and wrapper.route(env, batch) == "thread":
+            raise AssertionError(f"{tag} at {batch} envs: the route names {routed}, not {entry}")
+        us, top = device_us(fn, TIMED_LAUNCHES, "thread_kernel")
+        label = next(lab for lab in map(tp.label_of_demangled, top) if lab)  # the kernel the entry launched
+        fn()
+        n_done = int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum()) if kind == "full" else 0
+        bound, by, _, _ = bound_ms(ins, outs, ops_env, ops_reset, n_done)
+        r, per_env = probe.regs[label], probe.sass[label]["per_env"]
+        res[tag] = dict(entry=entry, kernel=label, device_us=us, bound_us=bound * 1e3, bound_by=by,
+                        registers=r["registers"], spill_bytes=r["spill_bytes"],
+                        warps_per_sm=tp.warps_per_sm(r["registers"], vf.THREAD_BLOCK, r["smem"]),
+                        sass_per_env=per_env,
+                        issue_floor_us=tp.issue_floor_us(per_env, batch, probe.clocks["clocks_max_sm_mhz"]))
+    torch.cuda.synchronize()
+    return {"one_thread": res, "clocks": probe.clocks}
 
 
 def build_baseline(csrc_dir):
@@ -777,7 +856,7 @@ def build_baseline(csrc_dir):
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc_dir, out)
     nvcc = _build.nvcc_path()
-    names = ("vss_full", "vss_physics", "ssl_full")
+    names = sorted(f[:-3] for f in os.listdir(out) if f.endswith(".cu"))
     procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", f"{out}/{n}.o", f"{out}/{n}.cu"],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in names]
     logs = [(pr.communicate()[0], pr.returncode) for pr in procs]
@@ -1030,9 +1109,9 @@ def vss_outs(env, batch, emit_final=False):
 
 
 def check_thread_vs_group(batch: int = VSS_THREAD_B):
-    """At 3v3 and 5v5 the one-thread VSS kernels against the group kernels
-    (8 lanes at 3v3, 16 at 5v5), through their C entries on the same
-    operands: K1 in both RNG modes, both obs variants and both trig
+    """At 3v3 and 5v5 the one-thread VSS kernels (at 5v5 also their capped
+    variants) against the group kernels (8 lanes at 3v3, 16 at 5v5),
+    through their C entries on the same operands: K1 in both RNG modes, both obs variants and both trig
     policies (the Taylor rotation at the default time step, exact trig at
     0.1 s), K2 (N = 6 and 10); every output bit for bit.  Returns the number
     of comparisons by team size."""
@@ -1046,19 +1125,21 @@ def check_thread_vs_group(batch: int = VSS_THREAD_B):
         for rng in (False, True):
             for emit_final in (False, True):
                 outs = {}
-                for entry in ("vss_full_step", "vss_full_step_one_thread"):
+                for entry in ("vss_full_step", "vss_full_step_one_thread") + (
+                        ("vss_full_step_one_thread_capped",) if env.n_robots in vf.THREAD_CAPPED_ROBOTS else ()):
                     outs[entry] = vss_outs(env, batch, emit_final)
                     vss_entry_call(lib, entry, env, st, act, rows, key if rng else None, outs[entry], emit_final)
-                if not bit_equal(*outs.values()):
+                if not all(bit_equal(outs["vss_full_step"], o) for o in outs.values()):
                     raise AssertionError(f"vss_full_step one-thread vs group kernel at {batch} envs {kwargs} "
                                          f"(rng_kernel={rng}, final={emit_final}): outputs differ")
                 n_cmp[team] += 1
         if "time_step" not in kwargs:
             outs = {}
-            for entry in ("vss_physics_step", "vss_physics_step_one_thread"):
+            for entry in ("vss_physics_step", "vss_physics_step_one_thread") + (
+                    ("vss_physics_step_one_thread_capped",) if env.n_robots in vf.THREAD_CAPPED_ROBOTS else ()):
                 outs[entry] = (torch.full_like(rb, float("nan")), torch.full_like(bl, float("nan")))
                 vss_physics_entry_call(lib, entry, env, rb, bl, cmd, outs[entry])
-            if not bit_equal(*outs.values()):
+            if not all(bit_equal(outs["vss_physics_step"], o) for o in outs.values()):
                 raise AssertionError(f"vss_physics one-thread vs group kernel at {batch} envs, "
                                      f"N = {env.n_robots}: outputs differ")
             n_cmp[team] += 1
@@ -1066,65 +1147,146 @@ def check_thread_vs_group(batch: int = VSS_THREAD_B):
     return n_cmp
 
 
-def vss_against_baseline(lib, card):
-    """This tree's 3v3 VSS group kernels against the baseline library's,
-    every output bit for bit, and this tree's one-thread kernels against
-    both; then device us per launch of each at each of
-    VSS_CROSSOVER_BATCHES, in turns (baseline, group, one thread, one
-    thread, group, baseline), on the state after 20 VSS-v0 steps: the
-    group-vs-one-thread crossover.  One phase per batch.  Raises if an
-    output differs."""
+# team size -> env kwargs of the one-thread kernels' bit-for-bit checks
+# against the baseline's (5v5 in the 5v5 pass); each also beyond the
+# Taylor bound (time_step 0.1)
+THREAD_TEAMS = {"1v0": VSS_CONFIGS["1v0"], "2v2": dict(n_robots_blue=2, n_robots_yellow=2), "3v3": {}}
+# the batches of those checks: a ragged one (B % 4 != 0, the last 64-env
+# block part empty), the first one-thread batch at 5v5 (ragged too), the
+# crossover batches
+THREAD_BASELINE_BATCHES = (RAGGED_B, 16385, *VSS_CROSSOVER_BATCHES)
+THREAD_ENV_BASES = (0, 4096)
+
+
+def thread_bits_against_baseline(lib, batch, teams) -> int:
+    """This tree's one-thread VSS kernels (and, for 7-10 robots, their
+    capped variants) against the baseline library's on the same operands,
+    every output bit for bit: K1 for each env kwargs of ``teams`` in both
+    RNG modes, both obs variants and ``env_base`` 0 and 4096 (the input rows
+    drawn there); K2 at each robot count (default time step).  Returns the number of comparisons; raises on a difference."""
     from rsoccer_tpu_torch.ops import vss_full as vf
 
+    this, n = vf._library(), 0
+    for kwargs in teams:
+        env, st, act, key, rows, rb, bl, cmd = vss_operands(batch, **kwargs)
+        rows_at = {base: vf.draw_step_rows(env, key.clone(), batch, base) for base in THREAD_ENV_BASES}
+        runs = [(lib, "vss_full_step_one_thread"), (this, "vss_full_step_one_thread")] + (
+            [(this, "vss_full_step_one_thread_capped")] if env.n_robots in vf.THREAD_CAPPED_ROBOTS else [])
+        for rng in (False, True):
+            for emit_final in (False, True):
+                for base in THREAD_ENV_BASES:
+                    got = [vss_outs(env, batch, emit_final) for _ in runs]
+                    for (lib_, entry), o in zip(runs, got):
+                        vss_entry_call(lib_, entry, env, st, act, rows_at[base], key if rng else None, o,
+                                       emit_final, base)
+                    if not all(bit_equal(got[0], g) for g in got[1:]):
+                        raise AssertionError(f"vss_full_step_one_thread at {batch} envs {kwargs} (rng_kernel={rng}, "
+                                             f"final={emit_final}, env_base={base}): outputs differ from the "
+                                             "baseline's")
+                    n += 1
+        if "time_step" not in kwargs:
+            runs = [(lib, "vss_physics_step_one_thread"), (this, "vss_physics_step_one_thread")] + (
+                [(this, "vss_physics_step_one_thread_capped")] if env.n_robots in vf.THREAD_CAPPED_ROBOTS else [])
+            got = [(torch.full_like(rb, float("nan")), torch.full_like(bl, float("nan"))) for _ in runs]
+            for (lib_, entry), o in zip(runs, got):
+                vss_physics_entry_call(lib_, entry, env, rb, bl, cmd, o)
+            if not all(bit_equal(got[0], g) for g in got[1:]):
+                raise AssertionError(f"vss_physics_step_one_thread at N = {env.n_robots}, {batch} envs: outputs "
+                                     "differ from the baseline's")
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def vss_against_baseline(lib, card):
+    """At each of THREAD_BASELINE_BATCHES: this tree's one-thread VSS
+    kernels bit for bit against the baseline library's at 1v0, 2v2 and 3v3,
+    each at the default time step and at 0.1 s (K1 in both RNG modes, both
+    obs variants, ``env_base`` 0 and 4096; K2 at N = 1, 4, 6), and, where
+    the baseline has no one-thread kernels, this tree's 3v3 group kernels
+    against its group kernels.  Then, at each of VSS_CROSSOVER_BATCHES,
+    device us per launch in turns on the state after 20 VSS-v0 steps: at
+    3v3 (K1 in both RNG modes, K2 at N = 6) the baseline's one-thread
+    kernel, this tree's group kernel, its one-thread kernel, the same, the
+    group kernel, the baseline's (the crossover, the route beside the
+    faster design); at 1v0 (K1 both RNG modes, K2 at N = 1) the baseline's
+    one-thread kernel, this tree's, the same, the baseline's.  The group
+    kernels are also held bit for bit to the baseline's at 3v3.  One phase
+    per batch.  Raises if an output differs."""
+    from rsoccer_tpu_torch.ops import vss_full as vf
+    from rsoccer_tpu_torch.ops import vss_physics as vp
+
     this = vf._library()
-    for batch in VSS_CROSSOVER_BATCHES:
-        env, st, act, key, rows, rb, bl, cmd = vss_operands(batch)
-        outs = (torch.empty_like(st), torch.empty((env.obs_size, batch), device="cuda"),
-                torch.empty((vf.N_AUX, batch), device="cuda"))
-        phys_outs = (torch.empty_like(rb), torch.empty_like(bl))
+    one_thread = hasattr(lib, "vss_full_step_one_thread")  # a baseline with the one-thread VSS kernels
+    base_thread = "vss_full_step_one_thread" if one_thread else "vss_full_step"
+    base_phys = "vss_physics_step_one_thread" if one_thread else "vss_physics_step"
+    teams = [dict(kw, **ts) for kw in THREAD_TEAMS.values() for ts in ({}, dict(time_step=0.1))]
+    for batch in THREAD_BASELINE_BATCHES:
+        n_cmp = thread_bits_against_baseline(lib, batch, teams) if one_thread else 0
+        if batch not in VSS_CROSSOVER_BATCHES:
+            phase("vss_baseline_bits", card=card, B=batch, bit_equal=True, comparisons=n_cmp)
+            continue
+        turns, route = {}, {}
+        for team in ("3v3", "1v0") if one_thread else ("3v3",):
+            env, st, act, key, rows, rb, bl, cmd = vss_operands(batch, **THREAD_TEAMS[team])
+            outs = vss_outs(env, batch)
+            phys_outs = (torch.empty_like(rb), torch.empty_like(bl))
 
-        def full(lib_, entry, rng):
-            return lambda: vss_entry_call(lib_, entry, env, st, act, rows, key if rng else None, outs)
+            def full(lib_, entry, rng, env=env, st=st, act=act, key=key, rows=rows, outs=outs):
+                return lambda: vss_entry_call(lib_, entry, env, st, act, rows, key if rng else None, outs)
 
-        def phys(lib_, entry):
-            return lambda: vss_physics_entry_call(lib_, entry, env, rb, bl, cmd, phys_outs)
+            def phys(lib_, entry, env=env, rb=rb, bl=bl, cmd=cmd, o=phys_outs):
+                return lambda: vss_physics_entry_call(lib_, entry, env, rb, bl, cmd, o)
 
-        kernels = {  # name: (baseline, group, one thread, device kernel names, outputs)
-            "vss_full_kernel_rng": (full(lib, "vss_full_step", True), full(this, "vss_full_step", True),
-                                    full(this, "vss_full_step_one_thread", True), r"vss_(full|thread)_kernel", outs),
-            "vss_full_input_rows": (full(lib, "vss_full_step", False), full(this, "vss_full_step", False),
-                                    full(this, "vss_full_step_one_thread", False), r"vss_(full|thread)_kernel",
-                                    outs),
-            "vss_physics": (phys(lib, "vss_physics_step"), phys(this, "vss_physics_step"),
-                            phys(this, "vss_physics_step_one_thread"), r"vss_physics_(thread_)?kernel", phys_outs),
-        }
-        turns = {}
-        for name, (base, group, thread, match, o) in kernels.items():
-            got = []
-            for fn in (base, group, thread):
-                fn()
-                got.append(tuple(t.clone() for t in o))
-            if not (bit_equal(got[1], got[0]) and bit_equal(got[2], got[1])):
-                raise AssertionError(f"{name} at {batch} envs: the baseline, group and one-thread outputs differ")
-            turns[name] = [device_us(fn, TIMED_LAUNCHES, match)[0]
-                           for fn in (base, group, thread, thread, group, base)]
-        phase("vss_baseline_turns", card=card, B=batch, bit_equal=True,
-              baseline_group_thread_thread_group_baseline_us=turns,
-              mean_us={n: {"baseline": (t[0] + t[5]) / 2, "group": (t[1] + t[4]) / 2, "thread": (t[2] + t[3]) / 2}
-                       for n, t in turns.items()},
-              route={"vss_full": vf.route(env, batch)})
+            kernels = {  # name: (baseline one thread, baseline group, group, one thread, kernel names, outputs)
+                f"{team}_vss_full_kernel_rng": (
+                    full(lib, base_thread, True), full(lib, "vss_full_step", True), full(this, "vss_full_step", True),
+                    full(this, "vss_full_step_one_thread", True), r"vss_(full|thread)_kernel", outs),
+                f"{team}_vss_full_input_rows": (
+                    full(lib, base_thread, False), full(lib, "vss_full_step", False),
+                    full(this, "vss_full_step", False), full(this, "vss_full_step_one_thread", False),
+                    r"vss_(full|thread)_kernel", outs),
+                f"{team}_vss_physics": (
+                    phys(lib, base_phys), phys(lib, "vss_physics_step"), phys(this, "vss_physics_step"),
+                    phys(this, "vss_physics_step_one_thread"), r"vss_physics_(thread_)?kernel", phys_outs),
+            }
+            for name, (base, base_group, group, thread, match, o) in kernels.items():
+                if team == "1v0":  # no group kernel
+                    turns[name] = [device_us(fn, TIMED_LAUNCHES, match)[0] for fn in (base, thread, thread, base)]
+                    continue
+                got = []
+                for fn in (base_group, group, thread):
+                    fn()
+                    got.append(tuple(t.clone() for t in o))
+                if not (bit_equal(got[1], got[0]) and bit_equal(got[2], got[1])):
+                    raise AssertionError(f"{name} at {batch} envs: the baseline's group, this tree's group and "
+                                         "one-thread outputs differ")
+                turns[name] = [device_us(fn, TIMED_LAUNCHES, match)[0]
+                               for fn in (base, group, thread, thread, group, base)]
+            route[team] = {"vss_full": vf.route(env, batch), "vss_physics": vp.route(env, batch)}
+        mean_us = {n: ({"baseline_thread": (t[0] + t[5]) / 2, "group": (t[1] + t[4]) / 2, "thread": (t[2] + t[3]) / 2}
+                       if len(t) == 6 else {"baseline_thread": (t[0] + t[3]) / 2, "thread": (t[1] + t[2]) / 2})
+                   for n, t in turns.items()}
+        phase("vss_baseline_turns", card=card, B=batch, bit_equal=True, comparisons=n_cmp,
+              baseline_turns_us=turns, mean_us=mean_us, route=route,
+              faster={n: "group" if m["group"] <= m["thread"] else "thread" for n, m in mean_us.items()
+                      if "group" in m},
+              thread_vs_baseline={n: m["thread"] / m["baseline_thread"] for n, m in mean_us.items()})
 
 
 def vss_5v5_against_baseline(lib, card):
-    """This tree's 16-lane group kernels (K1 at 5v5, K2 at N = 10) against
-    the baseline library's one-thread kernels and this tree's, every output
+    """At each of THREAD_BASELINE_BATCHES: this tree's 16-lane group
+    kernels (K1 at 5v5, K2 at N = 10) against its one-thread kernels, and
+    those against the baseline library's one-thread kernels, every output
     bit for bit: K1 in both RNG modes, both obs variants and both trig
-    policies (5v5 at the default time step and at 0.1 s), K2 on the
-    commands of :func:`vss_operands`.  Then device us per launch of each at
-    each of VSS_CROSSOVER_BATCHES, in turns (baseline one thread, group, one
-    thread, one thread, group, baseline one thread), on the state after 20
-    5v5 steps: the 5v5 crossover, with the route beside the faster design.
-    One phase per batch.  Raises if an output differs."""
+    policies (5v5 at the default time step and at 0.1 s), ``env_base`` 0
+    and 4096 (one thread), K2 on the commands of :func:`vss_operands`.
+    Then, at each of VSS_CROSSOVER_BATCHES, device us per launch of each
+    in turns (baseline one thread, group, one thread, capped one thread,
+    the same three backwards, baseline one thread) on the state after 20
+    5v5 steps: the 5v5 crossovers (group, one thread, capped), with the
+    routed entry beside the fastest design.  One phase per
+    batch.  Raises if an output differs."""
     from rsoccer_tpu_torch.ops import vss_full as vf
     from rsoccer_tpu_torch.ops import vss_physics as vp
 
@@ -1132,8 +1294,8 @@ def vss_5v5_against_baseline(lib, card):
     trio = ((this, "vss_full_step"), (this, "vss_full_step_one_thread"), (lib, "vss_full_step_one_thread"))
     phys_trio = ((this, "vss_physics_step"), (this, "vss_physics_step_one_thread"),
                  (lib, "vss_physics_step_one_thread"))
-    for batch in VSS_CROSSOVER_BATCHES:
-        n_cmp = 0
+    for batch in THREAD_BASELINE_BATCHES:
+        n_cmp = thread_bits_against_baseline(lib, batch, (VSS_5V5_EXACT, VSS_CONFIGS["5v5"]))
         for kwargs in (VSS_5V5_EXACT, VSS_CONFIGS["5v5"]):  # the timed operands last
             env, st, act, key, rows, rb, bl, cmd = vss_operands(batch, **kwargs)
             for rng in (False, True):
@@ -1152,6 +1314,9 @@ def vss_5v5_against_baseline(lib, card):
             raise AssertionError(f"vss_physics at N = 10, {batch} envs: the group, one-thread and baseline "
                                  "outputs differ")
         n_cmp += 1
+        if batch not in VSS_CROSSOVER_BATCHES:
+            phase("vss_5v5_baseline_bits", card=card, B=batch, bit_equal=True, comparisons=n_cmp)
+            continue
         outs, phys_outs = vss_outs(env, batch), got[0]
 
         def full(lib_, entry, rng):
@@ -1160,23 +1325,30 @@ def vss_5v5_against_baseline(lib, card):
         def phys(lib_, entry):
             return lambda: vss_physics_entry_call(lib_, entry, env, rb, bl, cmd, phys_outs)
 
-        kernels = {  # name: (baseline one thread, group, one thread, device kernel names)
+        kernels = {  # name: (baseline one thread, group, one thread, capped one thread, device kernel names)
             "vss_full_kernel_rng": (full(lib, "vss_full_step_one_thread", True), full(this, "vss_full_step", True),
-                                    full(this, "vss_full_step_one_thread", True), r"vss_(full|thread)_kernel"),
+                                    full(this, "vss_full_step_one_thread", True),
+                                    full(this, "vss_full_step_one_thread_capped", True), r"vss_(full|thread)_kernel"),
             "vss_full_input_rows": (full(lib, "vss_full_step_one_thread", False),
                                     full(this, "vss_full_step", False),
-                                    full(this, "vss_full_step_one_thread", False), r"vss_(full|thread)_kernel"),
+                                    full(this, "vss_full_step_one_thread", False),
+                                    full(this, "vss_full_step_one_thread_capped", False), r"vss_(full|thread)_kernel"),
             "vss_physics": (phys(lib, "vss_physics_step_one_thread"), phys(this, "vss_physics_step"),
-                            phys(this, "vss_physics_step_one_thread"), r"vss_physics_(thread_)?kernel"),
+                            phys(this, "vss_physics_step_one_thread"), phys(this, "vss_physics_step_one_thread_capped"),
+                            r"vss_physics_(thread_)?kernel"),
         }
-        turns = {name: [device_us(fn, TIMED_LAUNCHES, match)[0] for fn in (base, group, thread, thread, group, base)]
-                 for name, (base, group, thread, match) in kernels.items()}
-        mean_us = {n: {"baseline_thread": (t[0] + t[5]) / 2, "group": (t[1] + t[4]) / 2, "thread": (t[2] + t[3]) / 2}
-                   for n, t in turns.items()}
+        turns = {name: [device_us(fn, TIMED_LAUNCHES, match)[0]
+                        for fn in (base, group, thread, capped, capped, thread, group, base)]
+                 for name, (base, group, thread, capped, match) in kernels.items()}
+        mean_us = {n: {"baseline_thread": (t[0] + t[7]) / 2, "group": (t[1] + t[6]) / 2, "thread": (t[2] + t[5]) / 2,
+                       "capped": (t[3] + t[4]) / 2} for n, t in turns.items()}
+        routed = {n: (vp if n == "vss_physics" else vf).routed_entry(env, batch) for n in kernels}
+        design = {n: "group" if "one_thread" not in e else "capped" if e.endswith("_capped") else "thread"
+                  for n, e in routed.items()}
         phase("vss_5v5_baseline_turns", card=card, B=batch, bit_equal=True, comparisons=n_cmp,
-              baselinethread_group_thread_thread_group_baselinethread_us=turns, mean_us=mean_us,
-              route={"vss_full": vf.route(env, batch), "vss_physics": vp.route(env, batch)},
-              faster={n: "group" if m["group"] <= m["thread"] else "thread" for n, m in mean_us.items()})
+              baselinethread_group_thread_capped_capped_thread_group_baselinethread_us=turns, mean_us=mean_us,
+              routed_entry=routed, faster={n: min(("group", "thread", "capped"), key=m.get) for n, m in mean_us.items()},
+              routed_vs_baseline={n: m[design[n]] / m["baseline_thread"] for n, m in mean_us.items()})
 
 
 def tensor_leaves(tree):
@@ -2039,11 +2211,13 @@ MA_ID, SP_ID = "VSSMultiAgent-v0", "VSSSelfPlay-v0"
 # the round-5 self-play recipe (docs/training.md "Self-play (3v3)": 2048
 # envs, towers (256, 256) bf16, 128 rollout steps, time minibatches, half
 # the lanes OU, anchor gate), cut to SELFPLAY_UPDATES updates with a swap
-# every 5 (20 and 10 before the data-parallel phases came), and its evals
+# every 3 (20 with a swap every 5 before the data-parallel phases came,
+# then 10; 6 since the one-thread VSS kernels' build grew the script), and
+# its evals
 # cut from 1200 steps x 512 envs (vs the frozen opponent) and 1500 x 512
 # (the anchor) to fit the script's time
-SELFPLAY_UPDATES = 10
-SELFPLAY_ARGS = ["--envs", "2048", "--updates", str(SELFPLAY_UPDATES), "--swap-every", "5",
+SELFPLAY_UPDATES = 6
+SELFPLAY_ARGS = ["--envs", "2048", "--updates", str(SELFPLAY_UPDATES), "--swap-every", "3",
                  "--rollout-steps", "128", "--minibatch-mode", "time", "--ou-frac", "0.5", "--anchor-gate",
                  "--eval-steps", "300", "--eval-envs", "512", "--anchor-envs", "512", "--anchor-steps", "300",
                  "--hidden", "256,256", "--device", "cuda", "--seed", "0"]
@@ -3314,7 +3488,7 @@ def make_tasks():
             name="vss_1v0", kernel="vss_thread_kernel", env_id="VSS-v0", env_kwargs=VSS_CONFIGS["1v0"],
             wrapper=vf.vss_full_step, plain=vf.vss_full_step_plain, draw=vf.draw_step_rows,
             actions=random_actions(2), warm_steps=0, kernel_match="vss_thread_kernel",
-            source="rsoccer_tpu_torch/csrc/vss_full.cu", replaces="rsoccer_tpu/ops/pallas_vss_full.py:142",
+            source="rsoccer_tpu_torch/csrc/vss_thread.cu", replaces="rsoccer_tpu/ops/pallas_vss_full.py:142",
             entry="vss_full_step_one_thread", ops_env=k1_ops_1v0[0], ops_reset=k1_ops_1v0[1],
             make_benv=lambda env: rt.make_vec("VSS-v0", B, device="cuda", fused=True, fused_rng="kernel",
                                               **VSS_CONFIGS["1v0"]),

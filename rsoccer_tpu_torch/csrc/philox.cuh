@@ -84,3 +84,18 @@ __device__ __forceinline__ void philox_uniforms(const PhiloxKey& k, uint32_t env
       if (4 * q + j < NS) out[4 * q + j] = philox_uniform(ws[j]);
   }
 }
+
+// uniforms of slots [FIRST, FIRST + NS) into out, each Philox block that
+// holds them drawn once (its words outside the range dropped): the same
+// words as any other draw of those slots
+template <int FIRST, int NS>
+__device__ __forceinline__ void philox_slot_range(const PhiloxKey& k, uint32_t env, float (&out)[NS]) {
+#pragma unroll
+  for (int blk = FIRST / 4; blk <= (FIRST + NS - 1) / 4; ++blk) {
+    const uint4 w = philox_block(k, env, (uint32_t)blk);
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * blk + j >= FIRST && 4 * blk + j < FIRST + NS) out[4 * blk + j - FIRST] = philox_uniform(ws[j]);
+  }
+}

@@ -1,6 +1,6 @@
 // Fused VSS-v0 env step: the whole step for one env, on a group of lanes
-// (vss_full_kernel: 3v3 on 8 lanes, 5v5 on 16) or on one thread
-// (vss_thread_kernel, every team size from 1v0 to 5v5).
+// (vss_full_kernel, here: 3v3 on 8 lanes, 5v5 on 16) or on one thread
+// (vss_thread_kernel, vss_thread.cu: every team size from 1v0 to 5v5).
 //
 // Replaces the TPU kernel rsoccer_tpu/ops/pallas_vss_full.py:142
 // (make_pallas_vss_full_step, body `compute` at :243).  Per env it runs:
@@ -48,16 +48,8 @@
 // work and the exchanges), and the wrapper launches the one-thread kernel
 // instead (ops/vss_full.GROUP_MAX_ENVS, measured in PERF.md).
 //
-// The one-thread kernel (vss_thread_kernel<N>): one env per thread, 64
-// threads per block, the whole env in registers (loops over the
-// compile-time robot count fully unrolled; the blue count, the obs variant
-// and the trig policy are run-time arguments, so 2 x 10 kernels cover every
-// team size and variant); each row read or written by consecutive threads
-// at consecutive addresses, so every access is coalesced without staging.
-// It runs the group kernel's operations on the same values
-// (vss_thread_substep), so at 3v3 and 5v5 both give the same bits.  The
-// reset work runs only in done envs; the kernel-RNG variant draws the 5N
-// slots after the spawn block (theta, OU u1, u2) in registers.
+// The one-thread kernel, every team size from 1v0 to 5v5 and 3v3 and 5v5
+// above their crossovers, is in vss_thread.cu; both share vss_step.cuh.
 //
 // Numerics: the reduced-range Taylor rotation and the rsqrt normals of the
 // TPU kernel are kept (the 5e-5 kernel-vs-plain tolerance was set against
@@ -65,87 +57,9 @@
 // TPU kernel's fallback (vss_world.cuh, ExactRsqrt).  Built without
 // --use_fast_math and with --fmad=false, so every other multiply and add
 // rounds as the plain version's separate ops do.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "philox.cuh"
-#include "vss_world.cuh"
-
-#define VSS_PARAMS(X)                                                                           \
-  X(dt) X(dts) X(lat_keep) X(a_lin) X(a_ang) X(max_wheel) X(wheel_r) X(two_half_axle)          \
-  X(ou_theta) X(ou_sig_sqdt) X(max_v) X(deadzone)                                               \
-  X(half_len) X(half_wid) X(goal_half) X(hl_goal) X(r_ball) X(two_r) X(r_sum) X(xl) X(yl)       \
-  X(ground_z) X(fric) X(gravity_dts) X(neg_rest_ground) X(bounce_min_v) X(rbt_height)           \
-  X(pair_gain) X(ball_gain) X(neg_rest_wall)                                                    \
-  X(half_l_pot) X(length100) X(max_steps)                                                       \
-  X(max_pos) X(max_w_rad) X(nbnd)                                                               \
-  X(x_lo) X(x_span) X(y_lo) X(y_span) X(min_d2) X(two_pi) X(pi)
-
-struct VssParams {
-#define VSS_FIELD(n) float n;
-  VSS_PARAMS(VSS_FIELD)
-#undef VSS_FIELD
-};
+#include "vss_step.cuh"
 
 namespace {
-
-constexpr int K = 8;  // spawn candidates per entity (envs/spawn.N_CANDIDATES)
-constexpr int kSubsteps = 5;  // PhysicsConfig.n_substeps (the wrapper checks)
-constexpr int kThreadBlock = 64;  // the one-thread kernel's block
-constexpr int kMaxBlue = 5, kMaxYellow = 5;  // the one-thread kernel's team sizes (from 1v0)
-
-__device__ __forceinline__ float to_wheel(float a, const VssParams& p) {
-  float v = clampf(a * p.max_v, -p.max_v, p.max_v);
-  v = fabsf(v) < p.deadzone ? 0.0f : v;
-  return v / p.wheel_r;
-}
-
-// The step's outcome (envs/vss.post_physics): reward cascade, shaping
-// accumulators, truncation, from the post-substep ball and robot 0 (its
-// x, y, v_x, v_y and its wheel speeds before the clamp).  Both designs
-// call it on the same values.
-struct VssOutcome {
-  float potential, reward, steps_new, shaping[6];
-  bool goal, trunc, done;
-};
-
-__device__ __forceinline__ VssOutcome vss_outcome(const VssParams& p, const VssBall& ball, float x0, float y0,
-                                                  float vx0, float vy0, float wl0, float wr0, float steps,
-                                                  float ball_pot, float has_pot, const float (&shaping)[6]) {
-  VssOutcome o;
-  const float bx = ball.x, by = ball.y;
-  const bool goal_blue = bx > p.half_len;
-  const bool goal_yellow = bx < -p.half_len;
-  o.goal = goal_blue || goal_yellow;
-  const float dx_d = (p.half_l_pot + bx) * 100.0f;
-  const float dx_a = (p.half_l_pot - bx) * 100.0f;
-  const float dyc = by * 100.0f;
-  const float dist_1 = -sqrtf(dx_a * dx_a + 2.0f * dyc * dyc);
-  const float dist_2 = sqrtf(dx_d * dx_d + 2.0f * dyc * dyc);
-  o.potential = ((dist_1 + dist_2) / p.length100 - 1.0f) / 2.0f;
-  const float grad = has_pot > 0.5f ? clampf((o.potential - ball_pot) * 3.0f / p.dt, -5.0f, 5.0f) : 0.0f;
-
-  float rbx = bx - x0, rby = by - y0;
-  const float inv_rb = rsqrtf(fmaxf(rbx * rbx + rby * rby, 1e-16f));
-  rbx = rbx * inv_rb;
-  rby = rby * inv_rb;
-  const float move = clampf((rbx * vx0 + rby * vy0) / 0.4f, -5.0f, 5.0f);
-  const float energy = -(fabsf(wl0) + fabsf(wr0));
-  const float shaped = 0.2f * move + 0.8f * grad + 2e-4f * energy;
-  o.reward = goal_blue ? 10.0f : (goal_yellow ? -10.0f : shaped);
-
-  o.shaping[0] = shaping[0] + (o.goal ? (goal_blue ? 1.0f : -1.0f) : 0.0f);
-  o.shaping[1] = shaping[1] + (o.goal ? 0.0f : 0.2f * move);
-  o.shaping[2] = shaping[2] + (o.goal ? 0.0f : 0.8f * grad);
-  o.shaping[3] = shaping[3] + (o.goal ? 0.0f : 2e-4f * energy);
-  o.shaping[4] = shaping[4] + (o.goal ? (float)goal_blue : 0.0f);
-  o.shaping[5] = shaping[5] + (o.goal ? (float)goal_yellow : 0.0f);
-
-  o.steps_new = steps + 1.0f;
-  o.trunc = o.steps_new >= p.max_steps;
-  o.done = o.goal || o.trunc;
-  return o;
-}
 
 template <int NB, int NY, int G, bool EMIT_FINAL, bool RNG_KERNEL, class Pol>
 __global__ void __launch_bounds__(kThreads, kVssMinBlocks<G>)
@@ -399,213 +313,6 @@ cudaError_t launch(int emit_final, int rng_kernel, const VssParams& p, const flo
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- one thread per env
-template <int N, bool RNG_KERNEL>
-__global__ void __launch_bounds__(kThreadBlock)
-    vss_thread_kernel(const VssParams p, int nb, bool emit_final, bool exact_trig, const float* __restrict__ st,
-                      const float* __restrict__ act, const float* __restrict__ ou_in,
-                      const float* __restrict__ sp_in, const float* __restrict__ th_in,
-                      const long long* __restrict__ key, uint32_t env_base, float* __restrict__ st_out,
-                      float* __restrict__ obs_out, float* __restrict__ aux_out, int B) {
-  constexpr int NSP = (1 + N) * 2 * K;  // spawn uniforms: slots [0, NSP); then theta, OU u1, OU u2
-  static_assert((2 * K) % 4 == 0, "spawn entities start on a Philox block");
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-#define LD(ptr, row) ((ptr)[(size_t)(row) * (size_t)B + b])
-
-  // ---- state
-  VssRobot r[N];
-  float ou[2 * N];  // wheel-major: N wheel-0 rows, then N wheel-1 rows
-#pragma unroll
-  for (int q = 0; q < N; ++q) {
-    r[q].x = LD(st, 6 + q);
-    r[q].y = LD(st, 6 + N + q);
-    r[q].th = LD(st, 6 + 2 * N + q);
-    r[q].vx = LD(st, 6 + 3 * N + q);
-    r[q].vy = LD(st, 6 + 4 * N + q);
-    r[q].w = LD(st, 6 + 5 * N + q);
-    ou[q] = LD(st, 7 + 6 * N + q);
-    ou[N + q] = LD(st, 7 + 7 * N + q);
-  }
-  VssBall ball{LD(st, 0), LD(st, 1), LD(st, 2), LD(st, 3), LD(st, 4), LD(st, 5)};
-  const float steps = LD(st, 6 + 6 * N);
-  const float ball_pot = LD(st, 7 + 8 * N);
-  const float has_pot = LD(st, 8 + 8 * N);
-  float shaping[6];
-#pragma unroll
-  for (int q = 0; q < 6; ++q) shaping[q] = LD(st, 9 + 8 * N + q);
-
-  // ---- noise: the OU normals (wheel-major); in the kernel-RNG variant
-  // also the reset headings, which share the OU slots' Philox blocks
-  float ou_n[2 * N], th_u[N];
-  PhiloxKey pk{};
-  if constexpr (RNG_KERNEL) {
-    pk = philox_load_key(key, env_base);
-    float tail[5 * N];  // slots NSP + [0, N): theta; + [N, 3N): OU u1; + [3N, 5N): OU u2
-    philox_uniforms<5 * N>(pk, (uint32_t)b, NSP / 4, tail);
-#pragma unroll
-    for (int q = 0; q < N; ++q) {
-      th_u[q] = tail[q];
-#pragma unroll
-      for (int w = 0; w < 2; ++w) ou_n[w * N + q] = box_muller(tail[N + 2 * q + w], tail[3 * N + 2 * q + w]);
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 2 * N; ++q) ou_n[q] = LD(ou_in, q);
-  }
-
-  // ---- OU update (envs/ou.ou_update: mu = 0, sigma = 0.5)
-#pragma unroll
-  for (int q = 0; q < 2 * N; ++q) ou[q] = ou[q] + p.ou_theta * (0.0f - ou[q]) * p.dt + p.ou_sig_sqdt * ou_n[q];
-
-  // ---- actions -> wheels: the agent's action replaces robot 0's OU rows
-  const float wl0 = to_wheel(LD(act, 0), p), wr0 = to_wheel(LD(act, 1), p);
-#pragma unroll
-  for (int q = 0; q < N; ++q) {
-    const float l = clampf(q == 0 ? wl0 : to_wheel(ou[q], p), -p.max_wheel, p.max_wheel);
-    const float rw = clampf(q == 0 ? wr0 : to_wheel(ou[N + q], p), -p.max_wheel, p.max_wheel);
-    r[q].v_tgt = p.wheel_r * (l + rw) / 2.0f;
-    r[q].w_tgt = p.wheel_r * (rw - l) / p.two_half_axle;
-  }
-
-  // ---- physics substeps; cos/sin of the heading carried across substeps
-#pragma unroll
-  for (int q = 0; q < N; ++q) {
-    r[q].c = cosf(r[q].th);
-    r[q].s = sinf(r[q].th);
-  }
-  const RsqrtPickedTurn pol{{}, exact_trig};
-#pragma unroll 1  // kept rolled: the unrolled body would be 5x the code
-  for (int sub = 0; sub < kSubsteps; ++sub) vss_thread_substep<N>(p, pol, r, ball);
-
-  // ---- reward & termination cascade (envs/vss.post_physics)
-  const VssOutcome out =
-      vss_outcome(p, ball, r[0].x, r[0].y, r[0].vx, r[0].vy, wl0, wr0, steps, ball_pot, has_pot, shaping);
-  const bool done = out.done;
-
-  auto npos = [&](float v) { return clampf(v / p.max_pos, -p.nbnd, p.nbnd); };
-  auto nv = [&](float v) { return clampf(v / p.max_v, -p.nbnd, p.nbnd); };
-  auto nw = [&](float v) { return clampf(v / p.max_w_rad, -p.nbnd, p.nbnd); };
-  // the obs rows from row o: ball, then each robot (blues with their
-  // heading's sin, cos)
-  auto write_obs = [&](int o, bool carried_trig) {
-    LD(obs_out, o++) = npos(ball.x);
-    LD(obs_out, o++) = npos(ball.y);
-    LD(obs_out, o++) = nv(ball.vx);
-    LD(obs_out, o++) = nv(ball.vy);
-#pragma unroll
-    for (int q = 0; q < N; ++q) {
-      LD(obs_out, o++) = npos(r[q].x);
-      LD(obs_out, o++) = npos(r[q].y);
-      if (q < nb) {
-        LD(obs_out, o++) = carried_trig ? r[q].s : sinf(r[q].th);
-        LD(obs_out, o++) = carried_trig ? r[q].c : cosf(r[q].th);
-      }
-      LD(obs_out, o++) = nv(r[q].vx);
-      LD(obs_out, o++) = nv(r[q].vy);
-      LD(obs_out, o++) = nw(r[q].w);
-    }
-  };
-  const int obs_size = 4 + 7 * nb + 5 * (N - nb);
-
-  // final (pre-reset) observation; heading trig from the substep carry
-  if (emit_final) write_obs(obs_size, true);
-
-  // ---- done envs only: spawn placement (envs/spawn.place_separated, first
-  // valid) and the reset headings; then the auto-reset select
-  if (done) {
-    float px[1 + N], py[1 + N];
-#pragma unroll
-    for (int i = 0; i < 1 + N; ++i) {
-      float u[2 * K];  // candidate k's uniforms: slots i*2K + k and i*2K + K + k
-      if constexpr (RNG_KERNEL) {
-        philox_uniforms<2 * K>(pk, (uint32_t)b, (uint32_t)(i * 2 * K / 4), u);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 2 * K; ++k) u[k] = LD(sp_in, i * 2 * K + k);
-      }
-      float sel_x = p.x_lo + u[0] * p.x_span;  // none valid: candidate 0
-      float sel_y = p.y_lo + u[K] * p.y_span;
-      bool found = false;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float cx = p.x_lo + u[k] * p.x_span;
-        const float cy = p.y_lo + u[K + k] * p.y_span;
-        bool ok = true;
-#pragma unroll
-        for (int q = 0; q < i; ++q) {
-          const float ddx = cx - px[q];
-          const float ddy = cy - py[q];
-          ok = ok && (ddx * ddx + ddy * ddy) >= p.min_d2;
-        }
-        if (ok && !found) {
-          sel_x = cx;
-          sel_y = cy;
-          found = true;
-        }
-      }
-      px[i] = sel_x;
-      py[i] = sel_y;
-    }
-    ball = VssBall{px[0], py[0], p.r_ball, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int q = 0; q < N; ++q) {
-      if constexpr (!RNG_KERNEL) th_u[q] = LD(th_in, q);
-      r[q].x = px[1 + q];
-      r[q].y = py[1 + q];
-      r[q].th = th_u[q] * p.two_pi;
-      r[q].vx = r[q].vy = r[q].w = 0.0f;
-    }
-  }
-
-  // ---- outputs
-  LD(st_out, 0) = ball.x;
-  LD(st_out, 1) = ball.y;
-  LD(st_out, 2) = ball.z;
-  LD(st_out, 3) = ball.vx;
-  LD(st_out, 4) = ball.vy;
-  LD(st_out, 5) = ball.vz;
-#pragma unroll
-  for (int q = 0; q < N; ++q) {
-    LD(st_out, 6 + q) = r[q].x;
-    LD(st_out, 6 + N + q) = r[q].y;
-    LD(st_out, 6 + 2 * N + q) = r[q].th;
-    LD(st_out, 6 + 3 * N + q) = r[q].vx;
-    LD(st_out, 6 + 4 * N + q) = r[q].vy;
-    LD(st_out, 6 + 5 * N + q) = r[q].w;
-    LD(st_out, 7 + 6 * N + q) = done ? 0.0f : ou[q];
-    LD(st_out, 7 + 7 * N + q) = done ? 0.0f : ou[N + q];
-  }
-  LD(st_out, 6 + 6 * N) = done ? 0.0f : out.steps_new;
-  LD(st_out, 7 + 8 * N) = done ? 0.0f : out.potential;
-  LD(st_out, 8 + 8 * N) = done ? 0.0f : 1.0f;
-  write_obs(0, false);
-  LD(aux_out, 0) = out.reward;
-  LD(aux_out, 1) = out.goal ? 1.0f : 0.0f;
-  LD(aux_out, 2) = out.trunc ? 1.0f : 0.0f;
-#pragma unroll
-  for (int q = 0; q < 6; ++q) {
-    LD(st_out, 9 + 8 * N + q) = done ? 0.0f : out.shaping[q];
-    LD(aux_out, 3 + q) = out.shaping[q];
-  }
-#undef LD
-}
-
-template <int N>
-cudaError_t launch_thread(int nb, int emit_final, int rng_kernel, int exact_trig, const VssParams& p,
-                          const float* st, const float* act, const float* ou, const float* sp, const float* th,
-                          const long long* key, uint32_t env_base, float* st_out, float* obs_out, float* aux_out,
-                          int B, cudaStream_t stream) {
-  const dim3 grid((B + kThreadBlock - 1) / kThreadBlock), block(kThreadBlock);
-  if (rng_kernel)
-    vss_thread_kernel<N, true><<<grid, block, 0, stream>>>(p, nb, emit_final, exact_trig, st, act, ou, sp, th, key,
-                                                           env_base, st_out, obs_out, aux_out, B);
-  else
-    vss_thread_kernel<N, false><<<grid, block, 0, stream>>>(p, nb, emit_final, exact_trig, st, act, ou, sp, th, key,
-                                                            env_base, st_out, obs_out, aux_out, B);
-  return cudaGetLastError();
-}
-
 __global__ void philox_words_kernel(const long long* __restrict__ key, uint32_t env_base, uint32_t* __restrict__ out,
                                     int n_blk, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -656,34 +363,6 @@ int vss_full_step(int n_blue, int n_yellow, int emit_final, int rng_kernel, int 
   VSS_GROUP(3, 3, 8)
   VSS_GROUP(5, 5, 16)
 #undef VSS_GROUP
-  return (int)cudaErrorInvalidValue;
-}
-
-// The same step on the one-thread kernel: the same arguments and outputs,
-// every team size from 1v0 to 5v5 (cudaErrorInvalidValue outside).
-int vss_full_step_one_thread(int n_blue, int n_yellow, int emit_final, int rng_kernel, int exact_trig,
-                             const VssParams* p, const float* st, const float* act, const float* ou,
-                             const float* sp, const float* th, const long long* key, float* st_out, float* obs_out,
-                             float* aux_out, int env_base, int B, void* stream) {
-  if (n_blue < 1 || n_blue > kMaxBlue || n_yellow < 0 || n_yellow > kMaxYellow) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define VSS_THREAD(N)                                                                                          \
-  case N:                                                                                                      \
-    return (int)launch_thread<N>(n_blue, emit_final, rng_kernel, exact_trig, *p, st, act, ou, sp, th, key, \
-                                 (uint32_t)env_base, st_out, obs_out, aux_out, B, s)
-  switch (n_blue + n_yellow) {
-    VSS_THREAD(1);
-    VSS_THREAD(2);
-    VSS_THREAD(3);
-    VSS_THREAD(4);
-    VSS_THREAD(5);
-    VSS_THREAD(6);
-    VSS_THREAD(7);
-    VSS_THREAD(8);
-    VSS_THREAD(9);
-    VSS_THREAD(10);
-  }
-#undef VSS_THREAD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -38,7 +38,13 @@
 // per env than one thread does, and the wrapper launches the one-thread
 // kernel (64 threads per block, the env in registers, every row access
 // coalesced) instead (ops/vss_physics.GROUP_MAX_ENVS, measured in
-// PERF.md).
+// PERF.md).  Its substeps are issue-bound (N = 6 at 131072 envs runs
+// within 1.2x of its static SASS issue floor); the turn's cos and sin come
+// from one sincosf
+// (ExactTrigPaired, bit for bit), and at 7-10 robots a register-capped
+// variant (vss_physics_thread_kernel_capped, 128 registers, 16 warps per SM
+// against 12) runs above ops/vss_physics.THREAD_UNCAPPED_MAX_ENVS, where
+// the uncapped kernel needs more than one wave of the card.
 //
 // Numerics: --fmad=false and no fast math (ops/_build.py), and sqrtf with
 // true division where physics/vss.py divides, so the kernel rounds as its
@@ -62,6 +68,7 @@ namespace {
 
 constexpr int kSubsteps = 5;  // PhysicsConfig.n_substeps (the wrapper checks)
 constexpr int kThreadBlock = 64;  // the one-thread kernel's block
+constexpr int kCappedMinBlocks = 8;  // the capped one-thread kernel: 8 blocks of 64 per SM, 128 registers
 
 template <int N, int G>
 __global__ void __launch_bounds__(kThreads, kVssMinBlocks<G>)
@@ -143,11 +150,12 @@ cudaError_t launch_group(const VssPhysParams& p, const float* robots, const floa
   return cudaGetLastError();
 }
 
+// one env's physics step on this thread: the body of both one-thread kernels
 template <int N>
-__global__ void __launch_bounds__(kThreadBlock)
-    vss_physics_thread_kernel(const VssPhysParams p, const float* __restrict__ rb_in,
-                              const float* __restrict__ ball_in, const float* __restrict__ cmd,
-                              float* __restrict__ rb_out, float* __restrict__ ball_out, int B) {
+__device__ __forceinline__ void vss_physics_thread_step(const VssPhysParams& p, const float* __restrict__ rb_in,
+                                                        const float* __restrict__ ball_in,
+                                                        const float* __restrict__ cmd, float* __restrict__ rb_out,
+                                                        float* __restrict__ ball_out, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 #define LD(ptr, row) ((ptr)[(size_t)(row) * (size_t)B + b])
@@ -164,13 +172,13 @@ __global__ void __launch_bounds__(kThreadBlock)
     const float wr = clampf(LD(cmd, N + q), -p.max_wheel, p.max_wheel);
     r[q].v_tgt = p.wheel_r * (wl + wr) / 2.0f;
     r[q].w_tgt = p.wheel_r * (wr - wl) / p.two_half_axle;
-    r[q].c = cosf(r[q].th);
-    r[q].s = sinf(r[q].th);
+    cos_sin(r[q].th, r[q].c, r[q].s);
   }
   VssBall ball{LD(ball_in, 0), LD(ball_in, 1), LD(ball_in, 2), LD(ball_in, 3), LD(ball_in, 4), LD(ball_in, 5)};
 
 #pragma unroll 1  // kept rolled: the unrolled body would be 5x the code
-  for (int sub = 0; sub < kSubsteps; ++sub) vss_thread_substep<N>(p, ExactTrig{}, r, ball);
+  for (int sub = 0; sub < kSubsteps; ++sub)
+    vss_thread_substep<N>(p, ExactTrigPaired{}, r, ball);
 
 #pragma unroll
   for (int q = 0; q < N; ++q) {
@@ -188,6 +196,23 @@ __global__ void __launch_bounds__(kThreadBlock)
   LD(ball_out, 4) = ball.vy;
   LD(ball_out, 5) = ball.vz;
 #undef LD
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreadBlock)
+    vss_physics_thread_kernel(const VssPhysParams p, const float* __restrict__ rb_in,
+                              const float* __restrict__ ball_in, const float* __restrict__ cmd,
+                              float* __restrict__ rb_out, float* __restrict__ ball_out, int B) {
+  vss_physics_thread_step<N>(p, rb_in, ball_in, cmd, rb_out, ball_out, B);
+}
+
+// the same step, its registers capped for kCappedMinBlocks blocks per SM
+template <int N>
+__global__ void __launch_bounds__(kThreadBlock, kCappedMinBlocks)
+    vss_physics_thread_kernel_capped(const VssPhysParams p, const float* __restrict__ rb_in,
+                                     const float* __restrict__ ball_in, const float* __restrict__ cmd,
+                                     float* __restrict__ rb_out, float* __restrict__ ball_out, int B) {
+  vss_physics_thread_step<N>(p, rb_in, ball_in, cmd, rb_out, ball_out, B);
 }
 
 }  // namespace
@@ -221,7 +246,7 @@ int vss_physics_step_one_thread(const VssPhysParams* p, const float* robots, con
   const cudaStream_t s = (cudaStream_t)stream;
 #define VSS_PHYS_THREAD(N)                                                                                      \
   case N:                                                                                                       \
-    vss_physics_thread_kernel<N><<<grid, block, 0, s>>>(*p, robots, ball, cmd, robots_out, ball_out, B);        \
+    vss_physics_thread_kernel<N><<<grid, block, 0, s>>>(*p, robots, ball, cmd, robots_out, ball_out, B);     \
     return (int)cudaGetLastError()
   switch (n_robots) {
     VSS_PHYS_THREAD(1);
@@ -230,6 +255,28 @@ int vss_physics_step_one_thread(const VssPhysParams* p, const float* robots, con
     VSS_PHYS_THREAD(4);
     VSS_PHYS_THREAD(5);
     VSS_PHYS_THREAD(6);
+    VSS_PHYS_THREAD(7);
+    VSS_PHYS_THREAD(8);
+    VSS_PHYS_THREAD(9);
+    VSS_PHYS_THREAD(10);
+  }
+#undef VSS_PHYS_THREAD
+  return (int)cudaErrorInvalidValue;
+}
+
+// The one-thread kernel with its registers capped for kCappedMinBlocks
+// blocks per SM, n_robots = 7..10 (cudaErrorInvalidValue outside): the
+// same arguments and outputs, bit for bit.
+int vss_physics_step_one_thread_capped(const VssPhysParams* p, const float* robots, const float* ball,
+                                       const float* cmd, float* robots_out, float* ball_out, int n_robots, int B,
+                                       void* stream) {
+  const dim3 grid((B + kThreadBlock - 1) / kThreadBlock), block(kThreadBlock);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define VSS_PHYS_THREAD(N)                                                                                       \
+  case N:                                                                                                        \
+    vss_physics_thread_kernel_capped<N><<<grid, block, 0, s>>>(*p, robots, ball, cmd, robots_out, ball_out, B); \
+    return (int)cudaGetLastError()
+  switch (n_robots) {
     VSS_PHYS_THREAD(7);
     VSS_PHYS_THREAD(8);
     VSS_PHYS_THREAD(9);

@@ -38,10 +38,16 @@
 // tests/test_torch_vss_pair_order.py.)
 //
 // The one-thread kernels (K1's vss_thread_kernel, K2's
-// vss_physics_thread_kernel) step an env on one thread with
-// vss_thread_substep: the same operations on the same values, each pair
-// once from the lower robot's side, each robot's terms in partner order, so
-// at 3v3 and 5v5 the two designs agree to the bit.
+// vss_physics_thread_kernel, and their register-capped variants) step an
+// env on one thread with vss_thread_substep: the same operations on the
+// same values, each pair once from the lower robot's side, each robot's
+// terms in partner order, so at 3v3 and 5v5 the two designs agree to the
+// bit.  Their substeps are issue-bound (~3.1 warp instructions per cycle
+// of 4 at 16 warps per SM, PERF.md, section 6): the kernels keep the registers
+// they hold through the substeps to the substeps' own values, and take
+// cos and sin of a heading from one sincosf (ExactTrigPaired,
+// RsqrtPickedTurn); keeping the drive targets and the pre-pass values in
+// shared memory instead cost more than the registers it freed.
 //
 // Numerics are a policy:
 //   TaylorRsqrt (K1): the TPU kernel's reduced-range Taylor rotation of a
@@ -221,15 +227,30 @@ struct ExactRsqrt : TaylorRsqrt {
   }
 };
 
+// cos and sin of one angle from one sincosf: bit for bit cosf and sinf
+// (every f32 checked on the card under the port's flags, PERF.md)
+__device__ __forceinline__ void cos_sin(float t, float& c, float& s) { sincosf(t, &s, &c); }
+
+// ExactTrig with the turn's cos and sin from one sincosf (K2's one-thread
+// kernel)
+struct ExactTrigPaired : ExactTrig {
+  template <class P>
+  static __device__ __forceinline__ void turn(const P& p, VssRobot& r) {
+    r.th = wrap_angle(r.th + r.w * p.dts, p);
+    cos_sin(r.th, r.c, r.s);
+  }
+};
+
 // K1's numerics with the turn picked per launch (the one-thread kernel,
 // which would otherwise be built twice for every robot count): a
-// warp-uniform branch between the two turns
+// warp-uniform branch between the two turns, the exact one's cos and sin
+// from one sincosf
 struct RsqrtPickedTurn : TaylorRsqrt {
   bool exact;
 
   template <class P>
   __device__ __forceinline__ void turn(const P& p, VssRobot& r) const {
-    if (exact) ExactRsqrt::turn(p, r);
+    if (exact) ExactTrigPaired::turn(p, r);
     else TaylorRsqrt::turn(p, r);
   }
 };

@@ -155,8 +155,9 @@ def load() -> ctypes.CDLL:
     # act, ou, sp, th, key, st_out, obs_out, aux_out, env_base, B, stream
     lib.vss_full_step.argtypes = [i] * 5 + [p] * 10 + [i, i, p]
     lib.vss_full_step.restype = i
-    lib.vss_full_step_one_thread.argtypes = lib.vss_full_step.argtypes
-    lib.vss_full_step_one_thread.restype = i
+    for name in ("vss_full_step_one_thread", "vss_full_step_one_thread_capped"):
+        getattr(lib, name).argtypes = lib.vss_full_step.argtypes
+        getattr(lib, name).restype = i
     # key, out, n_blk, env_base, B, stream
     lib.philox_words.argtypes = [p, p, i, i, i, p]
     lib.philox_words.restype = i
@@ -187,6 +188,7 @@ def load() -> ctypes.CDLL:
     # params*, robots, ball, cmd, robots_out, ball_out, n_robots, B, stream
     lib.vss_physics_step.argtypes = [p] * 6 + [i, i, p]
     lib.vss_physics_step.restype = i
-    lib.vss_physics_step_one_thread.argtypes = lib.vss_physics_step.argtypes
-    lib.vss_physics_step_one_thread.restype = i
+    for name in ("vss_physics_step_one_thread", "vss_physics_step_one_thread_capped"):
+        getattr(lib, name).argtypes = lib.vss_physics_step.argtypes
+        getattr(lib, name).restype = i
     return lib

@@ -3,8 +3,10 @@
 Replaces the TPU kernel ``rsoccer_tpu/ops/pallas_vss_full.py:142``
 (``make_pallas_vss_full_step``), at every team size it runs: from 1v0 to
 5v5, in and beyond the Taylor bound of its heading rotation.  The kernels
-are in ``csrc/vss_full.cu`` (with the VSS substep of ``csrc/vss_world.cuh``
-and ``csrc/philox.cuh``): OU update -> wheel commands with the deadzone ->
+are in ``csrc/vss_full.cu`` (the group kernel) and ``csrc/vss_thread.cu``,
+``vss_thread_capped.cu`` (the one-thread kernel; both on ``vss_step.cuh``,
+the VSS substep of ``csrc/vss_world.cuh`` and ``csrc/philox.cuh``): OU
+update -> wheel commands with the deadzone ->
 5 physics substeps -> reward/termination -> on done envs only, spawn
 placement -> auto-reset select -> obs.  :func:`route` picks one of two
 designs per launch:
@@ -17,10 +19,21 @@ designs per launch:
   each block stages its 32 (3v3) or 16 (5v5) envs' rows through shared
   memory.
 - ``"thread"`` (``vss_thread_kernel``, every team size): one env per
-  thread, the whole env in registers.  Above the team size's entry of
-  ``GROUP_MAX_ENVS`` the card is full and the group's replicated ball work
-  costs more than its lanes save, so 3v3 and 5v5 run here too; every other
-  team size always does.
+  thread, what the substeps read in registers.  Above the team size's
+  entry of ``GROUP_MAX_ENVS`` the card is full and the group's replicated
+  ball work costs more than its lanes save, so 3v3 and 5v5 run here too;
+  every other team size always does.  For 7-10 robots above
+  ``THREAD_UNCAPPED_MAX_ENVS`` envs the C entry launches the same step with
+  its registers capped (128, 16 warps per SM: :func:`routed_entry`).
+
+The crossovers, measured in turns on the card (on the redesigned
+one-thread kernel, both RNG modes): at 3v3 the group kernel wins at 16384
+envs (25.46 against 26.83 us with kernel RNG) and loses from 24576 (37.49
+against 30.81); at 5v5 it wins at 16384 (46.86 against 53.80) and loses
+from 24576 (68.73 against 60.61); at 5v5 the uncapped one-thread kernel
+wins up to 32768 envs (70.46 against 88.60 capped) and the capped one from
+49152 on, also against the group kernel (118.49 against 171.91 at 65536,
+248.51 against 328.57 at 131072).
 
 Both give the same bits at 3v3 and 5v5.  ``rng="kernel"`` draws the
 random words in registers, the reset's only on done envs.  The state
@@ -53,7 +66,8 @@ its plain version and, through the input rows, against the JAX kernel.
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``vss_full_step.launches`` counts kernel launches, and
 ``vss_full_step.entry_launches`` counts them by C entry (``vss_full_step``:
-the group kernels, ``vss_full_step_one_thread``: the one-thread kernel),
+the group kernels, ``vss_full_step_one_thread``: the one-thread kernel,
+``vss_full_step_one_thread_capped``: its capped variant),
 ``vss_full_step.final_launches`` those of the ``emit_final`` variant.
 """
 
@@ -80,15 +94,28 @@ N_YELLOW = range(0, 6)
 N_SUBSTEPS = 5  # compiled into the kernels
 # Up to this many envs 3v3 launches the 8-lane group kernel, above it the
 # one-thread kernel: measured in turns on the card, the group kernel wins
-# at 16384 envs and loses from 24576 on (PERF.md, section 6).
+# at 16384 envs and loses from 24576 on, in both RNG modes (PERF.md,
+# section 6).
 VSS_GROUP_MAX_ENVS = 16384
 # Up to this many envs 5v5 launches the 16-lane group kernel, above it the
-# one-thread kernel: measured in turns on the card, the group kernel wins
-# at 16384 envs and loses from 24576 on (PERF.md, section 6).
+# one-thread kernel (its capped variant from 49152): measured in turns on
+# the card, the group kernel wins at 16384 envs and loses from 24576 on,
+# in both RNG modes (PERF.md, section 6).
 VSS_5V5_GROUP_MAX_ENVS = 16384
 # (blue, yellow) -> the batch up to which that team size launches its group
 # kernel; the team sizes not listed have only the one-thread kernel
 GROUP_MAX_ENVS = {(3, 3): VSS_GROUP_MAX_ENVS, (5, 5): VSS_5V5_GROUP_MAX_ENVS}
+# Robot counts whose one-thread kernel has a register-capped variant (128
+# registers, 16 warps per SM), and the batch up to which they launch the
+# uncapped one: above it the uncapped kernel (168-255 registers, 8-12
+# warps) needs more than one wave of the card and the capped one runs
+# faster; up to it the capped one's spills cost more than its warps gain
+# (measured in turns on the card at 5v5: 70.46 against 88.60 us at 32768
+# envs, 176.63 against 118.49 at 65536; PERF.md, section 6).
+THREAD_CAPPED_ROBOTS = range(7, 11)
+THREAD_UNCAPPED_MAX_ENVS = 32768
+THREAD_BLOCK = 64  # the one-thread kernels' block (csrc kThreadBlock)
+THREAD_CAPPED_MIN_BLOCKS = 8  # the capped variant's launch bounds (csrc kCappedMinBlocks)
 
 
 def state_size(n_robots: int) -> int:
@@ -269,8 +296,13 @@ def route(env: VSSEnv, batch: int) -> str:
 
 def routed_entry(env: VSSEnv, batch: int) -> str:
     """The C entry that a step of ``batch`` envs launches (:func:`route`):
-    ``vss_full_step`` (the group kernels) or ``vss_full_step_one_thread``."""
-    return "vss_full_step" if route(env, batch) == "group" else "vss_full_step_one_thread"
+    ``vss_full_step`` (the group kernels), ``vss_full_step_one_thread``,
+    or, for 7-10 robots above ``THREAD_UNCAPPED_MAX_ENVS`` envs,
+    ``vss_full_step_one_thread_capped``."""
+    if route(env, batch) == "group":
+        return "vss_full_step"
+    capped = env.n_robots in THREAD_CAPPED_ROBOTS and batch > THREAD_UNCAPPED_MAX_ENVS
+    return "vss_full_step_one_thread_capped" if capped else "vss_full_step_one_thread"
 
 
 _PARAMS_CACHE: dict = {}

@@ -7,10 +7,16 @@ ball-robot contacts, goal-pocket walls) on stacked arrays, for N = 1..10
 robots.  The kernels are in ``csrc/vss_physics.cu`` (the VSS substep of
 ``csrc/vss_world.cuh``, shared with the fused VSS step); :func:`route`
 picks one per launch, as ``ops/vss_full.route`` does: one env on a group
-of lanes (N = 6 on 8 lanes up to ``VSS_GROUP_MAX_ENVS`` envs, N = 10 on 16
-up to ``VSS_10_GROUP_MAX_ENVS``) or one env per thread (every other N, and
-N = 6 and 10 above those batches).  Both give the same bits at N = 6 and
-10.
+of lanes (N = 6 on 8 lanes up to ``VSS_GROUP_MAX_ENVS`` = 24576 envs, N =
+10 on 16 up to ``VSS_10_GROUP_MAX_ENVS`` = 16384) or one env per thread
+(every other N, and N = 6 and 10 above those batches; for 7-10 robots
+above ``THREAD_UNCAPPED_MAX_ENVS`` = 49152 envs its register-capped
+variant).  The crossovers were measured in turns on the card (on the
+redesigned one-thread kernel): at N = 6 the group kernel wins at 24576
+envs and loses at 32768, at N = 10 it wins at 16384 and loses from 24576;
+at N = 10 the uncapped one-thread kernel wins up to 49152 envs and the
+capped one from 65536 (97-98 against 120 us there, 185-189 against 194-197
+at 131072).  All give the same bits at N = 6 and 10.
 
 Arrays, as the TPU kernel's: robots ``(6, N, B)`` rows [x, y, theta, v_x,
 v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands
@@ -21,7 +27,8 @@ v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands
 CPU; for CUDA tensors it launches the kernel or raises.
 ``vss_physics.launches`` counts kernel launches,
 ``vss_physics.entry_launches`` counts them by C entry (``vss_physics_step``:
-the group kernels, ``vss_physics_step_one_thread``: the one-thread kernel).
+the group kernels, ``vss_physics_step_one_thread``: the one-thread kernel,
+``vss_physics_step_one_thread_capped``: its capped variant).
 :func:`world_step` is the ``physics/vss`` step's signature over it, which
 ``BatchedEnv(..., fused_physics=True)`` runs between the task's pre- and
 post-physics.
@@ -44,15 +51,25 @@ N_ROBOTS = range(1, 11)  # robot counts the kernels run
 N_SUBSTEPS = 5  # compiled into the kernels
 # Up to this many envs N = 6 launches the 8-lane group kernel, above it the
 # one-thread kernel: measured in turns on the card, the group kernel wins
-# at 24576 envs and loses at 32768 (PERF.md, section 6).
+# at 24576 envs (23.03 against 23.44 us) and loses at 32768 (30.02 against
+# 24.88; PERF.md, section 6).
 VSS_GROUP_MAX_ENVS = 24576
 # Up to this many envs N = 10 (5v5) launches the 16-lane group kernel,
 # above it the one-thread kernel: measured in turns on the card, the group
-# kernel wins at 24576 envs and loses from 32768 on (PERF.md, section 6).
-VSS_10_GROUP_MAX_ENVS = 24576
+# kernel wins at 16384 envs (39.07 against 47.52 us) and, since the
+# one-thread kernel's redesign, loses from 24576 on (56.71 against 49.82;
+# PERF.md, section 6).
+VSS_10_GROUP_MAX_ENVS = 16384
 # robot count -> the batch up to which it launches its group kernel; the
 # counts not listed have only the one-thread kernel
 GROUP_MAX_ENVS = {6: VSS_GROUP_MAX_ENVS, 10: VSS_10_GROUP_MAX_ENVS}
+# Robot counts whose one-thread kernel has a register-capped variant (128
+# registers, 16 warps per SM), and the batch up to which they launch the
+# uncapped one (168 registers at N = 10, 12 warps): measured in turns on
+# the card at N = 10, the uncapped kernel wins up to 49152 envs and the
+# capped one from 65536 on (PERF.md, section 6)
+THREAD_CAPPED_ROBOTS = range(7, 11)
+THREAD_UNCAPPED_MAX_ENVS = 49152
 
 PARAM_FIELDS = (
     "dts lat_keep a_lin a_ang max_wheel wheel_r two_half_axle half_len half_wid "
@@ -150,9 +167,13 @@ def route(env, batch: int) -> str:
 
 def routed_entry(env, batch: int) -> str:
     """The C entry that a physics step of ``batch`` envs launches
-    (:func:`route`): ``vss_physics_step`` (the group kernels) or
-    ``vss_physics_step_one_thread``."""
-    return "vss_physics_step" if route(env, batch) == "group" else "vss_physics_step_one_thread"
+    (:func:`route`): ``vss_physics_step`` (the group kernels),
+    ``vss_physics_step_one_thread``, or, for 7-10 robots above
+    ``THREAD_UNCAPPED_MAX_ENVS`` envs, ``vss_physics_step_one_thread_capped``."""
+    if route(env, batch) == "group":
+        return "vss_physics_step"
+    capped = env.n_robots in THREAD_CAPPED_ROBOTS and batch > THREAD_UNCAPPED_MAX_ENVS
+    return "vss_physics_step_one_thread_capped" if capped else "vss_physics_step_one_thread"
 
 
 def _launch(env, robots, ball, cmd):

@@ -179,9 +179,9 @@ def test_kernel_matches_plain_configs(cuda, config, batch, rng_mode, emit_final)
 
 
 def vss_entry(entry, env, st, act, rows, key, emit_final):
-    """The outputs of the C entry ``entry`` (``vss_full_step`` or
-    ``vss_full_step_one_thread``) on these operands; the key is not
-    advanced."""
+    """The outputs of the C entry ``entry`` (``vss_full_step``,
+    ``vss_full_step_one_thread`` or ``vss_full_step_one_thread_capped``) on
+    these operands; the key is not advanced."""
     b = st.shape[-1]
     outs = (torch.full_like(st, float("nan")),
             torch.full((env.obs_size * (2 if emit_final else 1), b), float("nan"), device=st.device),
@@ -210,6 +210,8 @@ GROUP_TEAMS = {
     "3v3": ({}, B),
     "5v5": (VSS_CONFIGS["5v5"], B),
     "5v5_ragged": (VSS_CONFIGS["5v5"], 8191),
+    "3v3_ragged": ({}, 8191),  # B % 4 != 0, the last 64-env block of the one-thread kernel part empty
+    "5v5_ragged_1001": (VSS_CONFIGS["5v5"], 1001),
 }
 
 
@@ -234,8 +236,89 @@ def test_one_thread_kernel_bit_equal_to_group_kernel(cuda, team, time_step, rng_
         group = vss_entry("vss_full_step", env, st, act, rows, k, emit_final)
         thread = vss_entry("vss_full_step_one_thread", env, st, act, rows, k, emit_final)
         assert bit_equal(thread, group), f"step {t}"
+        if env.n_robots in vf.THREAD_CAPPED_ROBOTS:  # the register-capped variant too
+            assert bit_equal(vss_entry("vss_full_step_one_thread_capped", env, st, act, rows, k, emit_final),
+                             group), f"step {t}"
         key[2:].add_(1)
         st = group[0]
+
+
+# the one-thread kernels at ragged batches: B % 4 != 0 and B not a multiple
+# of the 64-thread block, each through its C entry whatever the route
+THREAD_TEAMS = {
+    "1v0": VSS_CONFIGS["1v0"],
+    "2v2": dict(n_robots_blue=2, n_robots_yellow=2),
+    "3v3": {},
+    "5v5": VSS_CONFIGS["5v5"],
+    "5v5_dt0.1": dict(VSS_CONFIGS["5v5"], time_step=0.1),
+}
+
+
+@pytest.mark.parametrize("batch", [37, 8191, 16385])
+@pytest.mark.parametrize("team", list(THREAD_TEAMS))
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+def test_one_thread_kernel_matches_plain_ragged(cuda, team, batch, rng_mode, emit_final):
+    """The one-thread kernel (and, at 7-10 robots, its capped variant, bit
+    for bit the same) against the plain version through auto-resets that
+    fall on different steps in one warp."""
+    env = rsoccer_tpu_torch.make("VSS-v0", **THREAD_TEAMS[team])
+    env.max_episode_steps = 3
+    key = make_key(5, device=cuda)
+    st, _ = BatchedEnv(env, batch, device=cuda, fused=True).reset(key)
+    st = stagger(st, env.n_robots)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    dones = 0
+    for t in range(5):
+        act = torch.rand((2, batch), generator=gen, device=cuda) * 2 - 1
+        rows = vf.draw_step_rows(env, key.clone(), batch)
+        k = key if rng_mode == "kernel" else None
+        got = vss_entry("vss_full_step_one_thread", env, st, act, rows, k, emit_final)
+        if env.n_robots in vf.THREAD_CAPPED_ROBOTS:
+            assert bit_equal(vss_entry("vss_full_step_one_thread_capped", env, st, act, rows, k, emit_final), got)
+        want = vf.vss_full_step_plain(env, st, act, *rows, emit_final)
+        assert_step_close(env, got, want, f"step {t}")
+        dones += int(got[2][1:3].sum())
+        key[2:].add_(1)
+        st = got[0]
+    assert dones >= batch
+
+
+@pytest.mark.parametrize("batch", [37, 8191, 16385])
+@pytest.mark.parametrize("n", [1, 6, 10])
+def test_one_thread_physics_kernel_matches_plain_ragged(cuda, n, batch):
+    """K2's one-thread kernel (at N = 10 also its capped variant, bit for
+    bit the same) against the plain version at ragged batches."""
+    env = rsoccer_tpu_torch.make("VSS-v0", **{1: VSS_CONFIGS["1v0"], 6: {}, 10: VSS_CONFIGS["5v5"]}[n])
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    lib = vp._library()
+    for trial in range(3):
+        rb, ball, cmd = random_vss_arrays(gen, cuda, n=n, batch=batch)
+        outs = {}
+        for entry in ("vss_physics_step_one_thread",) + (
+                ("vss_physics_step_one_thread_capped",) if n in vp.THREAD_CAPPED_ROBOTS else ()):
+            outs[entry] = (torch.full_like(rb, float("nan")), torch.full_like(ball, float("nan")))
+            assert getattr(lib, entry)(
+                ctypes.byref(vp._params_struct(env)), rb.data_ptr(), ball.data_ptr(), cmd.data_ptr(),
+                *(t.data_ptr() for t in outs[entry]), n, batch, torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        k_rb, k_ball = outs["vss_physics_step_one_thread"]
+        assert all(bit_equal(o, (k_rb, k_ball)) for o in outs.values()), trial
+        p_rb, p_ball = vp.vss_physics_plain(env, rb, ball, cmd)
+        d_th = (torch.remainder(k_rb[2] - p_rb[2] + math.pi, 2 * math.pi) - math.pi).abs()
+        assert float(d_th.max()) <= ATOL, trial
+        assert float((k_rb[[0, 1, 3, 4, 5]] - p_rb[[0, 1, 3, 4, 5]]).abs().max()) <= ATOL, trial
+        assert float((k_ball - p_ball).abs().max()) <= ATOL, trial
+
+
+def test_capped_entries_refuse_other_team_sizes(cuda):
+    """The capped variants exist for 7-10 robots only: another team size is
+    refused (cudaErrorInvalidValue), never run on another kernel."""
+    env = rsoccer_tpu_torch.make("VSS-v0")
+    st, _ = BatchedEnv(env, B, device=cuda, fused=True).reset(make_key(1, device=cuda))
+    with pytest.raises(AssertionError, match="vss_full_step_one_thread_capped"):
+        vss_entry("vss_full_step_one_thread_capped", env, st, torch.zeros((2, B), device=cuda), None,
+                  make_key(2, device=cuda), False)
 
 
 SSL = {  # env id -> (wrapper, plain, draw)

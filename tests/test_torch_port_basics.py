@@ -169,8 +169,9 @@ def test_batched_env_refuses_unported_paths():
 
 
 def test_kernel_param_struct_matches_cuda_source():
-    """ctypes mirror of VssParams == the X-list in csrc/vss_full.cu."""
-    src = open(os.path.join(PORT, "csrc", "vss_full.cu")).read()
+    """ctypes mirror of VssParams == the X-list in csrc/vss_step.cuh (the
+    header both VSS step designs share)."""
+    src = open(os.path.join(PORT, "csrc", "vss_step.cuh")).read()
     block = src[src.index("#define VSS_PARAMS(X)"): src.index("struct VssParams")]
     fields = re.findall(r"X\((\w+)\)", block)
     assert fields == tvf.PARAM_FIELDS
