@@ -30,9 +30,10 @@ the physics kernel at 5v5 (16 lanes) and 1v0 (one thread), and at 3v3 and
 at 32768 envs (at 5v5 also their register-capped variants).  The VSS
 kernels and K4-K7 are timed at 32768 and 131072 envs through their
 wrappers' routes, and the one-thread VSS kernels (3v3, 5v5; K2 at N = 6,
-10) through the one-thread entry the route names there, with their
-registers, spills, warps per SM and SASS issue floor
-(``kernel_scale_one_thread``).  Then it drives each main path —
+10) and K4's and K6's one-thread kernels through the one-thread entry the
+route names there, with their registers, spills, warps per SM and SASS
+issue floor (``kernel_scale_one_thread``), and the share of SD's and DR's
+32-env warps that hold a done env per step there (``done_share_*``).  Then it drives each main path —
 ``BatchedEnv(<id>, 8192, device="cuda", fused=True, fused_rng="kernel")``,
 ``BatchedEnv(VSS-v0, 8192, device="cuda", fused_physics=True)``, and
 ``make_vec("VSS-v0", 8192, ..., field_type=1, n_robots_blue=5,
@@ -57,12 +58,15 @@ thread, group, DIR's one thread) from 8192 to 131072 envs (the
 group-vs-one-thread crossover), 1v0 likewise without a group kernel; the
 5v5 group kernels bit for bit against DIR's one-thread kernels and this
 tree's (with their capped variants), timed in turns the same way, with
-the routed entry beside the fastest design (the 5v5 crossovers); all four SSL
-steps, outputs bit for bit at 8192 to 131072 envs (in both RNG modes and
-both obs variants), then each timed in turns (baseline, this, this,
-baseline), the StaticDefenders and Dribbling steps with this tree's
-one-thread kernels beside their group kernels, and the route at each batch
-beside the faster design.
+the routed entry beside the fastest design (the 5v5 crossovers); the
+StaticDefenders and Dribbling one-thread entries bit for bit against DIR's
+at 8191, 8449, 16385, 32768 and 131072 envs (both RNG modes, both obs
+variants, ``env_base`` 0 and 4096); all four SSL steps, outputs bit for bit
+at 8192 to 131072 envs (in both RNG modes and both obs variants), then
+each timed in turns (baseline, this, this, baseline), the StaticDefenders
+and Dribbling steps' group and one-thread entries both, with the route at
+each batch beside the faster design and the routed kernel's time beside
+the baseline's.
 Then the learner of the main path (``rsoccer_tpu_torch/models/ppo.py``):
 ``ppo_train`` trains PPO on VSS-v0 at 8192 envs through K1's
 ``emit_final`` variant (towers (256, 256) in bf16, 128 steps x 4 epochs x
@@ -205,7 +209,7 @@ from rsoccer_tpu_torch.tools import _trace
 
 B = 8192
 RAGGED_B = 8191  # leaves the last 32-env block of the group kernels part empty
-ONE_THREAD_B = 16384  # above ops/ssl_full.GROUP_MAX_ENVS: the one-thread SD and DR kernels
+ONE_THREAD_B = 16384  # above ops/ssl_full.GROUP_MAX_ENVS' crossovers: the one-thread SD and DR kernels
 SCALE_BATCHES = (32768, 131072)
 VSS_THREAD_B = 32768  # the VSS group and one-thread kernels, checked bit for bit at 3v3 and 5v5
 # VSS-v0 beyond 3v3 and the Taylor bound: 5v5 on its own field (state 95
@@ -723,7 +727,9 @@ def time_at_scale(card, k1, k2, ssl_tasks):
     ``ssl_tasks`` (K4-K7, each in its RNG modes) at each of SCALE_BATCHES envs,
     on the state after 20 main-path steps, through the wrappers (so through
     each one's ``route``), with each call's bound; then the one-thread VSS
-    kernels (:func:`thread_kernels_at`).  Two phases per batch."""
+    kernels and SD's and DR's (:func:`thread_kernels_at`), and the share of
+    SD's and DR's warps that hold a done env (:func:`done_shares`).  Four
+    phases per batch."""
     import rsoccer_tpu_torch as rt
     from rsoccer_tpu_torch.batch import rollout as R
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
@@ -748,10 +754,12 @@ def time_at_scale(card, k1, k2, ssl_tasks):
             "vss_full_input_rows": (k1, lambda: vf.vss_full_step(env, st, act, *rows), (st, act, *rows)),
             "vss_physics": (k2, lambda: vp.vss_physics(env, rb, bl, cmd), (rb, bl, cmd)),
         }
+        ssl_ops = {}
         for task in ssl_tasks:
             s_env, s_st, s_act = ssl_state(task, batch)
             s_key = make_key(3, device="cuda")
             s_rows = task.draw(s_env, s_key.clone(), batch)
+            ssl_ops[task.name] = (task, s_env, s_st, s_act, s_key, s_rows)
             calls[f"{task.name}_kernel_rng"] = (
                 task, lambda t=task, e=s_env, x=s_st, a=s_act, k=s_key: t.wrapper(e, x, a, key=k), (s_st, s_act, s_key))
             if s_rows:
@@ -768,7 +776,10 @@ def time_at_scale(card, k1, k2, ssl_tasks):
         torch.cuda.synchronize()
         phase("kernel_scale", card=card, B=batch, device_us=dev_us, bound_us=bound_us,
               vss_route={"vss_full": vf.route(env, batch), "vss_physics": vp.route(env, batch)})
-        phase("kernel_scale_one_thread", card=card, B=batch, **thread_kernels_at(batch, probe))
+        phase("kernel_scale_one_thread", card=card, B=batch, **thread_kernels_at(batch, probe, ssl_ops))
+        for task, *_ in ssl_ops.values():  # how many warps of the one-thread SD and DR kernels reset
+            if task.name in ("ssl_sd_full_step", "ssl_dr_full_step"):
+                phase(f"done_share_{task.name}", card=card, B=batch, **done_shares(task, batch=batch))
 
 
 # the one-thread VSS kernels that kernel_scale reports on: (K1 or K2, env kwargs)
@@ -777,8 +788,8 @@ SCALE_THREAD_KERNELS = {"k1_3v3": ("full", {}), "k1_5v5": ("full", VSS_CONFIGS["
 
 
 def thread_probe_state():
-    """What kernel_scale reads once about this tree's one-thread VSS
-    kernels: registers, spills and static shared memory (``-Xptxas -v`` of
+    """What kernel_scale reads once about this tree's one-thread kernels
+    (VSS, SD, DR): registers, spills and static shared memory (``-Xptxas -v`` of
     the build), the static SASS per env (``cuobjdump``, tools/thread_probe)
     and the SM clock (``nvidia-smi``)."""
     from rsoccer_tpu_torch.ops import _build
@@ -789,14 +800,16 @@ def thread_probe_state():
                            clocks=tp.sm_clocks())
 
 
-def thread_kernels_at(batch, probe) -> dict:
+def thread_kernels_at(batch, probe, ssl_ops=None) -> dict:
     """Each of SCALE_THREAD_KERNELS at ``batch`` envs through the one-thread
     C entry the wrapper's route names there (the capped variant for 10
     robots above ops/vss_full.THREAD_UNCAPPED_MAX_ENVS), kernel RNG, on the
-    state after 20 steps: device us per launch, the bound, registers and
-    spills, resident warps per SM, the static SASS per env and the issue
-    floor (SASS per env x warps / (132 SMs x 4 schedulers x the SM
-    clock))."""
+    state after 20 steps, and SD's and DR's one-thread kernels on the
+    operands of ``ssl_ops`` (task name -> (task, env, state, action, key,
+    rows)): device us per launch, the bound, registers and spills,
+    resident warps per SM, the static SASS per env and the issue floor
+    (SASS per env x warps / (132 SMs x 4 schedulers x the SM clock))."""
+    from rsoccer_tpu_torch.ops import ssl_full as sf
     from rsoccer_tpu_torch.ops import vss_full as vf
     from rsoccer_tpu_torch.ops import vss_physics as vp
     from rsoccer_tpu_torch.tools import thread_probe as tp
@@ -836,6 +849,27 @@ def thread_kernels_at(batch, probe) -> dict:
                         warps_per_sm=tp.warps_per_sm(r["registers"], vf.THREAD_BLOCK, r["smem"]),
                         sass_per_env=per_env,
                         issue_floor_us=tp.issue_floor_us(per_env, batch, probe.clocks["clocks_max_sm_mhz"]))
+    for name, (task, env, st, act, key, rows) in (ssl_ops or {}).items():
+        if name not in sf.GROUP_ENTRIES:  # CP and PE have one kernel: kernel_scale times it
+            continue
+        entry = name + "_one_thread"
+        if sf.routed_entry(task.entry, batch) != entry:
+            raise AssertionError(f"{name} at {batch} envs: the route names {sf.routed_entry(task.entry, batch)}")
+        outs = (torch.empty_like(st), torch.empty((env.obs_size, batch), device="cuda"),
+                torch.empty((3 + (len(sf.SD_KEYS) if rows else 0), batch), device="cuda"))
+        fn = lambda e=entry, env=env, st=st, act=act, rows=rows, key=key, o=outs: ssl_entry_call(  # noqa: E731
+            sf._library(), e, env, st, act, rows, key, False, o)
+        us, top = device_us(fn, TIMED_LAUNCHES, "thread_kernel")
+        label = next(lab for lab in map(tp.label_of_demangled, top) if lab)
+        fn()
+        n_done = int(((outs[2][1] > 0.5) | (outs[2][2] > 0.5)).sum())
+        bound, by, _, _ = bound_ms((st, act, key), outs, task.ops_env, task.ops_reset, n_done)
+        r, per_env = probe.regs[label], probe.sass[label]["per_env"]
+        res[name] = dict(entry=entry, kernel=label, device_us=us, bound_us=bound * 1e3, bound_by=by,
+                         registers=r["registers"], spill_bytes=r["spill_bytes"], smem_bytes=r["smem"],
+                         warps_per_sm=tp.warps_per_sm(r["registers"], sf.THREAD_BLOCK, r["smem"]),
+                         sass_per_env=per_env,
+                         issue_floor_us=tp.issue_floor_us(per_env, batch, probe.clocks["clocks_max_sm_mhz"]))
     torch.cuda.synchronize()
     return {"one_thread": res, "clocks": probe.clocks}
 
@@ -878,6 +912,8 @@ def build_baseline(csrc_dir):
     for entry, n_ptr in SSL_ENTRIES.values():
         drawn = base if entry != "ssl_dr_full_step" else []
         getattr(lib, entry).argtypes = [i, i] + [p] * n_ptr + drawn + [i, p]
+        if entry in sf.GROUP_ENTRIES and hasattr(lib, entry + "_one_thread"):  # the same arguments
+            getattr(lib, entry + "_one_thread").argtypes = getattr(lib, entry).argtypes
     if lib.vss_params_fields().decode().rstrip(",").split(",") != vf.PARAM_FIELDS:
         raise RuntimeError("the baseline's VssParams differ from this tree's")
     if lib.ssl_params_fields().decode().rstrip(",").split(",") != sf.PARAM_FIELDS:
@@ -900,7 +936,11 @@ SSL_ENTRIES = {
     "ssl_dr_full_step": ("ssl_dr_full_step", 6),
     "ssl_pe_full_step": ("ssl_pe_full_step", 9),
 }
-CROSSOVER_BATCHES = (B, 8448, 10240, 16384, 32768, 131072)
+# the SD and DR crossover's batches; up to MAIN_STATE_MAX_B also on the main
+# path's state (DR's one-thread kernel wins there at 8192: the lower batches
+# find its own crossover)
+CROSSOVER_BATCHES = (4096, 6144, 7168, B, 8448, 10240, 16384, 32768, 131072)
+MAIN_STATE_MAX_B = 16384
 
 
 def ssl_entry_call(lib, entry, env, st, act, rows, key, emit_final, outs, env_base=0):
@@ -943,20 +983,34 @@ def ssl_state(task, batch, steps: int = 20, prepare: bool = True):
 
 
 def ssl_against_baseline(lib, tasks, card):
-    """This tree's SSL steps (K4-K7, through their wrappers) against the
-    baseline library's on the same operands: every output bit for bit in
-    both RNG modes and both obs variants, at each of CROSSOVER_BATCHES.
-    Then each step's C entry (K4, K5 and K7 in both RNG modes) timed in
-    turns (baseline, this tree's, the same, baseline), with this tree's
-    one-thread kernel beside K4's and K6's group kernels, and the route
-    beside the design that measured faster.  One phase per batch.  Raises
-    if an output differs."""
+    """This tree's SSL steps (K4-K7) against the baseline library's.  First
+    the one-thread SD and DR entries bit for bit (tools/thread_probe's
+    ``check_ssl_bits``: both RNG modes, both obs variants, SD at env_base 0
+    and 4096) at each of its ``SSL_BITS_BATCHES``, on the states of
+    :func:`ssl_state` (SD under its chase actions, DR with its gate lanes).
+    Then at each of CROSSOVER_BATCHES:
+    every step through its wrapper (the route's kernel) bit for bit against
+    the baseline's C entry (SD's and DR's group kernels) in both RNG modes
+    and both obs variants; each step's C entry (K4, K5 and K7 in both RNG
+    modes) timed in turns (baseline, this tree's, the same, baseline), and
+    SD's and DR's one-thread entries the same way beside them, on the
+    20-step state and, up to MAIN_STATE_MAX_B, on the main path's
+    (``_main_state``); the route at each batch beside the design that
+    measured faster, and the routed kernel's time over the baseline's same
+    entry and over the baseline's faster design.  One phase per batch.
+    Raises if an output differs."""
     from rsoccer_tpu_torch.ops import ssl_full as sf
     from rsoccer_tpu_torch.ops.philox import make_key
+    from rsoccer_tpu_torch.tools import thread_probe as tp
 
     this = sf._library()
+    if hasattr(lib, "ssl_sd_full_step_one_thread") and takes_env_base(lib):  # the probe passes env_base
+        task_of_kind = {kind: next(t for t in tasks if t.env_id == env_id) for kind, env_id in tp.SSL_ENV_IDS.items()}
+        for batch in tp.SSL_BITS_BATCHES:
+            n = tp.check_ssl_bits(this, lib, (batch,), state=lambda kind, b: ssl_state(task_of_kind[kind], b)[1:])
+            phase("ssl_thread_baseline_bits", card=card, B=batch, comparisons=n)
     for batch in CROSSOVER_BATCHES:
-        turns, one_thread = {}, {}
+        turns, thread_turns, task_of = {}, {}, {}
         for task in tasks:
             entry, _ = SSL_ENTRIES[task.name]
             env, st, act = ssl_state(task, batch)
@@ -977,7 +1031,7 @@ def ssl_against_baseline(lib, tasks, card):
                 torch.empty((env.obs_size, batch), device="cuda"), torch.empty_like(got[2]))
             modes = {"kernel_rng": True, "input_rows": False} if rows else {"kernel_rng": True}
             states = {"": (st, act)}
-            if batch == B:  # and the main path's state: 700 steps, as main_path times it
+            if batch <= MAIN_STATE_MAX_B:  # and the main path's state: 700 steps, as main_path times it
                 _, m_st, m_act = ssl_state(task, batch, 2 * ROLLOUT_STEPS + TIMED_ROLLOUTS * ROLLOUT_STEPS,
                                            prepare=False)
                 states["_main_state"] = (m_st, m_act)
@@ -985,18 +1039,28 @@ def ssl_against_baseline(lib, tasks, card):
                 for mode, rng in modes.items():
                     def run(lib_, ent, rng=rng, x=x, a=a):
                         return lambda: ssl_entry_call(lib_, ent, env, x, a, rows, key if rng else None, False, outs)
-                    base_fn, this_fn = run(lib, entry), run(this, entry)
                     name = f"{task.name}_{mode}{tag}"
-                    turns[name] = [device_us(fn, TIMED_LAUNCHES, task.kernel_match)[0]
-                                   for fn in (base_fn, this_fn, this_fn, base_fn)]
-                    if entry in sf.GROUP_ENTRIES:  # beside the group kernel, this tree's one-thread kernel
-                        one_thread[name] = device_us(run(this, entry + "_one_thread"), TIMED_LAUNCHES,
-                                                     task.kernel_match)[0]
-        mean_us = {n: {"baseline": (t[0] + t[3]) / 2, "this": (t[1] + t[2]) / 2} for n, t in turns.items()}
+                    task_of[name] = task.name
+                    entries = [entry] + ([entry + "_one_thread"] if entry in sf.GROUP_ENTRIES else [])
+                    for ent, table in zip(entries, (turns, thread_turns)):
+                        base_fn, this_fn = run(lib, ent), run(this, ent)
+                        table[name] = [device_us(fn, TIMED_LAUNCHES, task.kernel_match)[0]
+                                       for fn in (base_fn, this_fn, this_fn, base_fn)]
+
+        def means(table):
+            return {n: {"baseline": (t[0] + t[3]) / 2, "this": (t[1] + t[2]) / 2} for n, t in table.items()}
+
+        mean_us, thread_us = means(turns), means(thread_turns)
+        route = {t.name: sf.route(t.name, batch) for t in tasks}
+        routed = {n: (thread_us if n in thread_us and route[task_of[n]] == "thread" else mean_us)[n] for n in mean_us}
+        # the baseline's faster design at this batch, whatever its route was
+        best = {n: min(v["baseline"], thread_us.get(n, v)["baseline"]) for n, v in mean_us.items()}
         phase("ssl_baseline_turns", card=card, B=batch, bit_equal=[t.name for t in tasks],
-              baseline_this_this_baseline_us=turns, this_one_thread_us=one_thread, mean_us=mean_us,
-              route={t.name: sf.route(t.name, batch) for t in tasks},
-              faster={n: "group" if mean_us[n]["this"] <= t else "thread" for n, t in one_thread.items()})
+              baseline_this_this_baseline_us=turns, one_thread_baseline_this_this_baseline_us=thread_turns,
+              mean_us=mean_us, one_thread_mean_us=thread_us, route=route, routed_mean_us=routed,
+              routed_this_over_baseline={n: v["this"] / v["baseline"] for n, v in routed.items()},
+              routed_this_over_baseline_best={n: v["this"] / best[n] for n, v in routed.items()},
+              faster={n: "group" if mean_us[n]["this"] <= v["this"] else "thread" for n, v in thread_us.items()})
 
 
 def routed_entry(task, batch: int) -> str:
@@ -1012,26 +1076,31 @@ def routed_entry(task, batch: int) -> str:
     return (vf if task.wrapper is vf.vss_full_step else vp).routed_entry(make_env(task), batch)
 
 
-def done_shares(task, steps: int = ROLLOUT_STEPS) -> dict:
-    """The share of envs, and of warps, that hold a done env per step of
-    the task's main path (uniform random policy, after 2 * ``steps`` warm-up
-    steps): what a reset costs where it makes a whole warp of the one-thread
-    kernel (32 envs) wait."""
+def done_shares(task, steps: int = ROLLOUT_STEPS, batch: int = B) -> dict:
+    """The share of envs, and of 32-env warps, that hold a done env per
+    step of the task's main path at ``batch`` envs (uniform random policy,
+    after 2 * ``steps`` warm-up steps): how often a warp of a one-thread
+    kernel (32 envs) runs a reset, where one done env makes the whole warp
+    wait for it (the SD one-thread kernel spreads its reset over the
+    warp)."""
     from rsoccer_tpu_torch.batch.rollout import init_carry
+    from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+    from rsoccer_tpu_torch.tools import thread_probe as tp
 
     env = make_env(task)
-    benv = task.make_benv(env)
+    benv = task.make_benv(env) if batch == B else BatchedEnv(env, batch, device="cuda", fused=True,
+                                                              fused_rng="kernel")
     carry = init_carry(benv, seed=0)
     st, key = carry.state, carry.key
     gen = torch.Generator(device="cuda").manual_seed(9)
     dones = []
     for t in range(3 * steps):
-        act = torch.rand((env.action_size, B), generator=gen, device="cuda") * 2 - 1
+        act = torch.rand((env.action_size, batch), generator=gen, device="cuda") * 2 - 1
         st, _, _, term, trunc, _ = benv.step(st, act, key)
         if t >= 2 * steps:
             dones.append(term | trunc)
-    d = torch.stack(dones)  # (steps, B)
-    share = {"envs": d.float().mean(1), "warps": d.view(steps, -1, 32).any(2).float().mean(1)}
+    d = torch.stack(dones)  # (steps, batch)
+    share = {"envs": d.float().mean(1), "warps": tp.warp_done_share(d)}
     return {"steps": steps, **{f"{k}_mean": float(v.mean()) for k, v in share.items()},
             **{f"{k}_max": float(v.max()) for k, v in share.items()}}
 
@@ -3392,6 +3461,14 @@ def native_oracle(card, wrappers):
           wheel_atol=native.ORACLE_WHEEL_ATOL, oracle_s=oracle_s)
 
 
+def ssl_source(entry: str) -> str:
+    """The source of the kernel that SD's or DR's route runs at B: the group
+    kernels' ssl_full.cu or the one-thread kernels' ssl_thread.cu."""
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+
+    return "rsoccer_tpu_torch/csrc/" + ("ssl_full.cu" if sf.route(entry, B) == "group" else "ssl_thread.cu")
+
+
 def make_tasks():
     """The kernels' tasks: each fused env step, the physics kernel and the
     configurations beyond 3v3, with what main() checks, drives and times
@@ -3425,8 +3502,7 @@ def make_tasks():
             name="ssl_sd_full_step", env_id="SSLStaticDefenders-v0", wrapper=sf.sd_full_step,
             plain=sf.sd_full_step_plain, draw=sf.sd_draw_step_rows,
             actions=chase_actions, warm_steps=WARM_STEPS, kernel_match=r"sd_(full|thread)_kernel",
-            entry="ssl_sd_full_step",
-            source="rsoccer_tpu_torch/csrc/ssl_full.cu",
+            entry="ssl_sd_full_step", source=ssl_source("ssl_sd_full_step"),
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:456",
             ops_env=SD_OPS[0], ops_reset=SD_OPS[1],
             **fused,
@@ -3445,8 +3521,7 @@ def make_tasks():
             name="ssl_dr_full_step", env_id="SSLDribbling-v0", wrapper=sf.dr_full_step,
             plain=sf.dr_full_step_plain, draw=sf.dr_draw_step_rows,
             actions=dribble_actions, warm_steps=WARM_STEPS, kernel_match=r"dr_(full|thread)_kernel",
-            entry="ssl_dr_full_step",
-            source="rsoccer_tpu_torch/csrc/ssl_full.cu",
+            entry="ssl_dr_full_step", source=ssl_source("ssl_dr_full_step"),
             replaces="rsoccer_tpu/ops/pallas_ssl_full.py:1086",
             ops_env=DR_OPS[0], ops_reset=DR_OPS[1],
             make_benv=fused_benv, calls=fused_calls, prepare=dr_gate_states, events=dr_events,
@@ -3552,7 +3627,7 @@ def main() -> int:
     from rsoccer_tpu_torch.ops import vss_full as vf
     from rsoccer_tpu_torch.ops import vss_physics as vp
 
-    if ONE_THREAD_B <= sf.GROUP_MAX_ENVS:
+    if ONE_THREAD_B <= max(sf.GROUP_MAX_ENVS.values()):
         raise AssertionError(f"ONE_THREAD_B {ONE_THREAD_B} must exceed GROUP_MAX_ENVS {sf.GROUP_MAX_ENVS}")
     if not B <= min(*vf.GROUP_MAX_ENVS.values(), *vp.GROUP_MAX_ENVS.values()):
         raise AssertionError("the VSS main paths at 3v3 and 5v5 must run the group kernels")
@@ -3629,10 +3704,14 @@ def main() -> int:
           atol=ATOL, dones=dones)
     errs["vss_physics"] = max(errs["vss_physics"], err)
     # K4-K7 through their routes at the ragged batch; K4 and K6 also past
-    # their crossover, where they launch their one-thread kernels
+    # their crossover, where they launch their one-thread kernels, and, where
+    # B runs the one-thread kernel (DR), at a ragged batch of the group route
     for task in ssl_tasks:
-        batches = ((RAGGED_B, "ragged"), (ONE_THREAD_B, "one_thread")) if task.name in sf.GROUP_ENTRIES else (
-            (RAGGED_B, "ragged"),)
+        batches = ((RAGGED_B, "ragged"),)
+        if task.name in sf.GROUP_ENTRIES:
+            batches += ((ONE_THREAD_B, "one_thread"),)
+            if sf.route(task.entry, B) == "thread":
+                batches += ((sf.GROUP_MAX_ENVS[task.entry] - 1, "group"),)
         for batch, tag in batches:
             for rng_mode in ("input", "kernel"):
                 err, at, dones, _ = check_kernel_vs_plain(task, rng_mode, batch)

@@ -7,6 +7,18 @@
 // order of the plain version's scatter.
 #pragma once
 
+// 1 / sqrt(x) for a normal x (every caller's x is >= 1e-16): MUFU.RSQ,
+// rsqrtf's bits there, without rsqrtf's rescaling of denormal arguments
+__device__ __forceinline__ float rsqrt_normal(float x) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+#else
+  return rsqrtf(x);
+#endif
+}
+
 // two_r = 2 * robot radius; gain = -(1 + restitution) * 0.5
 template <int N>
 __device__ __forceinline__ void resolve_pair_collisions(float (&x)[N], float (&y)[N], float (&vx)[N],
@@ -26,7 +38,7 @@ __device__ __forceinline__ void resolve_pair_collisions(float (&x)[N], float (&y
       const float dx = ox[i] - ox[j];
       const float dy = oy[i] - oy[j];
       const float d2 = fmaxf(dx * dx + dy * dy, 1e-16f);
-      const float inv_d = rsqrtf(d2);
+      const float inv_d = rsqrt_normal(d2);
       const float overlap = two_r - d2 * inv_d;
       const bool col = overlap > 0.0f;
       const float f = (col ? 0.5f * overlap : 0.0f) * inv_d;

@@ -12,12 +12,15 @@
 //
 // Contract (every SSL task drives blue robot 0 only): robots 1..N-1 get
 // zero targets and no kick, and enter with w = 0, so their w stays exactly
-// 0 and their heading never turns.  Robot 0 gets exact sinf/cosf each
-// substep; the others ride the trig carried in from the step's start (the
-// plain version recomputes it: a few ulp).  Robot 0 dribbles when `drib0`
-// says so; DRIB_ON is the compile-time mask of robots whose dribbler is
-// always on (PassEndurance's receiver: bit 1).  SD, CP and Dribbling pass
-// 0, and for them the body compiles to what it was before the mask.
+// 0 and their heading never turns.  Robot 0 gets exact sin/cos each
+// substep (one sincosf: sinf's and cosf's bits on every f32, checked on the
+// card by tools/thread_probe --parts sincos); the others ride the trig
+// carried in from the step's start (the plain version recomputes it: a few
+// ulp).  Every 1 / sqrt is of a normal argument (>= 1e-16): rsqrt_normal
+// (pair_collide.cuh).  Robot 0 dribbles when `drib0` says so; DRIB_ON is
+// the compile-time mask of robots whose dribbler is always on
+// (PassEndurance's receiver: bit 1).  SD, CP and Dribbling pass 0, and for
+// them the body compiles to what it was before the mask.
 #pragma once
 #include "pair_collide.cuh"
 
@@ -30,10 +33,17 @@ struct SslBall {
 __device__ __forceinline__ float ssl_clampf(float v, float lo, float hi) { return fminf(fmaxf(v, lo), hi); }
 
 // jnp.mod / torch.remainder(t + pi, 2 pi) - pi: fmodf takes the dividend's
-// sign, so a negative remainder moves up by one period (floor-mod)
+// sign, so a negative remainder moves up by one period (floor-mod).  In
+// [0, 2 pi) fmodf returns its argument exactly, so it is skipped there (a
+// NaN fails the test and takes fmodf): the same bits on every f32.  The
+// one wrap of every SSL kernel (the group world step of ssl_world.cuh
+// too).
 __device__ __forceinline__ float ssl_wrap_angle(float t, float pi, float two_pi) {
-  float r = fmodf(t + pi, two_pi);
-  if (r != 0.0f && r < 0.0f) r += two_pi;
+  float r = t + pi;
+  if (!(r >= 0.0f && r < two_pi)) {
+    r = fmodf(r, two_pi);
+    if (r != 0.0f && r < 0.0f) r += two_pi;
+  }
   return r - pi;
 }
 
@@ -77,10 +87,7 @@ __device__ __forceinline__ void ssl_world_step(const P& p, float (&x)[N], float 
       sl = sl + ssl_clampf(tv - sl, -p.a_lin, p.a_lin);
       w[r] = w[r] + ssl_clampf(tw - w[r], -p.a_ang, p.a_ang);
       th[r] = ssl_wrap_angle(th[r] + w[r] * p.dts, p.pi, p.two_pi);
-      if (r == 0) {
-        s[0] = sinf(th[0]);
-        c[0] = cosf(th[0]);
-      }
+      if (r == 0) sincosf(th[0], &s[0], &c[0]);
       vx[r] = u * c[r] - sl * s[r];
       vy[r] = u * s[r] + sl * c[r];
       x[r] = x[r] + vx[r] * p.dts;
@@ -90,7 +97,7 @@ __device__ __forceinline__ void ssl_world_step(const P& p, float (&x)[N], float 
 
     // ---- ball: rolling friction while grounded
     const bool on_ground = bl.z <= p.ground_z;
-    const float inv_speed = rsqrtf(bl.vx * bl.vx + bl.vy * bl.vy + 1e-16f);
+    const float inv_speed = rsqrt_normal(bl.vx * bl.vx + bl.vy * bl.vy + 1e-16f);
     const float scale = fmaxf(0.0f, 1.0f - p.fric * inv_speed);
     if (on_ground) {
       bl.vx = bl.vx * scale;
@@ -135,7 +142,7 @@ __device__ __forceinline__ void ssl_world_step(const P& p, float (&x)[N], float 
       const float dx = bl.x - x[r];
       const float dy = bl.y - y[r];
       const float d2 = fmaxf(dx * dx + dy * dy, 1e-16f);
-      const float inv_d = rsqrtf(d2);
+      const float inv_d = rsqrt_normal(d2);
       const float overlap = p.r_sum - d2 * inv_d;
       const bool col = overlap > 0.0f && below_top;
       const float nx = dx * inv_d, ny = dy * inv_d;

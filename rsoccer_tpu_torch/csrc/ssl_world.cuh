@@ -65,31 +65,6 @@ struct SslLayout {
   static constexpr int kXs = 0, kCt = kGroup, kR0 = kCt + kGroup, kSlots = kR0 + 2;
 };
 
-// torch.remainder(t + pi, 2 pi) - pi: fmodf takes the dividend's sign, so a
-// negative remainder moves up by one period (floor-mod).  In [0, 2 pi)
-// fmodf returns its argument, so it is skipped there: ssl_wrap_angle's bits.
-template <class P>
-__device__ __forceinline__ float ssl_wrap_angle_fast(float t, const P& p) {
-  float r = t + p.pi;
-  if (!(r >= 0.0f && r < p.two_pi)) {
-    r = fmodf(r, p.two_pi);
-    if (r != 0.0f && r < 0.0f) r += p.two_pi;
-  }
-  return r - p.pi;
-}
-
-// 1 / sqrt(x) for a normal x (every caller's x is >= 1e-16): MUFU.RSQ,
-// rsqrtf's bits there, without rsqrtf's rescaling of denormal arguments
-__device__ __forceinline__ float rsqrt_normal(float x) {
-#ifdef __CUDA_ARCH__
-  float r;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-#else
-  return rsqrtf(x);
-#endif
-}
-
 // A pair or a ball contact whose squared distance d2 is finite and clears
 // the square of its reach times (1 + 1e-4) cannot touch: reach - d2
 // rsqrt(d2) < 0 there (the rsqrt's relative error is ~1e-7).  Every term
@@ -144,7 +119,7 @@ __device__ __forceinline__ bool ssl_substep(const P& p, int k, float4* grp, SslR
   u = u + ssl_clampf(tu - u, -p.a_lin, p.a_lin);
   sl = sl + ssl_clampf(tv - sl, -p.a_lin, p.a_lin);
   r.w = r.w + ssl_clampf(tw - r.w, -p.a_ang, p.a_ang);
-  r.th = ssl_wrap_angle_fast(r.th + r.w * p.dts, p);
+  r.th = ssl_wrap_angle(r.th + r.w * p.dts, p.pi, p.two_pi);
   if (k == 0) sincosf(r.th, &r.s, &r.c);
   r.vx = u * r.c - sl * r.s;
   r.vy = u * r.s + sl * r.c;

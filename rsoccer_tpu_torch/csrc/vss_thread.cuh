@@ -4,6 +4,7 @@
 // vss_thread.cu launches the uncapped kernel and vss_thread_capped.cu the
 // capped one, so the two sets of instantiations build in parallel.
 #pragma once
+#include "cp_async.cuh"
 #include "vss_step.cuh"
 
 namespace {
@@ -25,21 +26,6 @@ template <int N>
 __device__ __forceinline__ int cold_row(int i) {
   return i == 0 ? 6 + 6 * N : 6 + 8 * N + i;
 }
-
-#ifdef __CUDA_ARCH__
-__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
-
-// one 4-byte asynchronous copy global -> shared (this thread's own slot)
-__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void copy_async4_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
-
-#else  // a host build of the kernels: the same values, copied at once
-__device__ __forceinline__ void copy_async4(float* dst, const float* src) { *dst = *src; }
-__device__ __forceinline__ void copy_async4_wait() {}
-#endif
 
 #define VSS_THREAD_PARAMS                                                                                    \
   const float *__restrict__ st, const float *__restrict__ act, const float *__restrict__ ou_in,              \

@@ -6,18 +6,22 @@ Replaces the TPU kernels ``rsoccer_tpu/ops/pallas_ssl_full.py:456``
 ``:1086`` (``make_pallas_dr_full_step``) and ``:1327``
 (``make_pallas_pe_full_step``), with their shared launch ``_build_call``
 (``:289``) and SSL world body ``make_ssl_physics_body`` (``:90``).  The
-kernels are ``csrc/ssl_full.cu``: action conversion -> 5 SSL substeps
-(omni drive, robot contacts, dribbler, vertical ball, ball-robot with the
-dribbler face, kick, infrared) -> the task's termination and reward -> on
-done envs only, the reset -> auto-reset select -> obs.  :func:`route`
+kernels are ``csrc/ssl_full.cu`` and, for SD's and DR's one-thread
+kernels, ``csrc/ssl_thread.cu`` (on the shared ``csrc/ssl_task.cuh``):
+action conversion -> 5 SSL substeps (omni drive, robot contacts, dribbler,
+vertical ball, ball-robot with the dribbler face, kick, infrared) -> the
+task's termination and reward -> on done envs only, the reset ->
+auto-reset select -> obs.  :func:`route`
 picks the design per launch, by batch: the StaticDefenders and Dribbling
 steps run one env on a group of 8 lanes, one robot per lane, on the
-cooperative world step ``csrc/ssl_world.cuh``, up to ``GROUP_MAX_ENVS``
-envs (``"group"``), and one env per thread above it (``"thread"``); the
+cooperative world step ``csrc/ssl_world.cuh``, up to their
+``GROUP_MAX_ENVS`` envs (``"group"``: SD 8448, DR 4096), and one env per
+thread above it (``"thread"``); the
 ContestedPossession and PassEndurance steps run one env per thread at
 every batch.  The one-thread kernels step the world with
 ``csrc/ssl_body.cuh`` (and ``pair_collide.cuh``); ``philox.cuh`` serves
-the in-kernel draws.
+the in-kernel draws.  The one-thread SD kernel spreads a warp's resets
+over its 32 lanes (8 per done env, up to 4 at once).
 
 State row layout (N robots), identical to the TPU kernels':
     0:6          ball x, y, z, v_x, v_y, v_z
@@ -77,12 +81,14 @@ from rsoccer_tpu_torch.physics.ssl import (
 
 N_SUBSTEPS = 5  # compiled into the kernels
 SD_ROBOTS, CP_ROBOTS, DR_ROBOTS, PE_ROBOTS = 7, 2, 5, 2  # compiled into the kernels
-# Up to this many envs the SD and DR steps launch their 8-lane group
-# kernels, above it their one-thread-per-env kernels: one wave of the group
-# kernels' 32-env blocks, two resident per SM on the H100's 132 SMs.  On the
-# card the group kernels win at 8192 envs and lose from 10240 on (PERF.md,
-# section 6).
-GROUP_MAX_ENVS = 8448
+# Up to this many envs (by C entry) the SD and DR steps launch their 8-lane
+# group kernels, above it their one-thread-per-env kernels: the crossovers
+# the H100 measured in turns on the main path's state (PERF.md, section 6).
+# SD's group kernel wins up to one wave of its 32-env blocks (two resident
+# per SM on the 132 SMs) and loses from 10240 envs on; DR's wins at 4096
+# envs (one block per SM) and loses from 6144 on, 8192 included.
+GROUP_MAX_ENVS = {"ssl_sd_full_step": 8448, "ssl_dr_full_step": 4096}
+THREAD_BLOCK = 128  # the one-thread SD and DR kernels' block (csrc/ssl_thread.cu: kThreadBlock)
 # the fused steps' C entries; the first two also have a group kernel
 GROUP_ENTRIES = ("ssl_sd_full_step", "ssl_dr_full_step")
 ENTRIES = GROUP_ENTRIES + ("ssl_cp_full_step", "ssl_pe_full_step")
@@ -362,7 +368,7 @@ def _library():
     fields = lib.ssl_params_fields().decode().rstrip(",").split(",")
     if fields != PARAM_FIELDS:
         raise RuntimeError(
-            f"csrc/ssl_full.cu SslParams {fields} != PARAM_FIELDS {PARAM_FIELDS}"
+            f"csrc/ssl_task.cuh SslParams {fields} != PARAM_FIELDS {PARAM_FIELDS}"
         )
     return lib
 
@@ -370,11 +376,11 @@ def _library():
 def route(entry: str, batch: int) -> str:
     """Which kernel the fused step of C entry ``entry`` (one of
     ``ENTRIES``) launches at ``batch`` envs: ``"group"`` (8 lanes per env;
-    SD and DR up to ``GROUP_MAX_ENVS``) or ``"thread"`` (one env per
+    SD and DR up to their ``GROUP_MAX_ENVS``) or ``"thread"`` (one env per
     thread; CP and PE at every batch)."""
     if entry not in ENTRIES:
         raise ValueError(f"no fused SSL step {entry!r}; one of {sorted(ENTRIES)}")
-    return "group" if entry in GROUP_ENTRIES and batch <= GROUP_MAX_ENVS else "thread"
+    return "group" if batch <= GROUP_MAX_ENVS.get(entry, 0) else "thread"
 
 
 def routed_entry(entry: str, batch: int) -> str:
@@ -458,8 +464,8 @@ def sd_full_step(env, state, action, ball_u=None, spawn_u=None, theta_u=None, *,
     drawn from ``key`` (int64 ``[k0, k1, step]``, advanced by one) for the
     envs from global index ``env_base`` on (a shard of a larger batch).
     Returns ``(state, obs, aux)``.  On the card it launches the 8-lane group
-    kernel up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel
-    above (:func:`route`): the crossover the H100 measured (PERF.md,
+    kernel up to its ``GROUP_MAX_ENVS`` (8448) envs and the one-thread
+    kernel above (:func:`route`): the crossover the H100 measured (PERF.md,
     section 6).
     """
     noise = (ball_u, spawn_u, theta_u)
@@ -495,8 +501,9 @@ def dr_full_step(env, state, action, *, key=None, emit_final: bool = False,
     given (the kernel-RNG mode), is advanced by one all the same, and
     ``env_base`` (a shard's first global env index) reaches no word.  Returns
     ``(state, obs, aux)``.  On the card it launches the 8-lane group kernel
-    up to ``GROUP_MAX_ENVS`` (8448) envs and the one-thread kernel above
-    (:func:`route`): the crossover the H100 measured (PERF.md, section 6)."""
+    up to its ``GROUP_MAX_ENVS`` (4096) envs and the one-thread kernel above
+    (:func:`route`), the main path's 8192 envs included: the crossover the
+    H100 measured on the main path's state (PERF.md, section 6)."""
     if _dispatch("dr_full_step", env, state, (), key):
         return _launch(dr_full_step, "ssl_dr_full_step", env, DR_ROBOTS, dr_state_size(), 3,
                        state, action, (), (), key, emit_final, env_base)

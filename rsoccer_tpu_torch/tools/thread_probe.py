@@ -1,29 +1,39 @@
-"""Probe the one-thread VSS kernels on the card: K1's ``vss_thread_kernel``
-and K2's ``vss_physics_thread_kernel``.
+"""Probe the one-thread kernels on the card: with ``--family vss`` (the
+default) K1's ``vss_thread_kernel`` and K2's ``vss_physics_thread_kernel``,
+with ``--family ssl`` K4's ``sd_thread_kernel`` and K6's
+``dr_thread_kernel`` (and, in ``sass``, K5's ``cp_full_kernel`` and K7's
+``pe_full_kernel``, which share their world step).
 
-    python -m rsoccer_tpu_torch.tools.thread_probe [--csrc DIR] [--ref DIR] [--out DIR] \\
-        [--parts sass,sweep,stamps,substeps,sincos,bits]
+    python -m rsoccer_tpu_torch.tools.thread_probe [--family vss|ssl] [--csrc DIR] [--ref DIR] \\
+        [--out DIR] [--parts sass,sweep,stamps,substeps,sincos,bits]
 
-Each part builds scratch copies of DIR's ``vss_full.cu`` and
-``vss_physics.cu`` (default: this tree's ``csrc``) under ``--out`` with
-the port's nvcc flags, and calls their one-thread C entries through ctypes
-on the state after 20 VSS-v0 steps:
+Each part builds scratch copies of DIR's family sources (default: this
+tree's ``csrc``; VSS ``vss_full.cu``, ``vss_thread*.cu``,
+``vss_physics.cu``; SSL ``ssl_full.cu`` and ``ssl_thread.cu``, those of
+them the tree has) under ``--out`` with the port's nvcc flags, and calls
+their one-thread C entries through ctypes on the state after 20 main-path
+steps (VSS-v0; SSLStaticDefenders-v0 and SSLDribbling-v0 under uniform
+random actions):
 
 - ``sass``: ``cuobjdump -sass`` of the unpatched build; per kernel the
   warp instructions of one thread (one env) by class, inside and outside
   the substep loop (the widest backward branch), and the issue floor at
-  131072 envs: (outside + 5 x inside) x warps / (132 SMs x 4 schedulers x
-  the SM clock), the clock from ``nvidia-smi`` (``clocks.max.sm``).  The
-  count is static: it includes the code of branches that a step may not
-  take (the reset, the other trig policy, the slow paths of a division).
+  32768 and 131072 envs: (outside + 5 x inside) x warps / (132 SMs x 4
+  schedulers x the SM clock), the clock from ``nvidia-smi``
+  (``clocks.max.sm``).  The count is static: it includes the code of
+  branches that a step may not take (the reset, the other trig policy,
+  the slow paths of a division, of fmodf and of the trig's range
+  reduction).
 - ``sweep``: the kernels rebuilt with ``__launch_bounds__(block, min
   blocks)`` for each pair of ``SWEEP``, each timed in turns against the
   unpatched build (unpatched, variant, variant, unpatched; CUDA events)
-  at 32768 and 131072 envs (1v0 at 8192), with its registers, spills and
-  resident warps per SM.
+  at the cases' batches (VSS 32768-131072, 1v0 also at 8192; SSL
+  10240-131072), with its registers, spills and resident warps per SM.
 - ``stamps``: a build with ``clock64()`` stamps at the phase boundaries
   (K1: load, draw, OU and wheels, substeps, outcome, final obs and reset,
-  store; K2: load and trig, substeps, store), summed over the warps by
+  store; K2: load and trig, substeps, store; K4 and K6: load, action and
+  trig, substeps, outcome, final obs and stores, reset; the K4 and K6
+  stamps fit ``ssl_thread.cu``'s layout only), summed over the warps by
   lane 0 of each, at 8192 and 131072 envs.  A stamp reads the clock after
   the values of the phase before were used (an add chain over the loaded
   values ends the load phase), but the compiler may still hoist a load
@@ -36,8 +46,10 @@ on the state after 20 VSS-v0 steps:
 - with ``--ref DIR`` (another tree's ``csrc``, e.g. the parent commit's):
   ``bits``, the one-thread entries (and the capped variants) bit for bit
   against DIR's (both RNG modes, both obs variants, ``env_base`` 0 and
-  4096, at the cases' batches and 8191), and always the turns DIR,
-  this, (capped, capped,) this, DIR.
+  4096, at the cases' batches and 8191; SSL at 8191, 8449, 16385, 32768
+  and 131072), and always the turns DIR, this, (capped, capped,) this,
+  DIR.  The SSL operands also report the share of 32-env warps that hold
+  a done env (``done_warp_share``).
 
 Device times come from ``tools/_trace.profile`` (CUDA events around a
 CUDA graph of the launches where the profiler saw none).
@@ -63,7 +75,7 @@ import torch
 SMS, SCHEDULERS = 132, 4
 SUBSTEPS = 5
 # (threads per block, min blocks per SM) of the sweep; 0: no minimum
-SWEEP = ((64, 0), (64, 6), (64, 8), (64, 10), (64, 12), (128, 5), (128, 6), (256, 2), (256, 3))
+SWEEP = ((64, 0), (64, 6), (64, 8), (64, 10), (64, 12), (128, 4), (128, 5), (128, 6), (256, 2), (256, 3))
 # (name, kernel, team kwargs, batches)
 CASES = (
     ("k1_3v3", "full", dict(), (32768, 65536, 131072)),
@@ -87,6 +99,18 @@ SASS_CLASSES = (  # opcode patterns, each with any modifiers
     ("shared", r"(LDS|STS|LDSM)(\..*)?"),
 )
 K1_KERNEL, K2_KERNEL = "vss_thread_kernel", "vss_physics_thread_kernel"
+# the SSL one-thread kernels (K4, K6), and the SSL kernels that share their
+# world step (K5, K7), whose SASS a change to ssl_body.cuh moves too
+K4_KERNEL, K6_KERNEL = "sd_thread_kernel", "dr_thread_kernel"
+SSL_SASS_KERNELS = (K4_KERNEL, K6_KERNEL, "cp_full_kernel", "pe_full_kernel")
+# (name, task, batches): K4 and K6 above their group crossover (8448 envs)
+SSL_CASES = (
+    ("k4_sd", "sd", (10240, 16384, 32768, 65536, 131072)),
+    ("k6_dr", "dr", (10240, 16384, 32768, 65536, 131072)),
+)
+SSL_BITS_BATCHES = (8191, 8449, 16385, 32768, 131072)
+SSL_ENV_IDS = {"sd": "SSLStaticDefenders-v0", "dr": "SSLDribbling-v0"}
+SSL_ENTRIES = {"sd": "ssl_sd_full_step_one_thread", "dr": "ssl_dr_full_step_one_thread"}
 
 
 # ---------------------------------------------------------------- SASS
@@ -155,9 +179,10 @@ def sass_profile(instrs, substeps: int = SUBSTEPS) -> dict:
 
 
 def kernel_label(mangled: str):
-    """``name<template args>`` of a one-thread VSS kernel's mangled name,
-    or None for another function."""
-    for name in (K1_KERNEL, K2_KERNEL):
+    """``name<template args>`` of a one-thread kernel's mangled name (VSS,
+    or an SSL kernel of ``SSL_SASS_KERNELS``), or None for another
+    function."""
+    for name in (K1_KERNEL, K2_KERNEL, *SSL_SASS_KERNELS):
         m = re.search(rf"\d+({name}(_capped|_bounded)?)I(.*?)EEv", mangled)
         if m:
             args = [a or ("true" if b == "1" else "false") for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", m.group(3) + "E")]
@@ -169,7 +194,8 @@ def label_of_demangled(name: str):
     """The :func:`kernel_label` of a kernel as the profiler names it
     (``void (anonymous namespace)::vss_thread_kernel_bounded<6, true, 8>(...``),
     or None."""
-    m = re.search(r"(vss_(?:physics_)?thread_kernel(?:_capped|_bounded)?)<([^>]*)>", name)
+    m = re.search(r"((?:vss_(?:physics_)?|sd_|dr_)thread_kernel(?:_capped|_bounded)?|(?:cp|pe)_full_kernel)<([^>]*)>",
+                  name)
     return f"{m.group(1)}<{m.group(2).replace(' ', '')}>" if m else None
 
 
@@ -257,12 +283,23 @@ def _patch(src: str, old: str, new: str, count: int = 1) -> str:
 
 def bounds_patch(block: int, min_blocks: int):
     """The (uncapped) one-thread kernels at ``block`` threads per block and
-    ``__launch_bounds__(block, min_blocks)`` (0: no minimum)."""
+    ``__launch_bounds__(block, min_blocks)`` (0: no minimum): VSS's one
+    kernel of a file, SSL's SD and DR kernels (whatever bound they had)."""
     def f(name, src):
+        bounds = f"__launch_bounds__(kThreadBlock, {min_blocks})" if min_blocks else "__launch_bounds__(kThreadBlock)"
+        if name.startswith("ssl_"):
+            src, n = re.subn(r"__launch_bounds__\(kThreadBlock(?:, \w+)?\)(?=\n    (?:sd|dr)_thread_kernel\()",
+                             bounds, src)
+            if n == 0:  # no SD or DR one-thread kernel in this file
+                return src
+            src, m = re.subn(r"constexpr int kThreadBlock = \d+;", f"constexpr int kThreadBlock = {block};", src)
+            if n != 2 or m != 1:
+                raise RuntimeError(f"probe patch: {n} launch bounds of the SD and DR one-thread kernels, "
+                                   f"{m} blocks in {name}")
+            return src
         if "kThreadBlock = 64;" not in src:  # no one-thread kernel in this file
             return src
         src = _patch(src, "kThreadBlock = 64;", f"kThreadBlock = {block};")
-        bounds = f"__launch_bounds__(kThreadBlock, {min_blocks})" if min_blocks else "__launch_bounds__(kThreadBlock)"
         src, n = re.subn(r"__launch_bounds__\(kThreadBlock\)(?=\n    vss_(physics_)?thread_kernel\()", bounds, src)
         if n != 1:
             raise RuntimeError(f"probe patch: {n} launch bounds of the one-thread kernel in {name}")
@@ -271,7 +308,10 @@ def bounds_patch(block: int, min_blocks: int):
 
 
 def substeps_patch(n: int):
-    return lambda name, src: src.replace("constexpr int kSubsteps = 5;", f"constexpr int kSubsteps = {n};")
+    """The world steps at ``n`` substeps instead of 5 (VSS's kSubsteps,
+    SSL's kSslSubsteps)."""
+    return lambda name, src: src.replace("constexpr int kSubsteps = 5;", f"constexpr int kSubsteps = {n};").replace(
+        "constexpr int kSslSubsteps = 5;", f"constexpr int kSslSubsteps = {n};")
 
 
 PROBE_HEAD = r"""
@@ -357,9 +397,59 @@ def k1_thread_file(src: str) -> bool:
     return "one thread per env" in src and LD_DEF in src
 
 
+# the phases the stamps split a K4 or K6 step into: the stores (of every env
+# but the done ones) precede the reset, which stores the done envs' rows
+SSL_PHASES = ("load", "action_trig", "substeps", "outcome", "final_obs_store", "reset")
+# (anchor in the kernel, text put before it): the phases between the comment
+# lines that open them
+SSL_STAMPS = (
+    ("  // ---- action and trig", """  {
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      _acc = probe_add(_acc, e.x[q]); _acc = probe_add(_acc, e.y[q]); _acc = probe_add(_acc, e.th[q]);
+      _acc = probe_add(_acc, e.vx[q]); _acc = probe_add(_acc, e.vy[q]); _acc = probe_add(_acc, e.w[q]);
+    }
+    _acc = probe_add(_acc, e.bl.x); _acc = probe_add(_acc, e.bl.vz);
+  }
+  _t[1] = probe_clock();
+"""),
+    ("  // ---- substeps", "  _acc = probe_add(_acc, c[N - 1]);\n  _t[2] = probe_clock();\n"),
+    ("  // ---- outcome", "  _acc = probe_add(_acc, e.bl.x);\n  _t[3] = probe_clock();\n"),
+    ("  // ---- final obs and outputs", "  _acc = probe_add(_acc, reward);\n  _t[4] = probe_clock();\n"),
+    ("  // ---- reset", "  _t[5] = probe_clock();\n"),
+)
+SSL_BODY_START = "\n  constexpr int N = "  # every SD and DR kernel body opens with it
+
+
+def ssl_stamps_patch(name, src):
+    """The stamps of K4's and K6's one-thread kernels (``SSL_PHASES``), in
+    the SSL source that holds them; counters ``g_probe``, read by
+    ``probe_read``.  Each kernel's text from its name to its closing brace
+    is patched on its own."""
+    kernels = [k for k in (K4_KERNEL, K6_KERNEL) if f"\n    {k}(" in src]
+    if not kernels:
+        return src
+    src = _patch(src, '#include "ssl_task.cuh"\n', '#include "ssl_task.cuh"\n' + PROBE_HEAD)
+    n = len(SSL_PHASES) + 1
+    for kernel in kernels:
+        start = src.index(f"\n    {kernel}(")
+        end = src.index("\n}\n", start) + 2
+        seg = src[start:end]
+        first = seg.index(SSL_BODY_START) + 1
+        seg = seg[:first] + f"  long long _t[{n}];\n  float _acc = 0.0f;\n  _t[0] = probe_clock();\n" + seg[first:]
+        for anchor, text in SSL_STAMPS:
+            seg = _patch(seg, anchor, text + anchor)
+        seg = seg[:-2] + f"\n  _t[{n - 1}] = probe_clock();\n  probe_flush(_t, _acc);\n}}"
+        src = src[:start] + seg + src[end:]
+    return src
+
+
 def stamps_patch(name, src):
     """The stamps build: K1's counters ``g_probe`` read by ``probe_read``,
-    K2's ``g_probe_phys`` by ``probe_read_phys``."""
+    K2's ``g_probe_phys`` by ``probe_read_phys``; K4's and K6's
+    (:func:`ssl_stamps_patch`) ``g_probe``."""
+    if name.startswith("ssl_"):
+        return ssl_stamps_patch(name, src)
     k1 = k1_thread_file(src)
     if not k1 and name != "vss_physics.cu":
         return src
@@ -417,19 +507,25 @@ extern "C" int sincos_check(unsigned long long* bad, unsigned* first) {
 # one-thread files since the redesign) and the headers its patches may change
 VSS_SOURCES = ("vss_full.cu", "vss_thread.cu", "vss_thread_capped.cu", "vss_physics.cu")
 VSS_HEADERS = ("vss_step.cuh", "vss_thread.cuh")
+# the SSL sources (the one-thread SD and DR kernels in ssl_full.cu before
+# their redesign, in ssl_thread.cu since) and the header of the substeps
+SSL_SOURCES = ("ssl_full.cu", "ssl_thread.cu")
+SSL_HEADERS = ("ssl_body.cuh",)
 
 
 def build_variant(csrc, work: Path, tag: str, patch=None, sources=VSS_SOURCES):
     """Copy ``csrc`` to ``work/tag``, apply ``patch(name, text)`` to each of
-    ``sources`` that it holds, nvcc them with the port's flags into
-    ``lib.so``.  Returns (ctypes library, ptxas parse, library path)."""
+    ``sources`` that it holds (and to their family's headers), nvcc them
+    with the port's flags into ``lib.so``.  Returns (ctypes library, ptxas
+    parse, library path)."""
     from rsoccer_tpu_torch.ops import _build
 
     d = work / tag
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(csrc, d)
     sources = [n for n in sources if (d / n).exists()]
-    for name in sources + [h for h in VSS_HEADERS if (d / h).exists()]:
+    headers = SSL_HEADERS if any(n.startswith("ssl_") for n in sources) else VSS_HEADERS
+    for name in sources + [h for h in headers if (d / h).exists()]:
         if patch is not None:
             (d / name).write_text(patch(name, (d / name).read_text()))
     nvcc = _build.nvcc_path()
@@ -447,6 +543,9 @@ def build_variant(csrc, work: Path, tag: str, patch=None, sources=VSS_SOURCES):
         for suffix in ("", "_capped") if hasattr(lib, "vss_full_step_one_thread_capped") else ("",):
             getattr(lib, "vss_full_step_one_thread" + suffix).argtypes = [i] * 5 + [p] * 10 + [i, i, p]
             getattr(lib, "vss_physics_step_one_thread" + suffix).argtypes = [p] * 6 + [i, i, p]
+    if hasattr(lib, SSL_ENTRIES["sd"]):
+        getattr(lib, SSL_ENTRIES["sd"]).argtypes = [i, i] + [p] * 10 + [i, i, p]
+        getattr(lib, SSL_ENTRIES["dr"]).argtypes = [i, i] + [p] * 6 + [i, p]
     return lib, ptxas_kernels("".join(logs)), d / "lib.so"
 
 
@@ -502,6 +601,59 @@ def operands(kind: str, batch: int, kw: dict):
     return call, lambda emit_final=0: o
 
 
+def ssl_operands(kind: str, batch: int, state=None):
+    """SSLStaticDefenders-v0 (``kind`` "sd") or SSLDribbling-v0 ("dr")
+    after 20 main-path steps at ``batch`` envs, uniform random actions;
+    or the (state, action) that ``state(kind, batch)`` returns.  Returns
+    ``call(lib, rng=1, emit_final=0, env_base=0, capped=False)`` (the launch
+    of ``lib``'s one-thread entry on these operands; DR takes no noise and
+    no env_base), ``outs(emit_final)`` and the share of 32-env warps that
+    hold a done env in this launch (:func:`warp_done_share`)."""
+    import rsoccer_tpu_torch as rt
+    from rsoccer_tpu_torch.batch import rollout as R
+    from rsoccer_tpu_torch.ops import ssl_full as sf
+    from rsoccer_tpu_torch.ops.philox import make_key
+
+    if state is None:
+        benv = rt.make_vec(SSL_ENV_IDS[kind], batch, device="cuda", fused=True, fused_rng="kernel")
+        env = benv.env
+        carry, _ = R.make_rollout_fn(benv, 20)(R.init_carry(benv, seed=0))
+        st = carry.state.contiguous()
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        act = torch.rand((env.action_size, batch), generator=gen, device="cuda") * 2 - 1
+    else:
+        env = rt.make(SSL_ENV_IDS[kind])
+        st, act = (t.contiguous() for t in state(kind, batch))
+    key = make_key(3, device="cuda")
+    draw = sf.sd_draw_step_rows if kind == "sd" else sf.dr_draw_step_rows
+    rows = {base: draw(env, key.clone(), batch, base) for base in (0, 4096)}
+    n_aux = 3 + (len(sf.SD_KEYS) if kind == "sd" else 0)
+    o = {ef: (torch.empty_like(st), torch.empty((env.obs_size * (1 + ef), batch), device="cuda"),
+              torch.empty((n_aux, batch), device="cuda")) for ef in (0, 1)}
+    params = sf._params_struct(env)
+
+    def call(lib, rng=1, emit_final=0, env_base=0, capped=False):
+        entry = getattr(lib, SSL_ENTRIES[kind])
+        outs = [t.data_ptr() for t in o[emit_final]]
+        head = (emit_final, rng, ctypes.byref(params), st.data_ptr(), act.data_ptr())
+        if kind == "dr":
+            return lambda: entry(*head, *outs, batch, torch.cuda.current_stream().cuda_stream)
+        noise = [None, None, None, key.data_ptr()] if rng else [t.data_ptr() for t in rows[env_base]] + [None]
+        return lambda: entry(*head, *noise, *outs, env_base, batch, torch.cuda.current_stream().cuda_stream)
+
+    aux = (sf.sd_full_step if kind == "sd" else sf.dr_full_step)(env, st, act, *rows[0])[2]
+    return call, lambda emit_final=0: o[emit_final], float(warp_done_share((aux[1] > 0.5) | (aux[2] > 0.5)))
+
+
+def warp_done_share(done):
+    """The share of 32-env warps (envs 32w to 32w + 31 of the last axis of
+    the bool mask ``done``) that hold a done env: in a one-thread kernel one
+    done env makes its whole warp wait for its reset.  A ragged tail is
+    padded with envs that are not done."""
+    pad = done.new_zeros((*done.shape[:-1], -done.shape[-1] % 32))
+    return torch.cat([done, pad], -1).unflatten(-1, (-1, 32)).any(-1).float().mean(-1)
+
+
 def time_us(fn, n: int = TIMED) -> float:
     """Device µs per launch of the one-thread kernels over ``n`` launches
     (``tools/_trace.profile``); where the profiler saw none of them, CUDA
@@ -536,13 +688,22 @@ def turns(base, var) -> dict:
 
 
 def label(name: str) -> str:
+    """The kernel label that a case name (``name[_rows]@batch``) launches."""
+    base = name.split("@")[0]
+    if base.startswith("k4_sd"):
+        return f"{K4_KERNEL}<false,{'false' if base.endswith('_rows') else 'true'}>"
+    if base.startswith("k6_dr"):
+        return f"{K6_KERNEL}<false>"
     n = {"k1_3v3": 6, "k1_5v5": 10, "k1_1v0": 1, "k1_2v2": 4, "k1_4v4": 8, "k2_n6": 6, "k2_n10": 10,
          "k2_n1": 1}[name.split("@")[0].removesuffix("_rows")]
     return f"{K1_KERNEL}<{n},true>" if name.startswith("k1") else f"{K2_KERNEL}<{n}>"
 
 
 def shown(lab: str) -> bool:
-    """The kernels a part prints: kernel RNG (K1), 1, 6 and 10 robots."""
+    """The kernels a part prints: kernel RNG (K1), 1, 6 and 10 robots; the
+    SSL kernels without ``emit_final``."""
+    if lab.startswith(SSL_SASS_KERNELS):
+        return lab.split("<")[1].startswith("false")
     return re.search(r"<(1|6|10)(,true)?[,>]", lab) is not None
 
 
@@ -590,22 +751,51 @@ def check_bits(base_lib, ref_lib) -> int:
     return n
 
 
+def check_ssl_bits(base_lib, ref_lib, batches=SSL_BITS_BATCHES, state=None) -> int:
+    """The base build's SD and DR one-thread entries against the reference
+    build's, every output bit for bit, in both RNG modes and both obs
+    variants (SD also at env_base 0 and 4096), at each of ``batches``, on
+    :func:`ssl_operands`' operands (``state``: the (state, action) to step
+    from).  Returns the number of comparisons; raises on a difference."""
+    n = 0
+    for kind in ("sd", "dr"):
+        for batch in batches:
+            call, outs, _ = ssl_operands(kind, batch, state)
+            bases = (0, 4096) if kind == "sd" else (0,)
+            for rng, ef, eb in [(rng, ef, eb) for rng in (0, 1) for ef in (0, 1) for eb in bases]:
+                got = []
+                for lib in (ref_lib, base_lib):
+                    for t in outs(ef):
+                        t.fill_(float("nan"))
+                    if call(lib, rng, ef, eb)():
+                        raise RuntimeError(f"{kind} launch failed")
+                    torch.cuda.synchronize()
+                    got.append(tuple(t.clone() for t in outs(ef)))
+                if not bit_equal(*got):
+                    raise AssertionError(f"{kind} at {batch} envs (rng={rng}, final={ef}, env_base={eb}): "
+                                         "outputs differ from the reference build's")
+                n += 1
+    return n
+
+
 # ---------------------------------------------------------------- parts
-def run(csrc, out: Path, parts, card: str, ref=None) -> dict:
+def run(csrc, out: Path, parts, card: str, ref=None, family: str = "vss") -> dict:
     import tempfile
 
     out.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="thread_probe_"))
-    res = {"card": card, "csrc": str(csrc), "ref": str(ref) if ref else None}
-    builds = {"base": (csrc, None)}
+    ssl = family == "ssl"
+    sources = SSL_SOURCES if ssl else VSS_SOURCES
+    res = {"card": card, "family": family, "csrc": str(csrc), "ref": str(ref) if ref else None}
+    builds = {"base": (csrc, None, sources)}
     if ref:
-        builds["ref"] = (ref, None)
+        builds["ref"] = (ref, None, sources)
     if "sweep" in parts:
-        builds.update({f"bounds_{b}_{m}": (csrc, bounds_patch(b, m)) for b, m in SWEEP})
+        builds.update({f"bounds_{b}_{m}": (csrc, bounds_patch(b, m), sources) for b, m in SWEEP})
     if "stamps" in parts:  # without the capped file, which would define the header's probe symbols again
-        builds["stamps"] = (csrc, stamps_patch, tuple(n for n in VSS_SOURCES if n != "vss_thread_capped.cu"))
+        builds["stamps"] = (csrc, stamps_patch, tuple(n for n in sources if n != "vss_thread_capped.cu"))
     if "substeps" in parts:
-        builds.update({f"substeps_{n}": (csrc, substeps_patch(n)) for n in (0, 10)})
+        builds.update({f"substeps_{n}": (csrc, substeps_patch(n), sources) for n in (0, 10)})
     if "sincos" in parts:
         sc = work / "sincos_src"
         sc.mkdir()
@@ -628,18 +818,29 @@ def run(csrc, out: Path, parts, card: str, ref=None) -> dict:
         for t, r in res["registers"].items()}}), flush=True)
 
     if "bits" in parts and "ref" in libs:
-        res["bits"] = check_bits(base_lib, libs["ref"][0])
+        res["bits"] = (check_ssl_bits if ssl else check_bits)(base_lib, libs["ref"][0])
         print(json.dumps({"part": "bits", "card": card, "comparisons": res["bits"], "bit_equal": True}), flush=True)
 
     calls = {}
-    for name, kind, kw, batches in CASES:
-        for batch in batches:
-            call = operands(kind, batch, kw)[0]
-            calls[f"{name}@{batch}"] = call
-            if kind == "full":  # and the input-rows variant
-                calls[f"{name}_rows@{batch}"] = lambda lib, capped=False, c=call: c(lib, 0, capped=capped)
+    if ssl:
+        res["done_warp_share"] = {}
+        for name, kind, batches in SSL_CASES:
+            for batch in batches:
+                call, _, share = ssl_operands(kind, batch)
+                calls[f"{name}@{batch}"] = call
+                res["done_warp_share"][f"{name}@{batch}"] = share
+                if kind == "sd":  # and the input-rows variant
+                    calls[f"{name}_rows@{batch}"] = lambda lib, capped=False, c=call: c(lib, 0)
+        print(json.dumps({"part": "done_warp_share", "card": card, **res["done_warp_share"]}), flush=True)
+    else:
+        for name, kind, kw, batches in CASES:
+            for batch in batches:
+                call = operands(kind, batch, kw)[0]
+                calls[f"{name}@{batch}"] = call
+                if kind == "full":  # and the input-rows variant
+                    calls[f"{name}_rows@{batch}"] = lambda lib, capped=False, c=call: c(lib, 0, capped=capped)
     if "sass" in parts:
-        time_us(calls["k1_3v3@131072"](base_lib))  # warm clocks before reading them
+        time_us(calls["k4_sd@131072" if ssl else "k1_3v3@131072"](base_lib))  # warm clocks before reading them
         clocks = sm_clocks()
         res["sass"] = {"clocks": clocks}
         for tag in ("base", "ref"):
@@ -647,11 +848,16 @@ def run(csrc, out: Path, parts, card: str, ref=None) -> dict:
                 continue
             prof = kernel_sass(libs[tag][2], dump=out if tag == "base" else None)
             keep = {k: v for k, v in prof.items() if shown(k)}
-            res["sass"][tag] = {"kernels": prof, "issue_floor_us_131072": {
-                k: issue_floor_us(v["per_env"], 131072, clocks["clocks_max_sm_mhz"]) for k, v in prof.items()}}
+            res["sass"][tag] = {"kernels": prof, **{f"issue_floor_us_{batch}": {
+                k: issue_floor_us(v["per_env"], batch, clocks["clocks_max_sm_mhz"]) for k, v in prof.items()}
+                for batch in (32768, 131072)}}
             print(json.dumps({"part": f"sass_{tag}", "card": card, "clocks": clocks,
                               "kernels": {k: {"inside": v["inside"], "outside": v["outside"],
-                                              "per_env": v["per_env"]} for k, v in keep.items()}}), flush=True)
+                                              "per_env": v["per_env"],
+                                              "issue_floor_us_32768_131072": [
+                                                  res["sass"][tag][f"issue_floor_us_{batch}"][k]
+                                                  for batch in (32768, 131072)]}
+                                          for k, v in keep.items()}}), flush=True)
     if "ref" in libs:  # the reference's one-thread kernel against this one's (and its capped variant)
         res["ref_turns"] = {}
         for name, call in calls.items():
@@ -686,20 +892,22 @@ def run(csrc, out: Path, parts, card: str, ref=None) -> dict:
     if "stamps" in parts and "stamps" in libs:
         lib = libs["stamps"][0]
         buf = (ctypes.c_ulonglong * 16)()
-        for f in (lib.probe_read, lib.probe_read_phys):
+        reads = (lib.probe_read,) if ssl else (lib.probe_read, lib.probe_read_phys)
+        for f in reads:
             f.argtypes = [ctypes.c_void_p]
             f(buf)
         res["stamps"] = {}
-        for name, kind, kw, _ in CASES:
+        cases = [(name, kind, None) for name, kind, _ in SSL_CASES] if ssl else [c[:3] for c in CASES]
+        for name, kind, kw in cases:
             for batch in STAMP_BATCHES:
-                call = operands(kind, batch, kw)[0](lib)
-                read = lib.probe_read if kind == "full" else lib.probe_read_phys
+                call = (ssl_operands(kind, batch) if ssl else operands(kind, batch, kw))[0](lib)
+                read = lib.probe_read if kind != "physics" else lib.probe_read_phys
                 call()
                 read(buf)  # reset after a warm-up launch
                 call()
                 read(buf)
                 warps = buf[15]
-                phases = K1_PHASES if kind == "full" else K2_PHASES
+                phases = SSL_PHASES if ssl else K1_PHASES if kind == "full" else K2_PHASES
                 cyc = {ph: buf[i] / warps for i, ph in enumerate(phases)}
                 res["stamps"][f"{name}@{batch}"] = {"warps": warps, "cycles_per_warp": cyc,
                                                     "total_cycles_per_warp": sum(cyc.values())}
@@ -727,6 +935,8 @@ def run(csrc, out: Path, parts, card: str, ref=None) -> dict:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--family", choices=("vss", "ssl"), default="vss",
+                   help="the VSS one-thread kernels (K1, K2) or the SSL ones (K4, K6)")
     p.add_argument("--csrc", default=str(Path(__file__).resolve().parent.parent / "csrc"))
     p.add_argument("--ref", default=None, help="another tree's csrc: bit for bit and in turns against it")
     p.add_argument("--out", default="chiprun_out/thread_probe")
@@ -736,7 +946,8 @@ def main(argv=None) -> dict:
         raise SystemExit("thread_probe needs an NVIDIA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    return run(Path(args.csrc), Path(args.out), set(args.parts.split(",")), card, args.ref and Path(args.ref))
+    return run(Path(args.csrc), Path(args.out), set(args.parts.split(",")), card, args.ref and Path(args.ref),
+               args.family)
 
 
 if __name__ == "__main__":

@@ -390,6 +390,9 @@ def test_ssl_group_kernel_matches_plain_ragged(cuda, env_id, batch, rng_mode, em
     part empty, through auto-resets that fall on different steps in one
     warp."""
     wrapper, plain, draw = SSL[env_id]
+    top = sf.GROUP_MAX_ENVS[ENTRY[env_id]]
+    if batch > top:  # DR's crossover lies below SD's: the same raggedness below it
+        batch -= max(sf.GROUP_MAX_ENVS.values()) - top
     wrapper.entry_launches.clear()
     env = rsoccer_tpu_torch.make(env_id)
     env.max_episode_steps = 3
@@ -405,20 +408,72 @@ def test_ssl_group_kernel_matches_plain_ragged(cuda, env_id, batch, rng_mode, em
 @pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
 @pytest.mark.parametrize("env_id", list(SSL))
 def test_ssl_one_thread_kernel_matches_plain(cuda, env_id, rng_mode, emit_final):
-    """Above GROUP_MAX_ENVS every SSL wrapper launches its one-thread
+    """Above GROUP_MAX_ENVS' crossovers every SSL wrapper launches its one-thread
     kernel (CP and PE at every batch): held to the plain versions there, at
     a batch that leaves a block part empty, through auto-resets."""
     wrapper, plain, draw = SSL[env_id]
     wrapper.entry_launches.clear()
     env = rsoccer_tpu_torch.make(env_id)
     env.max_episode_steps = 3
-    batch = sf.GROUP_MAX_ENVS + 1
+    batch = max(sf.GROUP_MAX_ENVS.values()) + 1
     key = make_key(5, device=cuda)
     st_k, _ = BatchedEnv(env, batch, device=cuda, fused=True).reset(key)
     dones = check_ssl_steps(env, wrapper, plain, draw, stagger(st_k, env.n_robots), key, rng_mode, emit_final,
                             torch.Generator(device=cuda).manual_seed(7))
     assert dones >= batch
     assert dict(wrapper.entry_launches) == {sf.routed_entry(ENTRY[env_id], batch): 5}
+
+
+def ssl_entry(entry, env, st, act, rows, key, emit_final):
+    """The outputs of the SSL C entry ``entry`` (SD's or DR's group or
+    one-thread entry) on these operands; the key is not advanced."""
+    b = st.shape[-1]
+    outs = (torch.full_like(st, float("nan")),
+            torch.full((env.obs_size * (2 if emit_final else 1), b), float("nan"), device=st.device),
+            torch.full((3 + (len(sf.SD_KEYS) if entry.startswith("ssl_sd") else 0), b), float("nan"),
+                       device=st.device))
+    rng = key is not None
+    noise, base = (), ()
+    if entry.startswith("ssl_sd"):  # DR draws nothing: no noise pointers, no env_base
+        noise = ((None,) * 3 if rng else tuple(r.data_ptr() for r in rows)) + (key.data_ptr() if rng else None,)
+        base = (0,)
+    err = getattr(sf._library(), entry)(
+        int(emit_final), int(rng), ctypes.byref(sf._params_struct(env)), st.data_ptr(), act.data_ptr(), *noise,
+        *(t.data_ptr() for t in outs), *base, b, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, entry
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("batch", [8191, 16385])
+@pytest.mark.parametrize("env_id", ["SSLStaticDefenders-v0", "SSLDribbling-v0"])
+@pytest.mark.parametrize("rng_mode", ["input", "kernel"])
+@pytest.mark.parametrize("emit_final", [False, True], ids=["obs", "final_obs"])
+def test_ssl_one_thread_kernel_bit_equal_to_group_kernel(cuda, env_id, batch, rng_mode, emit_final):
+    """SD's and DR's one-thread kernels give their group kernels' bits,
+    through auto-resets that fall on a few envs of a warp at a time (the
+    one-thread SD kernel spreads them over the warp), at batches that
+    leave the last block part empty."""
+    draw = SSL[env_id][2]
+    entry = ENTRY[env_id]
+    env = rsoccer_tpu_torch.make(env_id)
+    env.max_episode_steps = 3
+    key = make_key(6, device=cuda)
+    st, _ = BatchedEnv(env, batch, device=cuda, fused=True).reset(key)
+    st = stagger(st, env.n_robots)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    dones = 0
+    for t in range(5):
+        act = torch.rand((env.action_size, batch), generator=gen, device=cuda) * 2 - 1
+        rows = draw(env, key.clone(), batch)
+        k = key if rng_mode == "kernel" else None
+        group = ssl_entry(entry, env, st, act, rows, k, emit_final)
+        thread = ssl_entry(entry + "_one_thread", env, st, act, rows, k, emit_final)
+        assert bit_equal(thread, group), f"step {t}"
+        dones += int(group[2][1:3].sum())
+        key[2:].add_(1)
+        st = group[0]
+    assert dones >= batch
 
 
 @pytest.mark.parametrize("env_id", list(SSL))

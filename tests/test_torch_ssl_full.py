@@ -281,8 +281,9 @@ def test_pack_unpack_equal_jax(env_id):
 
 
 def test_kernel_param_struct_matches_cuda_source():
-    """ctypes mirror of SslParams == the X-list in csrc/ssl_full.cu."""
-    src = open(os.path.join(PORT, "csrc", "ssl_full.cu")).read()
+    """ctypes mirror of SslParams == the X-list in csrc/ssl_task.cuh (the
+    header that ssl_full.cu and ssl_thread.cu share)."""
+    src = open(os.path.join(PORT, "csrc", "ssl_task.cuh")).read()
     block = src[src.index("#define SSL_PARAMS(X)"): src.index("struct SslParams")]
     assert re.findall(r"X\((\w+)\)", block) == sf.PARAM_FIELDS
     for env_id in TASKS:
@@ -387,7 +388,7 @@ def test_route_at_the_crossover(entry, delta):
     """SD and DR run their 8-lane group kernels up to GROUP_MAX_ENVS and
     their one-thread kernels above it."""
     want = "group" if delta <= 0 else "thread"
-    assert sf.route(entry, sf.GROUP_MAX_ENVS + delta) == want
+    assert sf.route(entry, sf.GROUP_MAX_ENVS[entry] + delta) == want
 
 
 @pytest.mark.parametrize("batch", [1, 8191, 8192, 16384, 131072])
@@ -403,14 +404,17 @@ def test_route_runs_cp_and_pe_on_one_thread(entry, batch):
 def test_routed_entry_of_sd_and_dr(entry):
     """SD's and DR's group kernel is behind their C entry, their one-thread
     kernel behind ``_one_thread``."""
-    assert sf.routed_entry(entry, sf.GROUP_MAX_ENVS) == entry
-    assert sf.routed_entry(entry, sf.GROUP_MAX_ENVS + 1) == entry + "_one_thread"
+    assert sf.routed_entry(entry, sf.GROUP_MAX_ENVS[entry]) == entry
+    assert sf.routed_entry(entry, sf.GROUP_MAX_ENVS[entry] + 1) == entry + "_one_thread"
 
 
 def test_route_constants():
-    """The crossover the card measured (PERF.md, section 6); the four fused
-    steps' C entries route, and no other name does."""
-    assert sf.GROUP_MAX_ENVS == 8448
+    """The crossovers the card measured (PERF.md, section 6), SD's and
+    DR's own: the main path's 8192 envs run SD's group kernel and DR's
+    one-thread kernel; the four fused steps' C entries route, and no other
+    name does."""
+    assert sf.GROUP_MAX_ENVS == {"ssl_sd_full_step": 8448, "ssl_dr_full_step": 4096}
+    assert sf.route("ssl_sd_full_step", 8192) == "group" and sf.route("ssl_dr_full_step", 8192) == "thread"
     assert set(sf.ENTRIES) == {"ssl_sd_full_step", "ssl_cp_full_step", "ssl_dr_full_step",
                                "ssl_pe_full_step"}
     with pytest.raises(ValueError, match="no fused SSL step"):
