@@ -206,6 +206,7 @@ from rsoccer_tpu_torch.ops.bounds import (
     CP_OPS, DR_OPS, PE_OPS, SD_OPS, bound_ms, vss_full_ops, vss_physics_ops,
 )
 from rsoccer_tpu_torch.tools import _trace
+from rsoccer_tpu_torch.utils import tracing
 
 B = 8192
 RAGGED_B = 8191  # leaves the last 32-env block of the group kernels part empty
@@ -1443,7 +1444,7 @@ def main_path(task, tasks, card):
         carry, _ = rollout(carry)
     torch.cuda.synchronize()
     wrappers = list({id(t.wrapper): t.wrapper for t in tasks}.values())
-    zero_counts(wrappers)
+    tracing.clear_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     episodes = 0
@@ -1455,13 +1456,13 @@ def main_path(task, tasks, card):
     end.record()
     end.synchronize()
     host_s = time.perf_counter() - t_host
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: tracing.launches(w) for w in wrappers}
     roll_ms = start.elapsed_time(end)
     n_steps = timed * ROLLOUT_STEPS
     want = {w.__name__: (n_steps if w is task.wrapper else 0) for w in wrappers}
     if launches != want:
         raise AssertionError(f"{task.name} main path: launches {launches}, want {want}")
-    by_entry = dict(task.wrapper.entry_launches)  # the C entry the route names must take every launch
+    by_entry = tracing.entry_launches(task.wrapper)  # the C entry the route names must take every launch
     entry = routed_entry(task, B)
     if by_entry != {entry: n_steps}:
         raise AssertionError(f"{task.name} main path: launches by C entry {by_entry}, "
@@ -1584,24 +1585,15 @@ def goal_bands(ref, n: int) -> dict:
             "mean_goal_diff": two_sample_band(diff, p_b + p_y - (p_b - p_y) ** 2, n_ref, n)}
 
 
-def zero_counts(wrappers):
-    for w in wrappers:
-        w.launches = 0
-        if hasattr(w, "entry_launches"):
-            w.entry_launches.clear()
-        if hasattr(w, "final_launches"):
-            w.final_launches = 0
-
-
 def check_launches(tag, wrappers, wrapper, entry, n, final=None):
-    """After a run that began with ``zero_counts(wrappers)``: ``wrapper``
+    """After a run that began with ``tracing.clear_launches()``: ``wrapper``
     launched ``n`` times, all through the C entry ``entry`` (and ``final``
     of them its ``emit_final`` variant, where given), every other wrapper
     never.  Returns the launch counts."""
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: tracing.launches(w) for w in wrappers}
     want = {w.__name__: (n if w is wrapper else 0) for w in wrappers}
-    by_entry = dict(wrapper.entry_launches)
-    finals = getattr(wrapper, "final_launches", None)
+    by_entry = tracing.entry_launches(wrapper)
+    finals = tracing.launches(wrapper, final=True)
     if launches != want or by_entry != {entry: n} or (final is not None and finals != final):
         raise AssertionError(f"{tag}: launches {launches} by entry {by_entry}, emit_final {finals}; "
                              f"want {want}, all through {entry}, emit_final {final}")
@@ -1633,7 +1625,7 @@ def ppo_train(card, wrappers):
     state = trainer.init(0)
     p0 = [p.detach().clone() for p in state.net.parameters()]
     torch.cuda.synchronize()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     rows = []
     t_prev = time.perf_counter()
     for i in range(PPO_UPDATES):
@@ -1658,7 +1650,7 @@ def ppo_train(card, wrappers):
     out = {
         "B": B, "config": {**PPO_CONFIG, "hidden": list(cfg.hidden)}, "updates": PPO_UPDATES,
         "launches": launches["vss_full_step"], "entry": entry,
-        "final_launches": vf.vss_full_step.final_launches,
+        "final_launches": tracing.launches(vf.vss_full_step, final=True),
         "env_steps_per_s": cfg.rollout_steps * B / (mean["wall_ms"] / 1e3),
         "collect_ms_per_update": mean["collect_ms"], "update_ms_per_update": mean["update_ms"],
         "collect_ms_per_step": mean["collect_ms"] / cfg.rollout_steps,
@@ -1764,7 +1756,7 @@ def ppo_checkpoint(card, wrappers):
 
     net, obs_norm = convert.load_ppo_checkpoint(os.path.join(ARTIFACTS, "vss_ppo.ckpt.npz"), device="cuda")
     benv = rt.make_vec("VSS-v0", 1024, device="cuda", fused=True, fused_rng="kernel")
-    zero_counts(wrappers)
+    tracing.clear_launches()
     t0 = time.perf_counter()
     out = anchor_eval(benv, make_policy(net, obs_norm, deterministic=True), 4800, seed=123)
     secs = time.perf_counter() - t0
@@ -1795,7 +1787,7 @@ def ppo_ssl_checkpoints(card, wrappers, ssl_tasks):
     misses = {}
     for name, (env_id, p_ref, n_ref, floor) in SSL_PPO_REFS.items():
         net, obs_norm = convert.load_ppo_checkpoint(os.path.join(ARTIFACTS, f"{name}.ckpt.npz"), device="cuda")
-        zero_counts(wrappers)
+        tracing.clear_launches()
         t0 = time.perf_counter()
         out = evaluate_policy(env_id, make_policy(net, obs_norm, deterministic=True), device="cuda",
                               fused=True)
@@ -1808,7 +1800,7 @@ def ppo_ssl_checkpoints(card, wrappers, ssl_tasks):
             lo = min(lo, floor)
         inside = lo <= out["success_rate"] <= hi
         course = dr_course_gate(name, out["mean_episode_length"]) if name in DR_COURSE_JAX else {}
-        launches = {task.wrapper.__name__: dict(task.wrapper.entry_launches)}
+        launches = {task.wrapper.__name__: tracing.entry_launches(task.wrapper)}
         phase("ppo_ssl_checkpoint", card=card, checkpoint=f"artifacts/{name}.ckpt.npz", **out,
               reference={"success_rate": p_ref, "episodes": n_ref}, band_3sigma=[lo, hi], floor=floor,
               inside=inside, **course, launches=launches, seconds=secs)
@@ -1858,7 +1850,7 @@ def sac_train(card, wrappers):
     state = trainer.init(0)
     p0 = [p.detach().clone() for m in (state.actor, state.qs) for p in m.parameters()]
     torch.cuda.synchronize()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     samples = []
     t0 = time.perf_counter()
     for i in range(SAC_ITERS):
@@ -1884,7 +1876,7 @@ def sac_train(card, wrappers):
     iters_per_s = (SAC_ITERS - SAC_STEADY_FROM) / steady_s
     out = {
         "B": SAC_ENVS, "config": {**SAC_CONFIG, "hidden": list(SAC_CONFIG["hidden"])}, "iters": SAC_ITERS,
-        "launches": launches["sd_full_step"], "entry": entry, "final_launches": sf.sd_full_step.final_launches,
+        "launches": launches["sd_full_step"], "entry": entry, "final_launches": tracing.launches(sf.sd_full_step, final=True),
         "iters_per_s": iters_per_s, "env_steps_per_s": iters_per_s * SAC_ENVS,
         "wall_ms_per_iter": 1e3 / iters_per_s,
         "collect_ms_per_iter": sum(r["collect_ms"] for r in steady) / len(steady),
@@ -2008,7 +2000,7 @@ def sac_checkpoint(card, wrappers, ssl_tasks):
     misses = {}
     for name, (env_id, p_ref, n_ref, n_steps) in SAC_REFS.items():
         actor = convert.load_sac_checkpoint(os.path.join(ARTIFACTS, f"{name}.ckpt.npz"), device="cuda")
-        zero_counts(wrappers)
+        tracing.clear_launches()
         t0 = time.perf_counter()
         out = evaluate_policy(env_id, make_policy(actor), n_envs=SAC_EVAL_ENVS, n_steps=n_steps, device="cuda",
                               fused=True)
@@ -2020,7 +2012,7 @@ def sac_checkpoint(card, wrappers, ssl_tasks):
         inside = lo <= out["success_rate"] <= hi
         phase("sac_checkpoint", card=card, checkpoint=f"artifacts/{name}.ckpt.npz", **out,
               reference={"success_rate": p_ref, "episodes": n_ref}, band_3sigma=[lo, hi], inside=inside,
-              launches={task.wrapper.__name__: dict(task.wrapper.entry_launches)}, seconds=secs)
+              launches={task.wrapper.__name__: tracing.entry_launches(task.wrapper)}, seconds=secs)
         if not inside:
             misses[name] = (out["success_rate"], [lo, hi])
     if misses:
@@ -2120,7 +2112,7 @@ def expert_score(card, wrappers, ssl_tasks):
                 run["gk"] += (done & (info["rbt_in_gk_area"] > 0.5)).sum()
             run["ep_ret"], run["ep_len"] = torch.where(done, 0.0, ep_ret), torch.where(done, 0.0, ep_len)
 
-        zero_counts(wrappers)
+        tracing.clear_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -2174,7 +2166,7 @@ def bc_train(card, wrappers, ssl_tasks):
 
     k7 = next(t for t in ssl_tasks if t.env_id == "SSLPassEndurance-v0")
     args = bc.build_parser().parse_args(BC_ARGS)
-    zero_counts(wrappers)
+    tracing.clear_launches()
     t0 = time.perf_counter()
     out = bc.run(args)
     secs = time.perf_counter() - t0
@@ -2184,7 +2176,7 @@ def bc_train(card, wrappers, ssl_tasks):
     ev = out["eval"]
     path = args.save + ".npz"
     net, obs_norm = convert.load_ppo_checkpoint(path, device="cuda")
-    zero_counts(wrappers)
+    tracing.clear_launches()
     again = evaluate_policy(args.env_id, make_policy(net, obs_norm, deterministic=True), n_envs=256,
                             n_steps=n_eval, seed=9, device="cuda", fused=True)
     check_launches("bc_train reload", wrappers, k7.wrapper, entry, n_eval, final=0)
@@ -2240,7 +2232,7 @@ def bc_checkpoints(card, wrappers, ssl_tasks):
             policy = sac.make_policy(convert.load_sac_checkpoint(path, device="cuda"))
         else:
             policy = ppo.make_policy(*convert.load_ppo_checkpoint(path, device="cuda"), deterministic=True)
-        zero_counts(wrappers)
+        tracing.clear_launches()
         t0 = time.perf_counter()
         out = evaluate_policy(env_id, policy, n_envs=BC_CKPT_ENVS, n_steps=n_steps, device="cuda", fused=True)
         secs = time.perf_counter() - t0
@@ -2328,7 +2320,7 @@ def selfplay_train(card, wrappers, k2, err):
     from rsoccer_tpu_torch.ops import vss_physics as vp
 
     args = spx.build_parser().parse_args(SELFPLAY_ARGS)
-    zero_counts(wrappers)
+    tracing.clear_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = spx.run(args, on_swap=lambda rec: phase("selfplay_swap", card=card, **rec))
@@ -2401,7 +2393,7 @@ def selfplay_checkpoint(card, wrappers, k2, err):
     for name, ref in LEAGUE_REFS.items():
         net, obs_norm = convert.load_ppo_checkpoint(os.path.join(ARTIFACTS, f"{name}.ckpt.npz"), device="cuda")
         benv = rt.make_vec(MA_ID, LEAGUE_ENVS, device="cuda", fused_physics=True)
-        zero_counts(wrappers)
+        tracing.clear_launches()
         t0 = time.perf_counter()
         out = anchor_eval(benv, make_policy(net, obs_norm, deterministic=True), LEAGUE_STEPS, seed=123)
         secs = time.perf_counter() - t0
@@ -2504,7 +2496,7 @@ def gym_vector(card, wrappers, task):
     fused.env.max_episode_steps = plain.env.max_episode_steps = GYM_GATE_LIMIT
     rng = np.random.default_rng(11)
     acts = [rng.uniform(-1, 1, (B, fused.env.action_size)).astype(np.float32) for _ in range(8)]
-    zero_counts(wrappers)
+    tracing.clear_launches()
     err = float(np.abs(fused.reset(seed=5)[0] - plain.reset(seed=5)[0]).max())
     reset_seen = np.zeros(B, bool)
     for t in range(GYM_GATE_STEPS):
@@ -2520,7 +2512,7 @@ def gym_vector(card, wrappers, task):
     env.reset(seed=1)
     for t in range(GYM_WARM_STEPS):
         env.step(acts[t % len(acts)])
-    zero_counts(wrappers)
+    tracing.clear_launches()
     dones = 0
     t0 = time.perf_counter()
     for t in range(GYM_TIMED_STEPS):
@@ -2583,14 +2575,14 @@ def gym_single_vss(card, wrappers):
     if not err <= ATOL:
         raise AssertionError(f"gym_single_vss: card vs CPU beyond {ATOL}: {err}")
     card_env.reset(seed=5)
-    zero_counts(wrappers)
+    tracing.clear_launches()
     t0 = time.perf_counter()
     for t in range(GYM_SINGLE_STEPS):
         obs, reward, term, trunc, info = card_env.step(acts[t])
         if term or trunc:
             card_env.reset()
     ms = (time.perf_counter() - t0) * 1e3 / GYM_SINGLE_STEPS
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: tracing.launches(w) for w in wrappers}
     if any(launches.values()) or not np.isfinite(obs).all():
         raise AssertionError(f"gym_single_vss: launches {launches}, obs finite {np.isfinite(obs).all()}")
     phase("gym_single_vss", card=card, check_steps=GYM_SINGLE_CHECK_STEPS, max_abs_err=err, atol=ATOL,
@@ -2634,11 +2626,11 @@ def custom_env(card, wrappers):
     from rsoccer_tpu_torch.examples import custom_env as ce
 
     want = ce.touch_steps(16, device="cpu", max_steps=CUSTOM_ENV_STEPS).unique().tolist()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     t0 = time.perf_counter()
     got = ce.touch_steps(B, max_steps=CUSTOM_ENV_STEPS).cpu()
     secs = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: tracing.launches(w) for w in wrappers}
     touched = got.unique().tolist()
     phase("custom_env", card=card, B=B, steps=CUSTOM_ENV_STEPS, touch_step=touched, touch_step_cpu=want,
           host_ms_per_step=secs * 1e3 / CUSTOM_ENV_STEPS, launches=launches)
@@ -2724,7 +2716,7 @@ def par_rollout_side(mesh, wrappers) -> dict:
     roll, init = make_sharded_rollout(benv, mesh, PAR_STEPS)
     carry = init(0)
     torch.cuda.synchronize()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     carry, ms = roll(carry)
     torch.cuda.synchronize()
     lbenv = local_benv(benv, mesh)
@@ -2807,7 +2799,7 @@ def par_sac_side(mesh, wrappers, k4) -> dict:
     local, init, step = make_sharded_sac(benv, SACConfig(**SAC_CONFIG), mesh)
     state = init(0)
     torch.cuda.synchronize()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     t0 = time.perf_counter()
     for i in range(PAR_SAC_ITERS):
         state, m = step(state, 0, i)
@@ -3042,17 +3034,17 @@ SPAWN_PUBLISHED = {"<0.3": (78, 0.654), "0.3-0.6": (328, 0.784), "0.6-1.0": (593
 
 
 def check_counts(tag, wrappers, want: dict):
-    """After a run that began with ``zero_counts(wrappers)``: each wrapper
+    """After a run that began with ``tracing.clear_launches()``: each wrapper
     named in ``want`` (its ``__name__`` -> (C entry, launches, emit_final
     launches)) launched that often, all through that entry; every other
     wrapper never.  Returns the launch counts."""
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = {w.__name__: tracing.launches(w) for w in wrappers}
     for w in wrappers:
         entry, n, final = want.get(w.__name__, (None, 0, 0))
-        by_entry = dict(w.entry_launches)
-        finals = getattr(w, "final_launches", 0)
-        if w.launches != n or by_entry != ({entry: n} if n else {}) or finals != final:
-            raise AssertionError(f"{tag}: {w.__name__} launched {w.launches} by entry {by_entry}, "
+        by_entry = tracing.entry_launches(w)
+        finals = tracing.launches(w, final=True)
+        if launches[w.__name__] != n or by_entry != ({entry: n} if n else {}) or finals != final:
+            raise AssertionError(f"{tag}: {w.__name__} launched {launches[w.__name__]} by entry {by_entry}, "
                                  f"emit_final {finals}; want {n} through {entry}, emit_final {final}")
     return launches
 
@@ -3073,12 +3065,12 @@ def tool_bench_all(card, wrappers, tasks):
     per_point = (2 + BENCH_TIMED) * BENCH_STEPS
     args = ["--envs", str(B), "--steps", str(BENCH_STEPS), "--iters", str(BENCH_TIMED), "--min-seconds", "0"]
     t0 = time.perf_counter()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     rows = bench_all.main(["--ids", ",".join(BENCH_IDS), "--modes", "0,full,full-krng", *args,
                            "--out", os.path.join(TOOL_DIR, "bench_all.json")])
     want = {task_of[i].wrapper.__name__: (routed_entry(task_of[i], B), 2 * per_point, 0) for i in BENCH_IDS}
     launches = check_counts("tool_bench_all", wrappers, want)
-    zero_counts(wrappers)
+    tracing.clear_launches()
     rows += bench_all.main(["--ids", "VSS-v0", "--modes", "1", *args,
                             "--out", os.path.join(TOOL_DIR, "bench_all_mode1.json")])
     check_counts("tool_bench_all mode 1", wrappers, {"vss_physics": ("vss_physics_step", per_point, 0)})
@@ -3102,7 +3094,7 @@ def tool_profiles(card, wrappers, k1, k4):
     from rsoccer_tpu_torch.tools import profile_ppo, profile_sac, profile_step
 
     t0 = time.perf_counter()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     out = profile_step.main(["--env-id", "VSS-v0", "--envs", str(B), "--steps", str(PROFILE_STEP_STEPS),
                              "--mode", "full-krng", "--out", os.path.join(TOOL_DIR, "profile_step")])
     check_launches("tool_profile_step", wrappers, vf.vss_full_step, "vss_full_step",
@@ -3115,7 +3107,7 @@ def tool_profiles(card, wrappers, k1, k4):
           top=out["top"][:6], trace=out["trace"], seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     out = profile_ppo.main(["--envs", str(PROFILE_PPO_ENVS), "--fused", "--fused-rng", "kernel",
                             "--iters", str(PROFILE_PPO_ITERS), "--out", os.path.join(TOOL_DIR, "profile_ppo")])
     n = (2 + PROFILE_PPO_ITERS + out["trace"]["calls_run"]) * 128  # warm-up, timed, profiled updates
@@ -3131,7 +3123,7 @@ def tool_profiles(card, wrappers, k1, k4):
           top=out["trace"]["top"][:6], seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     out = profile_sac.main(["--envs", str(SAC_ENVS), "--fused", "--fused-rng", "kernel", "--chain",
                             str(PROFILE_SAC_CHAIN), "--iters", "1", "--out", os.path.join(TOOL_DIR, "profile_sac")])
     n = (2 + 1 + out["trace"]["calls_run"]) * PROFILE_SAC_CHAIN
@@ -3161,7 +3153,7 @@ def tool_rooflines(card, wrappers):
     for learner, (extra, b, steps) in runs.items():
         t0 = time.perf_counter()
         chain = ROOFLINE_CHAIN[learner]
-        zero_counts(wrappers)
+        tracing.clear_launches()
         out = roofline.main(["--learner", learner, *extra, "--chain", str(chain), "--fused", "--fused-rng",
                              "kernel", "--out", os.path.join(TOOL_DIR, f"roofline_{learner}"),
                              "--json", os.path.join(TOOL_DIR, f"roofline_{learner}.json")])
@@ -3193,7 +3185,7 @@ def tool_sd_spawn_slice(card, wrappers):
     from rsoccer_tpu_torch.tools import sd_spawn_slice
 
     t0 = time.perf_counter()
-    zero_counts(wrappers)
+    tracing.clear_launches()
     out = sd_spawn_slice.main(["--params", os.path.join(ARTIFACTS, "sd_ppo3.ckpt"), "--envs", str(SPAWN_ENVS),
                                "--steps", str(SPAWN_STEPS), "--fused"])
     check_launches("tool_sd_spawn_slice", wrappers, sf.sd_full_step,
@@ -3441,7 +3433,7 @@ def native_oracle(card, wrappers):
         def commands():
             return VSSCommands(*(torch.rand((2, n, ORACLE_B), generator=gen, device=device) * 100.0 - 50.0))
 
-        zero_counts(wrappers)
+        tracing.clear_launches()
         worst, oracle_s = walk(lambda w, c: vp.world_step(env, w, c),
                                lambda w, c: native.batched_vss_oracle(w, c, f, env.physics_cfg, env.time_step),
                                world, commands, f"native_oracle_vss_physics_{cname}")

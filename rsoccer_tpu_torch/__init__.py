@@ -35,13 +35,16 @@ __version__ = "0.1.0"
 def make_vec(env_id: str, n_envs: int, device="cuda", fused: bool = False,
              fused_rng: str = "input", fused_physics: bool = False, **kwargs):
     """Create a :class:`~rsoccer_tpu_torch.batch.vecenv.BatchedEnv`
-    directly; ``kwargs`` go to the env constructor."""
+    directly; ``kwargs`` go to the env constructor.  The set-up phase
+    ``rsoccer.setup.make_vec`` (``utils/tracing``)."""
     from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+    from rsoccer_tpu_torch.utils import tracing
 
-    return BatchedEnv(
-        make(env_id, **kwargs), n_envs, device=device, fused=fused,
-        fused_rng=fused_rng, fused_physics=fused_physics,
-    )
+    with tracing.phase(tracing.SETUP_MAKE_VEC):
+        return BatchedEnv(
+            make(env_id, **kwargs), n_envs, device=device, fused=fused,
+            fused_rng=fused_rng, fused_physics=fused_physics,
+        )
 
 
 __all__ = ["make", "make_vec", "registered_ids", "__version__"]

@@ -19,6 +19,7 @@ import torch
 from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 from rsoccer_tpu_torch.core.state import tree_map
 from rsoccer_tpu_torch.ops.philox import make_key
+from rsoccer_tpu_torch.utils import tracing
 
 
 class RolloutCarry(NamedTuple):
@@ -77,7 +78,8 @@ def make_step_fn(benv: BatchedEnv, policy: Callable, metrics_fn: Callable):
     """
 
     def one_step(carry: RolloutCarry):
-        actions = policy(carry.pol_gen, carry.obs)
+        with tracing.span(tracing.POLICY):
+            actions = policy(carry.pol_gen, carry.obs)
         state, obs, reward, term, trunc, info = benv.step(
             carry.state, actions, carry.key
         )
@@ -107,6 +109,8 @@ def rollout_metrics(reward, done, ep_ret, ep_len, info) -> RolloutMetrics:
 def make_rollout_fn(benv: BatchedEnv, n_steps: int, policy: Callable | None = None):
     """Build ``rollout(carry) -> (carry, metrics)`` running ``n_steps``
     batched steps; the metrics are device scalars summed over the steps.
+    Each step, its metrics' sum included, is a ``rsoccer.rollout.step``
+    span and its policy call a ``rsoccer.policy`` span (``utils/tracing``).
 
     ``policy(gen, obs) -> actions`` sees obs ``(obs_size, B)`` and returns
     ``(action_size, B)``.
@@ -118,10 +122,12 @@ def make_rollout_fn(benv: BatchedEnv, n_steps: int, policy: Callable | None = No
     one_step = make_step_fn(benv, policy, rollout_metrics)
 
     def rollout(carry: RolloutCarry):
-        carry, total = one_step(carry)
+        with tracing.span(tracing.ROLLOUT_STEP):
+            carry, total = one_step(carry)
         for _ in range(n_steps - 1):
-            carry, m = one_step(carry)
-            total = tree_map(torch.add, total, m)
+            with tracing.span(tracing.ROLLOUT_STEP):
+                carry, m = one_step(carry)
+                total = tree_map(torch.add, total, m)
         return carry, total
 
     return rollout

@@ -43,6 +43,7 @@ from rsoccer_tpu_torch.envs.ssl_pass_endurance import SSLPassEnduranceEnv
 from rsoccer_tpu_torch.envs.ssl_static_defenders import SSLStaticDefendersEnv
 from rsoccer_tpu_torch.envs.vss import VSSEnv
 from rsoccer_tpu_torch.ops import ssl_full, vss_full, vss_physics
+from rsoccer_tpu_torch.utils import tracing
 
 
 class FusedOps(NamedTuple):
@@ -109,7 +110,7 @@ class BatchedEnv:
         if fused and type(env) not in _FUSED:
             raise NotImplementedError(
                 f"fused=True is ported for {', '.join(t.__name__ for t in _FUSED)} "
-                f"(exact types), not {type(env).__name__}: ROADMAP.md, module queue"
+                f"(exact types), not {type(env).__name__}: ROADMAP.md, item 6.3"
             )
         if fused and _training_extensions(env):
             raise ValueError(
@@ -136,7 +137,8 @@ class BatchedEnv:
         return self._ops.unpack(state, self.env)
 
     def reset(self, key):
-        """One key for the whole batch, on ``device``; returns (state, obs)."""
+        """One key for the whole batch, on ``device``; returns (state, obs).
+        The set-up phase ``rsoccer.setup.reset`` (``utils/tracing``)."""
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "BatchedEnv is on 'cuda' (the default) but no CUDA device is "
@@ -144,7 +146,8 @@ class BatchedEnv:
             )
         if key.device.type != self.device.type:
             raise ValueError(f"key is on {key.device}, the envs on {self.device}")
-        return self.reset_with_noise(draw_noise(key, self._r_spec, self.n_envs, self.env_base))
+        with tracing.phase(tracing.SETUP_RESET):
+            return self.reset_with_noise(draw_noise(key, self._r_spec, self.n_envs, self.env_base))
 
     def reset_with_noise(self, noise):
         """:meth:`reset` from an explicit reset-noise dict (batch-last
@@ -176,20 +179,23 @@ class BatchedEnv:
         return st, obs, reward, term, trunc, info
 
     def _step(self, state, actions, key, final: bool):
-        if self.fused and self.fused_rng == "kernel":
-            st, obs, aux = self._ops.step(
-                self.env, state, actions, key=key, emit_final=final, env_base=self.env_base
-            )
-            return self._fused_out(st, obs, aux, final)
-        return self._step_with_noise(state, actions, *self._draw(key), final)
+        with tracing.span(tracing.ENV_STEP):
+            if self.fused and self.fused_rng == "kernel":
+                with tracing.span(tracing.ENV_KERNEL):
+                    st, obs, aux = self._ops.step(
+                        self.env, state, actions, key=key, emit_final=final, env_base=self.env_base
+                    )
+                return self._fused_out(st, obs, aux, final)
+            return self._step_with_noise(state, actions, *self._draw(key), final)
 
     def _step_with_noise(self, state, actions, t_noise, r_noise, final: bool):
         if self.fused:
-            st, obs, aux = self._ops.step(
-                self.env, state, actions,
-                *self._ops.rows(self.env, t_noise, r_noise),
-                emit_final=final,
-            )
+            with tracing.span(tracing.ENV_KERNEL):
+                st, obs, aux = self._ops.step(
+                    self.env, state, actions,
+                    *self._ops.rows(self.env, t_noise, r_noise),
+                    emit_final=final,
+                )
             return self._fused_out(st, obs, aux, final)
         if self.fused_physics:
             return self._physics_step(state, actions, t_noise, r_noise, final)

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from rsoccer_tpu_torch.utils import tracing
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -143,9 +145,18 @@ def check_env_base(env_base: int, batch: int):
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every C entry's
-    ``argtypes``/``restype`` declared."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
+    ``argtypes``/``restype`` declared: the set-up phase
+    ``rsoccer.setup.library`` (``utils/tracing``), which counts the builds
+    (0 where the library was there) and nvcc's seconds."""
+    with tracing.phase(tracing.SETUP_LIBRARY):
+        path, _, seconds = build()
+        tracing.add(tracing.SETUP_LIBRARY, "builds", int(seconds > 0))
+        tracing.add(tracing.SETUP_LIBRARY, "build_s", seconds)
+        return _declare(ctypes.CDLL(str(path)))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Every C entry's ``argtypes``/``restype`` on ``lib``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vss_params_fields.argtypes = []
     lib.vss_params_fields.restype = ctypes.c_char_p

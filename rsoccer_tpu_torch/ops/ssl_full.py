@@ -46,14 +46,13 @@ an argument of the C entries that draw), and advances ``key[2]`` by one
 
 The ``*_full_step`` wrappers run the plain versions ``*_full_step_plain``
 only for tensors on the CPU; for CUDA tensors they launch the kernel or
-raise.  Each counts its launches in ``.launches``, by C entry
-(:func:`routed_entry`) in ``.entry_launches``, and those of the
-``emit_final`` variant in ``.final_launches``.
+raise.  Each counts its launches in ``utils/tracing``'s table under its
+own name, by C entry (:func:`routed_entry`) and by whether the
+``emit_final`` variant ran.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -78,6 +77,7 @@ from rsoccer_tpu_torch.physics.config import SSL_PHYSICS
 from rsoccer_tpu_torch.physics.ssl import (
     achieved_wheel_speeds, make_face_zone, wheel_jacobian,
 )
+from rsoccer_tpu_torch.utils import tracing
 
 N_SUBSTEPS = 5  # compiled into the kernels
 SD_ROBOTS, CP_ROBOTS, DR_ROBOTS, PE_ROBOTS = 7, 2, 5, 2  # compiled into the kernels
@@ -434,9 +434,7 @@ def _launch(wrapper, entry: str, env, n_robots: int, state_rows: int, n_aux: int
         )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
-    wrapper.launches += 1
-    wrapper.entry_launches[entry] += 1
-    wrapper.final_launches += int(emit_final)
+    tracing.launched(wrapper.__name__, entry, emit_final)
     if rng_kernel:
         key[2:].add_(1)  # in-stream: the next step reads the next counter
     return st_out, obs, aux
@@ -527,9 +525,3 @@ def pe_full_step(env, state, action, ball_u=None, recv_u=None, *, key=None,
     if key is not None:
         noise = pe_draw_step_rows(env, key, state.shape[-1], env_base)
     return pe_full_step_plain(env, state, action, *noise, emit_final)
-
-
-for _wrapper in (sd_full_step, cp_full_step, dr_full_step, pe_full_step):
-    _wrapper.launches = 0
-    _wrapper.entry_launches = collections.Counter()
-    _wrapper.final_launches = 0  # of those, the emit_final variant's

@@ -64,16 +64,15 @@ its plain version and, through the input rows, against the JAX kernel.
 
 :func:`vss_full_step` runs the plain version :func:`vss_full_step_plain`
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``vss_full_step.launches`` counts kernel launches, and
-``vss_full_step.entry_launches`` counts them by C entry (``vss_full_step``:
-the group kernels, ``vss_full_step_one_thread``: the one-thread kernel,
-``vss_full_step_one_thread_capped``: its capped variant),
-``vss_full_step.final_launches`` those of the ``emit_final`` variant.
+raises.  Each launch counts in ``utils/tracing``'s table under
+``vss_full_step``, by C entry (``vss_full_step``: the group kernels,
+``vss_full_step_one_thread``: the one-thread kernel,
+``vss_full_step_one_thread_capped``: its capped variant) and by whether
+the ``emit_final`` variant ran.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -87,6 +86,7 @@ from rsoccer_tpu_torch.envs.ou import OU_THETA
 from rsoccer_tpu_torch.envs.vss import _SHAPING_KEYS, VSSEnv, VSSState
 from rsoccer_tpu_torch.ops import _build
 from rsoccer_tpu_torch.physics.vss import HALF_AXLE, achieved_wheel_speeds
+from rsoccer_tpu_torch.utils import tracing
 
 N_AUX = 3 + len(_SHAPING_KEYS)
 N_BLUE = range(1, 6)  # team sizes the kernels run: 1v0 to 5v5
@@ -365,9 +365,7 @@ def _launch(env, state, action, ou_noise, spawn_u, theta_u, key, emit_final, env
         )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
-    vss_full_step.launches += 1
-    vss_full_step.entry_launches[entry] += 1
-    vss_full_step.final_launches += int(emit_final)
+    tracing.launched("vss_full_step", entry, emit_final)
     if rng_kernel:
         key[2:].add_(1)  # in-stream: the next step reads the next counter
     return st_out, obs, aux
@@ -397,8 +395,3 @@ def vss_full_step(env: VSSEnv, state, action, ou_noise=None, spawn_u=None,
         ou_noise, spawn_u, theta_u = draw_step_rows(env, key, state.shape[-1], env_base)
     return vss_full_step_plain(env, state, action, ou_noise, spawn_u, theta_u,
                                emit_final)
-
-
-vss_full_step.launches = 0
-vss_full_step.entry_launches = collections.Counter()
-vss_full_step.final_launches = 0  # of those, the emit_final variant's

@@ -25,9 +25,9 @@ v_y, v_theta], ball ``(6, B)`` [x, y, z, v_x, v_y, v_z], wheel commands
 :func:`vss_physics` runs the plain version :func:`vss_physics_plain`
 (``physics/vss.make_vss_step`` on the same arrays) only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
-``vss_physics.launches`` counts kernel launches,
-``vss_physics.entry_launches`` counts them by C entry (``vss_physics_step``:
-the group kernels, ``vss_physics_step_one_thread``: the one-thread kernel,
+Each launch counts in ``utils/tracing``'s table under ``vss_physics``, by
+C entry (``vss_physics_step``: the group kernels,
+``vss_physics_step_one_thread``: the one-thread kernel,
 ``vss_physics_step_one_thread_capped``: its capped variant).
 :func:`world_step` is the ``physics/vss`` step's signature over it, which
 ``BatchedEnv(..., fused_physics=True)`` runs between the task's pre- and
@@ -36,7 +36,6 @@ post-physics.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -46,6 +45,7 @@ import torch
 from rsoccer_tpu_torch.core.state import BallState, RobotsState, VSSCommands, WorldState
 from rsoccer_tpu_torch.ops import _build
 from rsoccer_tpu_torch.physics.vss import HALF_AXLE, achieved_wheel_speeds, make_vss_step
+from rsoccer_tpu_torch.utils import tracing
 
 N_ROBOTS = range(1, 11)  # robot counts the kernels run
 N_SUBSTEPS = 5  # compiled into the kernels
@@ -194,8 +194,7 @@ def _launch(env, robots, ball, cmd):
         )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
-    vss_physics.launches += 1
-    vss_physics.entry_launches[entry] += 1
+    tracing.launched("vss_physics", entry, False)
     return rb_out, ball_out
 
 
@@ -210,9 +209,6 @@ def vss_physics(env, robots, ball, cmd):
         )
     return vss_physics_plain(env, robots, ball, cmd)
 
-
-vss_physics.launches = 0
-vss_physics.entry_launches = collections.Counter()
 
 
 def world_step(env, world: WorldState, commands) -> WorldState:

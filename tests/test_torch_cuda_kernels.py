@@ -21,6 +21,7 @@ from rsoccer_tpu_torch.ops import ssl_full as sf
 from rsoccer_tpu_torch.ops import vss_full as vf
 from rsoccer_tpu_torch.ops import vss_physics as vp
 from rsoccer_tpu_torch.ops.philox import make_key, philox_words
+from rsoccer_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -68,7 +69,7 @@ def check_vss_steps(env, st_k, key, rng_mode, emit_final, gen, n_steps=5):
     trajectory from ``st_k``; returns the dones seen."""
     b = st_k.shape[-1]
     st_p, key_p = st_k.clone(), key.clone()
-    launches = vf.vss_full_step.launches
+    before = tracing.snapshot()
     dones = 0
     for t in range(n_steps):
         act = torch.rand((2, b), generator=gen, device=st_k.device) * 2 - 1
@@ -83,7 +84,7 @@ def check_vss_steps(env, st_k, key, rng_mode, emit_final, gen, n_steps=5):
         assert_step_close(env, got, want, f"step {t}")
         dones += int(got[2][1:3].sum())
         st_k, st_p = got[0], want[0]
-    assert vf.vss_full_step.launches == launches + n_steps
+    assert tracing.launches(vf.vss_full_step, since=before) == n_steps
     if rng_mode == "kernel":  # the kernel advanced its key as draw_noise did
         assert torch.equal(key, key_p)
     return dones
@@ -139,9 +140,9 @@ def test_main_path_goes_through_the_kernel(cuda):
     benv = BatchedEnv(rsoccer_tpu_torch.make("VSS-v0"), B, device=cuda, fused=True,
                       fused_rng="kernel")
     carry = R.init_carry(benv, seed=0)
-    launches = vf.vss_full_step.launches
+    before = tracing.snapshot()
     carry, ms = R.make_rollout_fn(benv, 20)(carry)
-    assert vf.vss_full_step.launches == launches + 20
+    assert tracing.launches(vf.vss_full_step, since=before) == 20
     assert bool(torch.isfinite(carry.obs).all())
     assert bool((carry.obs.abs() <= torch.tensor(1.2)).all())
 
@@ -335,7 +336,7 @@ ENTRY = {  # env id -> the fused step's C entry
 
 
 def launch_counts():
-    return [w.launches for w in WRAPPERS]
+    return [tracing.launches(w) for w in WRAPPERS]
 
 
 def check_ssl_steps(env, wrapper, plain, draw, st_k, key, rng_mode, emit_final, gen, n_steps=5):
@@ -343,7 +344,7 @@ def check_ssl_steps(env, wrapper, plain, draw, st_k, key, rng_mode, emit_final, 
     trajectory from ``st_k``; returns the dones seen."""
     b = st_k.shape[-1]
     st_p, key_p = st_k.clone(), key.clone()
-    launches = wrapper.launches
+    before = tracing.snapshot()
     dones = 0
     for t in range(n_steps):
         act = torch.rand((env.action_size, b), generator=gen, device=st_k.device) * 2 - 1
@@ -358,7 +359,7 @@ def check_ssl_steps(env, wrapper, plain, draw, st_k, key, rng_mode, emit_final, 
         assert_step_close(env, got, want, f"step {t}")
         dones += int(got[2][1:3].sum())
         st_k, st_p = got[0], want[0]
-    assert wrapper.launches == launches + n_steps
+    assert tracing.launches(wrapper, since=before) == n_steps
     if rng_mode == "kernel":
         assert torch.equal(key, key_p)
     return dones
@@ -393,7 +394,7 @@ def test_ssl_group_kernel_matches_plain_ragged(cuda, env_id, batch, rng_mode, em
     top = sf.GROUP_MAX_ENVS[ENTRY[env_id]]
     if batch > top:  # DR's crossover lies below SD's: the same raggedness below it
         batch -= max(sf.GROUP_MAX_ENVS.values()) - top
-    wrapper.entry_launches.clear()
+    before = tracing.snapshot()
     env = rsoccer_tpu_torch.make(env_id)
     env.max_episode_steps = 3
     key = make_key(4, device=cuda)
@@ -401,7 +402,7 @@ def test_ssl_group_kernel_matches_plain_ragged(cuda, env_id, batch, rng_mode, em
     dones = check_ssl_steps(env, wrapper, plain, draw, stagger(st_k, env.n_robots), key, rng_mode, emit_final,
                             torch.Generator(device=cuda).manual_seed(6))
     assert dones >= batch  # every env reset at least once
-    assert dict(wrapper.entry_launches) == {ENTRY[env_id]: 5}
+    assert tracing.entry_launches(wrapper, since=before) == {ENTRY[env_id]: 5}
 
 
 @pytest.mark.parametrize("rng_mode", ["input", "kernel"])
@@ -412,7 +413,7 @@ def test_ssl_one_thread_kernel_matches_plain(cuda, env_id, rng_mode, emit_final)
     kernel (CP and PE at every batch): held to the plain versions there, at
     a batch that leaves a block part empty, through auto-resets."""
     wrapper, plain, draw = SSL[env_id]
-    wrapper.entry_launches.clear()
+    before = tracing.snapshot()
     env = rsoccer_tpu_torch.make(env_id)
     env.max_episode_steps = 3
     batch = max(sf.GROUP_MAX_ENVS.values()) + 1
@@ -421,7 +422,7 @@ def test_ssl_one_thread_kernel_matches_plain(cuda, env_id, rng_mode, emit_final)
     dones = check_ssl_steps(env, wrapper, plain, draw, stagger(st_k, env.n_robots), key, rng_mode, emit_final,
                             torch.Generator(device=cuda).manual_seed(7))
     assert dones >= batch
-    assert dict(wrapper.entry_launches) == {sf.routed_entry(ENTRY[env_id], batch): 5}
+    assert tracing.entry_launches(wrapper, since=before) == {sf.routed_entry(ENTRY[env_id], batch): 5}
 
 
 def ssl_entry(entry, env, st, act, rows, key, emit_final):
@@ -487,10 +488,10 @@ def test_ssl_main_path_goes_through_the_kernel(cuda, env_id):
     benv = BatchedEnv(env, B, device=cuda, fused=True, fused_rng="kernel")
     carry = R.init_carry(benv, seed=0)
     launches = launch_counts()
-    wrapper.entry_launches.clear()
+    before = tracing.snapshot()
     carry, ms = R.make_rollout_fn(benv, 20)(carry)
     assert launch_counts() == [n + 20 * (w is wrapper) for n, w in zip(launches, WRAPPERS)]
-    assert dict(wrapper.entry_launches) == {sf.routed_entry(ENTRY[env_id], B): 20}
+    assert tracing.entry_launches(wrapper, since=before) == {sf.routed_entry(ENTRY[env_id], B): 20}
     assert bool(torch.isfinite(carry.obs).all()) and bool(torch.isfinite(carry.state).all())
     assert bool((carry.obs.abs() <= torch.tensor(1.2)).all())
     assert int(ms.episodes) > 0
@@ -533,7 +534,7 @@ def random_vss_arrays(gen, dev, n=6, batch=B):
 def check_vss_physics(cuda, batch, trials=5, **env_kwargs):
     env = rsoccer_tpu_torch.make("VSS-v0", **env_kwargs)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    launches = vp.vss_physics.launches
+    before = tracing.snapshot()
     for trial in range(trials):
         rb, ball, cmd = random_vss_arrays(gen, cuda, n=env.n_robots, batch=batch)
         k_rb, k_ball = vp.vss_physics(env, rb, ball, cmd)
@@ -542,7 +543,7 @@ def check_vss_physics(cuda, batch, trials=5, **env_kwargs):
         assert float(d_th.max()) <= ATOL, trial
         assert float((k_rb[[0, 1, 3, 4, 5]] - p_rb[[0, 1, 3, 4, 5]]).abs().max()) <= ATOL, trial
         assert float((k_ball - p_ball).abs().max()) <= ATOL, trial
-    assert vp.vss_physics.launches == launches + trials
+    assert tracing.launches(vp.vss_physics, since=before) == trials
 
 
 def test_vss_physics_kernel_matches_plain(cuda):
@@ -561,14 +562,14 @@ def test_vss_physics_kernel_matches_native_oracle(cuda, config):
     gen = torch.Generator(device=cuda).manual_seed(8)
     rb, ball, _ = random_vss_arrays(gen, cuda, n=env.n_robots)
     world = vp._world(rb, ball, env.field.rbt_wheel_radius)
-    launches = vp.vss_physics.launches
+    before = tracing.snapshot()
     for t in range(5):
         cmd = VSSCommands(*(torch.rand((2, env.n_robots, B), generator=gen, device=cuda) * 100 - 50))
         got = vp.world_step(env, world, cmd)
         want = native.batched_vss_oracle(world, cmd, env.field, env.physics_cfg, env.time_step)
         native.check_oracle(native.world_errors(got, want), f"{config} step {t}")
         world = got
-    assert vp.vss_physics.launches == launches + 5
+    assert tracing.launches(vp.vss_physics, since=before) == 5
 
 
 @pytest.mark.parametrize("batch", RAGGED)
@@ -650,7 +651,7 @@ def test_vss_physics_under_multiagent_actions(cuda, env_id, batch):
     st, obs = fused.reset(key)
     gen = torch.Generator(device=cuda).manual_seed(5)
     w = torch.randn((env.action_size, env.obs_size), generator=gen, device=cuda)
-    launches, dones = vp.vss_physics.launches, 0
+    before, dones = tracing.snapshot(), 0
     act_shape = (env.action_size, batch)
     for _ in range(6):
         act = torch.clamp(torch.tanh(1.5 * w @ obs) + 0.3 * torch.randn(act_shape, generator=gen,
@@ -672,7 +673,7 @@ def test_vss_physics_under_multiagent_actions(cuda, env_id, batch):
         assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
         dones += int((got[3] | got[4]).sum())
         st, obs = got[0], got[1]
-    assert vp.vss_physics.launches == launches + 12 and dones > 0
+    assert tracing.launches(vp.vss_physics, since=before) == 12 and dones > 0
 
 
 def test_vss_physics_bad_operands_raise(cuda):
@@ -714,10 +715,10 @@ def test_ppo_rollout_on_the_card_matches_the_cpu(cuda):
                           device=dev, seed=3)
         draws = (action_noise.to(dev),
                  [tuple({k: v.to(dev) for k, v in d.items()} for d in nz) for nz in env_noise])
-        vf.vss_full_step.final_launches = 0
+        before = tracing.snapshot()
         *_, out[dev] = trainer._rollout(net, state.to(dev), obs.to(dev), None,
                                         ObsNorm.init(env.obs_size, dev), None, draws)
-    assert vf.vss_full_step.final_launches == n_t  # the card's rollout
+    assert tracing.launches(vf.vss_full_step, final=True, since=before) == n_t  # the card's rollout
     assert float(out["cpu"].trunc.sum()) >= b
     for name in ("obs", "action", "logp", "value", "reward", "boot_value"):
         got, want = getattr(out["cuda"], name).cpu(), getattr(out["cpu"], name)
@@ -735,9 +736,9 @@ def test_ppo_train_step_on_the_card(cuda):
     trainer = PPOTrainer(benv, PPOConfig(rollout_steps=16, hidden=(64, 64), num_epochs=2, num_minibatches=4))
     state = trainer.init(0)
     p0 = [p.detach().clone() for p in state.net.parameters()]
-    vf.vss_full_step.final_launches = 0
+    before = tracing.snapshot()
     state, metrics = trainer.train_step(state)
-    assert vf.vss_full_step.final_launches == 16
+    assert tracing.launches(vf.vss_full_step, final=True, since=before) == 16
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(p0, state.net.parameters()))
 
@@ -753,13 +754,11 @@ def test_sac_train_step_on_the_card(cuda):
     state = trainer.init(0)
     p0 = [p.detach().clone() for p in (*state.actor.parameters(), *state.qs.parameters())]
     wrappers = (sf.sd_full_step, sf.cp_full_step, sf.dr_full_step, sf.pe_full_step, vf.vss_full_step)
-    for w in wrappers:
-        w.launches, w.final_launches = 0, 0
-    sf.sd_full_step.entry_launches.clear()
+    before = tracing.snapshot()
     state, metrics = trainer.train_step(state, iteration_generator(0, 0))
-    assert [w.launches for w in wrappers] == [1, 0, 0, 0, 0]
-    assert sf.sd_full_step.final_launches == 1
-    assert dict(sf.sd_full_step.entry_launches) == {"ssl_sd_full_step": 1}
+    assert [tracing.launches(w, since=before) for w in wrappers] == [1, 0, 0, 0, 0]
+    assert tracing.launches(sf.sd_full_step, final=True, since=before) == 1
+    assert tracing.entry_launches(sf.sd_full_step, since=before) == {"ssl_sd_full_step": 1}
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(not torch.equal(a, b) for a, b in zip(p0, (*state.actor.parameters(), *state.qs.parameters())))
 
@@ -775,14 +774,12 @@ def test_expert_step_on_the_fused_path(cuda):
     key = make_key(0)
     state, _ = benv.reset(key)
     wrappers = (sf.sd_full_step, sf.cp_full_step, sf.dr_full_step, sf.pe_full_step, vf.vss_full_step)
-    for w in wrappers:
-        w.launches, w.final_launches = 0, 0
-    sf.pe_full_step.entry_launches.clear()
+    before = tracing.snapshot()
     act = expert(benv.unpack_state(state))
     state, obs, *_ = benv.step(state, act, key)
-    assert [w.launches for w in wrappers] == [0, 0, 0, 1, 0]
-    assert sf.pe_full_step.final_launches == 0
-    assert dict(sf.pe_full_step.entry_launches) == {"ssl_pe_full_step": 1}
+    assert [tracing.launches(w, since=before) for w in wrappers] == [0, 0, 0, 1, 0]
+    assert tracing.launches(sf.pe_full_step, final=True, since=before) == 0
+    assert tracing.entry_launches(sf.pe_full_step, since=before) == {"ssl_pe_full_step": 1}
     assert act.shape == (3, B) and bool(torch.isfinite(act).all()) and bool(torch.isfinite(obs).all())
 
 
@@ -802,7 +799,7 @@ def test_host_vector_env_fused_matches_plain(cuda, env_id):
     plain = HostVectorEnv(env_id, B, fused=False)
     fused.env.max_episode_steps = plain.env.max_episode_steps = 3
     wrapper = vf.vss_full_step if env_id == "VSS-v0" else SSL[env_id][0]
-    wrapper.launches, wrapper.final_launches = 0, 0
+    before = tracing.snapshot()
     got, want = fused.reset(seed=6)[0], plain.reset(seed=6)[0]
     assert float(np.abs(got - want).max()) <= ATOL
     rng = np.random.default_rng(7)
@@ -826,4 +823,5 @@ def test_host_vector_env_fused_matches_plain(cuda, env_id):
                 assert float(np.abs(got[4]["final_obs"][i] - want[4]["final_obs"][i]).max()) <= ATOL, (t, i)
             seen |= want[4]["_final_obs"]
     assert seen.all()
-    assert wrapper.launches == 6 and wrapper.final_launches == 6
+    assert tracing.launches(wrapper, since=before) == 6
+    assert tracing.launches(wrapper, final=True, since=before) == 6

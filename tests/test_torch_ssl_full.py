@@ -25,6 +25,7 @@ from rsoccer_tpu_torch.envs.base import step_noise_spec
 from rsoccer_tpu_torch.envs.ssl_static_defenders import SSLStaticDefendersEnv
 from rsoccer_tpu_torch.ops import philox
 from rsoccer_tpu_torch.ops import ssl_full as sf
+from rsoccer_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -303,12 +304,12 @@ def test_wrapper_dispatch_on_cpu(env_id):
     st = reset_packed(tenv, seed=1)
     act = torch.zeros((tenv.action_size, B))
     key = philox.make_key(5, device="cpu")
-    launches = wrapper.launches
+    before = tracing.snapshot()
     got = wrapper(tenv, st, act, key=key.clone())
     want = plain(tenv, st, act, *draw(tenv, key.clone(), B))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert wrapper.launches == launches
+    assert tracing.launches(wrapper, since=before) == 0
     rows = draw(tenv, key.clone(), B)
     if rows:  # DR draws no noise: its only noise argument is the key
         with pytest.raises(ValueError):
@@ -426,7 +427,7 @@ def test_cpu_steps_count_no_entry(env_id):
     """The plain version on the CPU launches nothing: no C entry counts."""
     _, _, wrapper, draw = TASKS[env_id]
     tenv = rsoccer_tpu_torch.make(env_id)
-    before = dict(wrapper.entry_launches)
+    before = tracing.snapshot()
     wrapper(tenv, reset_packed(tenv, seed=2), torch.zeros((tenv.action_size, B)),
             key=philox.make_key(6, device="cpu"))
-    assert dict(wrapper.entry_launches) == before
+    assert tracing.entry_launches(wrapper, since=before) == {}

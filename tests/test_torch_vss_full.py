@@ -15,6 +15,7 @@ from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 from rsoccer_tpu_torch.envs.base import draw_noise, step_noise_spec
 from rsoccer_tpu_torch.ops import philox
 from rsoccer_tpu_torch.ops import vss_full as vf
+from rsoccer_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -184,12 +185,12 @@ def test_wrapper_dispatch_on_cpu():
     st = reset_packed(tenv, seed=1)
     act = torch.zeros((2, B))
     key = philox.make_key(5, device="cpu")
-    launches = vf.vss_full_step.launches
+    before = tracing.snapshot()
     got = vf.vss_full_step(tenv, st, act, key=key.clone())
     want = vf.vss_full_step_plain(tenv, st, act, *vf.draw_step_rows(tenv, key.clone(), B))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert vf.vss_full_step.launches == launches
+    assert tracing.launches(vf.vss_full_step, since=before) == 0
     rows = vf.draw_step_rows(tenv, key.clone(), B)
     with pytest.raises(ValueError):
         vf.vss_full_step(tenv, st, act, *rows, key=key)
