@@ -40,7 +40,16 @@ issue floor (``kernel_scale_one_thread``), and the share of SD's and DR's
 n_robots_yellow=5)`` and ``make_vec("VSS-v0", 8192, ..., n_robots_blue=1,
 n_robots_yellow=0)`` fused and ``fused_physics`` —
 through ``make_rollout_fn`` with every launch count set to 0 just before and
-read just after (also by the C entry the wrapper's route names), and times it;
+read just after (also by the C entry the wrapper's route names, and the
+rollout epilogue's one launch a step and one finish a call), and times it,
+with the loop's device time and launches a step outside the env kernel
+read from the port's spans (``rollout_device_*``); from the main path's
+last carry it holds the rollout epilogue to the plain torch bookkeeping
+on the card for 20 steps (``epilogue_vs_plain_*``: the carries bit for
+bit, the episode count and length sum exact and the reward sums within
+rel 1e-6 of a float64 recount), and it times the epilogue alone at
+1048576 envs against the plain bookkeeping (``rollout_epilogue_time``, a
+record in the kernels' line);
 for the ContestedPossession and PassEndurance paths it prints the share of
 envs, and of 32-env warps, that hold a done env per step.  Each phase
 prints one line; any failure exits non-zero.  The last two lines are the
@@ -191,6 +200,7 @@ Imports nothing of JAX.  Long output goes to ``chiprun_out/``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -205,6 +215,8 @@ import torch
 from rsoccer_tpu_torch.ops.bounds import (
     CP_OPS, DR_OPS, PE_OPS, SD_OPS, bound_ms, vss_full_ops, vss_physics_ops,
 )
+from rsoccer_tpu_torch.core.state import tree_map
+from rsoccer_tpu_torch.ops import rollout_epilogue
 from rsoccer_tpu_torch.tools import _trace
 from rsoccer_tpu_torch.utils import tracing
 
@@ -227,6 +239,10 @@ N_CHECK_STEPS = 5
 WARM_STEPS = 60  # SSL checks start mid-episode: contacts, dribbling, kicks
 ROLLOUT_STEPS = 100
 PROFILE_ROLLOUT_STEPS = 20  # the profiled rollout (the profiler's own cost per launch dominates it)
+LOOP_PROBE_CALLS = 4  # profiled calls of the rollout read by its spans (tools/_trace.rollout_loop)
+EPILOGUE_STEPS = 20  # each main path's rollout epilogue held to the plain bookkeeping
+EPILOGUE_TIMED_B = 1 << 20  # the epilogue and the plain bookkeeping timed alone (the VSS rollout cell's batch)
+EPILOGUE_SETS = 6  # their operand sets, taken in turn: 6 x 23 MB, past the L2
 TIMED_ROLLOUTS = 5
 # the fused_physics main paths (~700 launches and 9-18 ms of host time a
 # step): 1 warm-up and 2 timed rollouts, 5 profiled steps (the others 2, 5
@@ -1428,11 +1444,134 @@ def tensor_leaves(tree):
     return [tree]
 
 
+def fork(carry):
+    """A copy of a rollout carry: its state, key and policy stream advance
+    apart from the original's."""
+    gen = torch.Generator(device=carry.ep_return.device)
+    gen.set_state(carry.pol_gen.get_state())
+    state = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, carry.state)
+    return carry._replace(state=state, key=carry.key.clone(), pol_gen=gen)
+
+
+def rel_err(got, want: float) -> float:
+    return abs(float(got) - want) / max(abs(want), 1e-30)
+
+
+def epilogue_vs_plain(benv, carry) -> dict:
+    """The rollout epilogue (``make_rollout_fn`` on the card) against the
+    plain torch bookkeeping (``make_step_fn`` with ``rollout_metrics``) on
+    the card, both from a fork of ``carry`` for ``EPILOGUE_STEPS`` steps:
+    the carries bit for bit; the episode count and length sum exactly as,
+    and the reward and return sums within rel 1e-6 of, a float64 sum of the
+    plain run's per-step reward and pre-reset accumulators on the host; one
+    epilogue a step and one finish.  Returns the largest difference of the
+    accumulators and the sums' relative errors."""
+    from rsoccer_tpu_torch.batch import rollout as R
+
+    before = tracing.snapshot()
+    c_e, m_e = R.make_rollout_fn(benv, EPILOGUE_STEPS)(fork(carry))
+    launched = tracing.entry_launches(rollout_epilogue.WRAPPER, since=before)
+    if launched != {"rollout_epilogue": EPILOGUE_STEPS, "rollout_epilogue_finish": 1}:
+        raise AssertionError(f"epilogue vs plain: launches {launched}, want {EPILOGUE_STEPS} and 1 finish")
+    seen = []
+
+    def metrics(reward, done, ep_ret, ep_len, info):
+        seen.append([t.double().cpu() for t in (reward, done, ep_ret, ep_len)])
+        return R.rollout_metrics(reward, done, ep_ret, ep_len, info)
+
+    one_step = R.make_step_fn(benv, R.uniform_policy(benv.action_size), metrics)
+    c_p = fork(carry)
+    for _ in range(EPILOGUE_STEPS):
+        c_p, _ = one_step(c_p)
+    got = [*tensor_leaves(c_e.state), c_e.obs, c_e.key, c_e.ep_return, c_e.ep_length]
+    want = [*tensor_leaves(c_p.state), c_p.obs, c_p.key, c_p.ep_return, c_p.ep_length]
+    if not all(torch.equal(a, b) for a, b in zip(got[:-2], want[:-2])) or not bit_equal(got[-2:], want[-2:]):
+        raise AssertionError("epilogue vs plain: the carries differ")
+    tot_r = ret_sum = len_sum = 0.0
+    eps = 0
+    for r, d, er, el in seen:
+        tot_r += float(r.sum())
+        eps += int(d.sum())
+        ret_sum += float((er * d).sum())
+        len_sum += float((el * d).sum())
+    if m_e.episodes.dtype != torch.int64 or int(m_e.episodes) != eps:
+        raise AssertionError(f"epilogue vs plain: {int(m_e.episodes)} episodes, want {eps}")
+    if float(m_e.episode_length_sum) != float(torch.tensor(len_sum, dtype=torch.float64).float()):
+        raise AssertionError(f"epilogue vs plain: length sum {float(m_e.episode_length_sum)}, want {len_sum}")
+    errs = {"reward_rel_err": rel_err(m_e.total_reward, tot_r),
+            "return_rel_err": rel_err(m_e.episode_return_sum, ret_sum)}
+    if max(errs.values()) > 1e-6:
+        raise AssertionError(f"epilogue vs plain: reward sums off a float64 recount by {errs}")
+    diff = max(max_err(a, b) for a, b in zip(got[-2:], want[-2:]))
+    return {"steps": EPILOGUE_STEPS, "episodes": eps, "max_abs_err": diff, **errs}
+
+
+def epilogue_record(card, launches: int, err: float) -> dict:
+    """The rollout epilogue alone, one step at ``EPILOGUE_TIMED_B`` envs on
+    drawn operands, against the plain loop's torch bookkeeping of a step
+    (``make_step_fn``'s accumulators and ``rollout_metrics``' sums with their
+    add to the running sums); the bound is its ~22 bytes an env over the
+    HBM rate.  The calls take ``EPILOGUE_SETS`` operand sets in turn, more
+    bytes than the card's 50 MB L2 holds, so each reads device memory.
+    Returns its record for the final JSON line."""
+    from rsoccer_tpu_torch.batch import rollout as R
+
+    b = EPILOGUE_TIMED_B
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def operands():
+        return (torch.randn(b, generator=g, device="cuda"),
+                torch.rand(b, generator=g, device="cuda") < 0.01,
+                torch.rand(b, generator=g, device="cuda") < 0.001,
+                torch.randn(b, generator=g, device="cuda"),
+                torch.randint(0, 1200, (b,), generator=g, device="cuda").float())
+
+    sets = [operands() for _ in range(EPILOGUE_SETS)]
+    turn = itertools.cycle(sets)
+    acc = rollout_epilogue.scratch("cuda")
+    outs = rollout_epilogue.epilogue(*sets[0], acc, first=True)
+    reward, term, trunc, ep_ret, ep_len = sets[0]
+    total = R.rollout_metrics(reward, term | trunc, ep_ret, ep_len, None)
+
+    def kernel():
+        rollout_epilogue.epilogue(*next(turn), acc, first=False)
+
+    def plain(ins=None):
+        reward, term, trunc, ep_ret, ep_len = ins or next(turn)
+        done = term | trunc
+        er, el = ep_ret + reward, ep_len + 1.0
+        tree_map(torch.add, total, R.rollout_metrics(reward, done, er, el, None))
+        return torch.where(done, 0.0, er), torch.where(done, 0.0, el)
+
+    if not bit_equal(outs, plain(sets[0])):
+        raise AssertionError("epilogue alone: accumulators differ from the plain bookkeeping")
+    kern_us, _ = device_us(kernel, TIMED_LAUNCHES, r"rollout_epilogue_kernel")
+    plain_us, plain_top = device_us(plain, TIMED_LAUNCHES)
+    bound, by, bytes_ms, _ = bound_ms(sets[0], outs, 8, 0, 0)
+    phase("rollout_epilogue_time", card=card, B=b, device_us=kern_us, plain_device_us=plain_us,
+          bound_us=bound * 1e3, bound_by=by, roofline_share=bytes_ms * 1e3 / kern_us,
+          plain_top_kernels_us=plain_top)
+    return {
+        "name": "rollout_epilogue_kernel (one step, 1048576 envs)",
+        "route": "cuda",
+        "source": "rsoccer_tpu_torch/csrc/rollout_epilogue.cu",
+        "replaces": None,  # no TPU kernel: XLA fuses this bookkeeping into rsoccer_tpu/batch/rollout.py's scan
+        "launches": launches,
+        "ms": kern_us / 1e3,
+        "plain_ms": plain_us / 1e3,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,  # no single PyTorch call updates the accumulators and sums
+        "max_abs_err": err,
+    }
+
+
 def main_path(task, tasks, card):
     """Drive the task's main path with every launch count zeroed just
-    before and read just after; time it, its kernel and its plain version.
-    Returns the kernel's record for the final JSON line (without
-    max_abs_err)."""
+    before and read just after; time it, its kernel and its plain version;
+    hold its rollout epilogue to the plain bookkeeping.  Returns the
+    kernel's record for the final JSON line (without max_abs_err) and the
+    epilogue's launches and largest error."""
     from rsoccer_tpu_torch.batch import rollout as R
 
     env = make_env(task)
@@ -1467,6 +1606,10 @@ def main_path(task, tasks, card):
     if by_entry != {entry: n_steps}:
         raise AssertionError(f"{task.name} main path: launches by C entry {by_entry}, "
                              f"want {entry} x {n_steps}")
+    epilogue = tracing.entry_launches(rollout_epilogue.WRAPPER)  # one a step, one finish a call
+    if epilogue != {"rollout_epilogue": n_steps, "rollout_epilogue_finish": timed}:
+        raise AssertionError(f"{task.name} main path: epilogue launches {epilogue}, "
+                             f"want {n_steps} steps and {timed} finishes")
     obs = carry.obs
     if tuple(obs.shape) != (env.obs_size, B) or not bool(torch.isfinite(obs).all()):
         raise AssertionError(f"{task.name}: main-path obs not finite or of the wrong shape")
@@ -1499,6 +1642,8 @@ def main_path(task, tasks, card):
     dev_us["plain"] = plain_dev_us
     roll_dev_us, roll_top = device_us(lambda: R.make_rollout_fn(benv, profile_steps)(carry), 1,
                                       table=f"profile_rollout_{task.name}.txt")
+    loop = _trace.rollout_loop(lambda: R.make_rollout_fn(benv, profile_steps)(carry), LOOP_PROBE_CALLS)
+    epi = epilogue_vs_plain(benv, carry)
     rollout_us_per_step = roll_ms * 1e3 / n_steps
     outs = calls["kernel"]()
     bound, bound_by, bytes_ms, ops_ms = bound_ms(calls["ins"], outs, task.ops_env, task.ops_reset, calls["n_done"](outs))
@@ -1516,7 +1661,9 @@ def main_path(task, tasks, card):
     phase(f"rollout_device_{task.name}", card=card, steps=profile_steps,
           device_us_per_step=roll_dev_us / profile_steps,
           device_busy_share=roll_dev_us / profile_steps / rollout_us_per_step,
-          top_kernels_us_per_rollout=roll_top)
+          top_kernels_us_per_rollout=roll_top, epilogue_launches=epilogue,
+          loop_device_us_per_step=loop["loop_device_us"], launches_per_step=loop["launches"], loop=loop)
+    phase(f"epilogue_vs_plain_{task.name}", card=card, B=B, **epi)
     return {
         "name": task.kernel,
         "route": "cuda",
@@ -1528,7 +1675,7 @@ def main_path(task, tasks, card):
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes an env step or its physics
-    }
+    }, {"launches": sum(epilogue.values()), "max_abs_err": epi["max_abs_err"]}
 
 
 # ---- PPO on the card: the learner of the main path
@@ -3755,12 +3902,16 @@ def main() -> int:
 
     # ---- 4. each main path, through its kernel, timed
     kernels = []
+    epi_launches, epi_err = 0, 0.0
     for task in tasks:
-        rec = main_path(task, tasks, card)
+        rec, epi = main_path(task, tasks, card)
         rec["max_abs_err"] = errs[task.name]
         kernels.append(rec)
+        epi_launches += epi["launches"]
+        epi_err = max(epi_err, epi["max_abs_err"])
         if task.name in ("ssl_cp_full_step", "ssl_pe_full_step"):
             phase(f"done_share_{task.name}", card=card, B=B, **done_shares(task))
+    kernels.append(epilogue_record(card, epi_launches, epi_err))
 
     # ---- 5. PPO: train on the main path, resume, score the shipped policies
     wrappers = list({id(t.wrapper): t.wrapper for t in tasks}.values())

@@ -202,4 +202,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("vss_physics_step_one_thread", "vss_physics_step_one_thread_capped"):
         getattr(lib, name).argtypes = lib.vss_physics_step.argtypes
         getattr(lib, name).restype = i
+    # reward, term, trunc, ep_ret, ep_len, ep_ret_out, ep_len_out, acc,
+    # accumulate, B, stream
+    lib.rollout_epilogue.argtypes = [p] * 8 + [i, i, p]
+    lib.rollout_epilogue.restype = i
+    # acc, B, sums_out, episodes_out, stream
+    lib.rollout_epilogue_finish.argtypes = [p, i, p, p, p]
+    lib.rollout_epilogue_finish.restype = i
     return lib

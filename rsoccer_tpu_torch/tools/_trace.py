@@ -8,6 +8,8 @@ tools share this one.  :func:`profile` runs ``fn`` ``n`` times under
 ``torch.profiler.profile`` and writes the window as a Chrome trace
 (``<out_dir>/<name>.trace.json.gz``; Perfetto and ``chrome://tracing``
 open it), the counterpart of the JAX tools' ``--out`` trace directory.
+:func:`rollout_loop` reads where a rollout's device time goes outside its
+env kernel, by the port's spans.
 
 On the card the window holds CPU and CUDA activities and the numbers are
 the CUDA kernels' device time (``events == "cuda"``); a user annotation's
@@ -19,6 +21,7 @@ only and the numbers are the CPU ops' self time on the host clock
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import os
 import re
@@ -32,6 +35,9 @@ MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 # the env kernels K1, K2 and K4-K7 by name
 ENV_KERNELS = r"vss_(full|thread)_kernel|vss_physics_(thread_)?kernel|(sd|cp|dr|pe)_(full|thread)_kernel"
 RETRIES = 3  # windows taken when one sees too few launches matching ``match``
+# the runtime calls that enqueue device work (a device operation's launch)
+LAUNCH = re.compile(r"launch|memcpy|memset", re.IGNORECASE)
+RUNTIME = re.compile(r"^(cuda|cu)[A-Z]")
 
 
 @dataclasses.dataclass
@@ -171,6 +177,70 @@ def profile(fn, n: int, out_dir: str | None, device, name: str = "trace", with_f
         gemm_kernels=gemm,
         path=path,
     )
+
+
+def rollout_loop(call, n_calls: int) -> dict:
+    """Where a rollout's device time goes outside its env kernel, by the
+    port's spans (``utils/tracing``), on the card: ``n_calls`` calls of
+    ``call`` (one ``make_rollout_fn`` call) profiled with the host's ops,
+    after one call traced and dropped.  A device operation belongs to a
+    span when the runtime call that launched it (its correlation id) lies
+    within the span on the host's timeline.
+
+    Per ``rsoccer.rollout.step``: ``launches`` (every device operation of
+    the window, the env kernel's and those between the steps included),
+    ``loop_device_us`` (the device time of those outside
+    ``rsoccer.env.kernel``), ``kernel_device_us`` (inside it), and
+    ``in_step_loop_device_us`` / ``in_step_launches`` (those inside the
+    step spans alone)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from rsoccer_tpu_torch.utils import tracing
+
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                schedule=sched) as prof:
+        call()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(n_calls):
+            call()
+        torch.cuda.synchronize()
+        prof.step()
+    events = prof.profiler.kineto_results.events()
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+    spans = {name: sorted((e.start_ns(), e.end_ns()) for e in host if e.name() == name)
+             for name in (tracing.ROLLOUT_STEP, tracing.ENV_KERNEL)}
+    launch_at = {e.correlation_id(): e.start_ns() for e in host
+                 if RUNTIME.match(e.name()) and LAUNCH.search(e.name())}
+
+    def inside(t, name):
+        if t is None:
+            return False
+        v = spans[name]
+        i = bisect.bisect_right(v, (t, float("inf"))) - 1
+        return i >= 0 and t < v[i][1]
+
+    kernel_ns = loop_ns = step_loop_ns = 0
+    launches = step_launches = 0
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        t, d = launch_at.get(e.correlation_id()), e.duration_ns()
+        launches += 1
+        if inside(t, tracing.ENV_KERNEL):
+            kernel_ns += d
+            step_launches += 1
+            continue
+        loop_ns += d
+        if inside(t, tracing.ROLLOUT_STEP):
+            step_loop_ns += d
+            step_launches += 1
+    steps = len(spans[tracing.ROLLOUT_STEP])
+    return {"steps": steps, "launches": launches / steps, "loop_device_us": loop_ns / steps / 1e3,
+            "kernel_device_us": kernel_ns / steps / 1e3, "in_step_loop_device_us": step_loop_ns / steps / 1e3,
+            "in_step_launches": step_launches / steps}
 
 
 def time_calls(fn, n: int, device) -> float:

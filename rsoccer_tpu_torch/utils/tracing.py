@@ -17,7 +17,8 @@ inside the one before it but ``rsoccer.policy``, which sits beside
 ``rsoccer.env.step``:
 
 - ``rsoccer.rollout.step``: one step of ``batch/rollout.make_rollout_fn``'s
-  loop (the policy, the env step, the step's metrics and their sum);
+  loop (the policy, the env step, the step's bookkeeping: the epilogue
+  kernel on the card, the metrics and their sum on the CPU);
 - ``rsoccer.policy``: the policy's draw of the step's actions;
 - ``rsoccer.env.step``: ``BatchedEnv.step`` and ``BatchedEnv.step_final``;
 - ``rsoccer.env.kernel``: a fused step's call (``fused=True``): the
@@ -32,6 +33,11 @@ wrappers and the set-up phases add to:
   ``dr_full_step``, ``pe_full_step``, ``vss_physics``) by C entry and by
   whether the ``emit_final`` variant ran; :func:`launches` and
   :func:`entry_launches` sum them;
+- ``("launch", "rollout_epilogue", entry, False)``: the rollout loop's
+  bookkeeping kernels on the card (``ops/rollout_epilogue.py``), C entry
+  ``rollout_epilogue`` once a step and ``rollout_epilogue_finish`` once a
+  ``make_rollout_fn`` call; none on the CPU, where the plain torch
+  bookkeeping runs;
 - ``("phase", name, field)``: a :func:`phase`'s ``count``, its total
   ``seconds`` and its ``first_start_ns`` (``time.time_ns()``, the
   profiler's clock); the library's phase adds ``builds`` (0 where the

@@ -17,6 +17,7 @@ import torch
 import rsoccer_tpu_torch
 from rsoccer_tpu_torch.batch import rollout as R
 from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
+from rsoccer_tpu_torch.core.state import tree_map
 from rsoccer_tpu_torch.ops import ssl_full as sf
 from rsoccer_tpu_torch.ops import vss_full as vf
 from rsoccer_tpu_torch.ops import vss_physics as vp
@@ -825,3 +826,143 @@ def test_host_vector_env_fused_matches_plain(cuda, env_id):
     assert seen.all()
     assert tracing.launches(wrapper, since=before) == 6
     assert tracing.launches(wrapper, final=True, since=before) == 6
+
+
+EPILOGUE_STEPS = 12
+
+
+def plain_rollout(benv, carry, n_steps):
+    """The plain torch bookkeeping on the card, with the policy's former
+    draw (``rand * 2 - 1``), and per step the reward and done flags on the
+    host for a float64 recount."""
+    def old_policy(gen, obs):
+        return torch.rand((benv.action_size, obs.shape[-1]), generator=gen, device=obs.device) * 2.0 - 1.0
+
+    seen = []
+
+    def metrics(reward, done, ep_ret, ep_len, info):
+        seen.append((reward.cpu().double(), done.cpu()))
+        return R.rollout_metrics(reward, done, ep_ret, ep_len, info)
+
+    one_step = R.make_step_fn(benv, old_policy, metrics)
+    carry, total = one_step(carry)
+    for _ in range(n_steps - 1):
+        carry, m = one_step(carry)
+        total = tree_map(torch.add, total, m)
+    return carry, total, seen
+
+
+def bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def as_f32(x: float) -> float:
+    """``x`` rounded once to float32, the metrics' dtype."""
+    return float(torch.tensor(x, dtype=torch.float64).float())
+
+
+# 65536 + 37 ends in a tail that is no multiple of the block; at 1048576
+# each thread of the epilogue's capped grid makes one pass, at 2097152 two
+@pytest.mark.parametrize("batch", [65536, 65536 + 37, 1048576, 2097152])
+@pytest.mark.parametrize("env_id", ["VSS-v0", "SSLStaticDefenders-v0"])
+def test_rollout_epilogue_against_the_plain_bookkeeping(cuda, env_id, batch):
+    """The rollout on the card (one epilogue kernel a step, one finish a
+    call) against the plain torch bookkeeping on the card: the carries bit
+    for bit, the episode count and length sum exactly as a float64 recount
+    on the host (the length sum rounded once to its float32), the reward
+    sums within rel 1e-6 of it; two runs give the same metrics; the counter
+    reads a launch a step and a finish."""
+    from rsoccer_tpu_torch.ops import rollout_epilogue
+
+    env = rsoccer_tpu_torch.make(env_id)
+    env.max_episode_steps = 5  # episodes end inside the window
+    benv = BatchedEnv(env, batch, device=cuda, fused=True, fused_rng="kernel")
+    before = tracing.snapshot()
+    roll = R.make_rollout_fn(benv, EPILOGUE_STEPS)
+    c_e, m_e = roll(R.init_carry(benv, seed=2**31 + 11))
+    assert tracing.entry_launches(rollout_epilogue.WRAPPER, since=before) == {
+        "rollout_epilogue": EPILOGUE_STEPS, "rollout_epilogue_finish": 1}
+    c_p, m_p, seen = plain_rollout(benv, R.init_carry(benv, seed=2**31 + 11), EPILOGUE_STEPS)
+    for a, b in zip((c_e.state, c_e.obs, c_e.key, c_e.ep_return, c_e.ep_length),
+                    (c_p.state, c_p.obs, c_p.key, c_p.ep_return, c_p.ep_length)):
+        assert torch.equal(bits(a), bits(b))
+
+    ret, length = torch.zeros(batch, dtype=torch.float64), torch.zeros(batch, dtype=torch.float64)
+    tot_r = eps = ret_sum = len_sum = 0.0
+    for r, done in seen:
+        ret, length = ret + r, length + 1
+        tot_r += float(r.sum())
+        eps += int(done.sum())
+        ret_sum += float(ret[done].sum())
+        len_sum += float(length[done].sum())
+        ret[done], length[done] = 0.0, 0.0
+    assert eps > 0 and int(m_e.episodes) == eps and m_e.episodes.dtype == torch.int64
+    assert float(m_e.episode_length_sum) == as_f32(len_sum)
+    assert float(m_e.total_reward) == pytest.approx(tot_r, rel=1e-6)
+    assert float(m_e.episode_return_sum) == pytest.approx(ret_sum, rel=1e-6)
+    assert [m.dtype for m in m_e] == [m.dtype for m in m_p]
+    _, m_again = roll(R.init_carry(benv, seed=2**31 + 11))
+    for a, b in zip(m_e, m_again):
+        assert torch.equal(a, b)
+
+
+def misaligned(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of ``t`` that starts ``offset`` elements into a fresh buffer."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:]
+    out.copy_(t)
+    return out
+
+
+# 4099: one block's grid and a scalar tail; 2097152 + 37: the capped grid,
+# two passes of each thread and a tail.  Offset 1 leaves every operand off
+# its 16-byte (floats) and 4-byte (flags) alignment: the all-scalar variant
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("batch", [4099, 2097152 + 37])
+def test_rollout_epilogue_kernel_against_plain_ops(cuda, batch, offset):
+    """Three epilogue steps on drawn operands against the plain loop's
+    torch ops: each step's accumulators bit for bit, and the finished sums
+    against a float64 recount: the episode count and length sum exactly
+    (the length sum rounded once to float32), the reward sums within rel
+    1e-6."""
+    from rsoccer_tpu_torch.ops import rollout_epilogue
+
+    g = torch.Generator(device=cuda).manual_seed(2**31 + 21)
+    ep_ret = torch.randn(batch, generator=g, device=cuda) * 10.0
+    ep_len = torch.randint(0, 300, (batch,), generator=g, device=cuda).float()
+    acc = rollout_epilogue.scratch(cuda)
+    tot_r = eps = ret_sum = len_sum = 0.0
+    for step in range(3):
+        reward = torch.randn(batch, generator=g, device=cuda)
+        term = torch.rand(batch, generator=g, device=cuda) < 0.05
+        trunc = torch.rand(batch, generator=g, device=cuda) < 0.02
+        ins = [misaligned(t, offset) for t in (reward, term, trunc, ep_ret, ep_len)]
+        off = [t.data_ptr() % (16 if t.is_floating_point() else 4) != 0 for t in ins]
+        assert off == [offset == 1] * len(ins)
+        got_ret, got_len = rollout_epilogue.epilogue(*ins, acc, first=step == 0)
+        done = term | trunc
+        er, el = ep_ret + reward, ep_len + 1.0
+        ep_ret, ep_len = torch.where(done, 0.0, er), torch.where(done, 0.0, el)
+        assert torch.equal(got_ret.view(torch.int32), ep_ret.view(torch.int32))
+        assert torch.equal(got_len.view(torch.int32), ep_len.view(torch.int32))
+        tot_r += float(reward.double().sum())
+        eps += int(done.sum())
+        ret_sum += float(er.double()[done].sum())
+        len_sum += float(el.double()[done].sum())
+    total, episodes, ret_got, len_got = rollout_epilogue.finish(acc, batch)
+    assert episodes.dtype == torch.int64 and int(episodes) == eps > 0
+    assert float(len_got) == as_f32(len_sum)
+    assert float(total) == pytest.approx(tot_r, rel=1e-6)
+    assert float(ret_got) == pytest.approx(ret_sum, rel=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 1048576), (5, 2097152), (5, 65536 + 37)])
+def test_uniform_policy_draw_on_the_card(cuda, shape):
+    """The policy's one ``uniform_`` draw is the bits of ``rand * 2 - 1`` on
+    the card and advances the generator alike."""
+    g_new, g_old = (torch.Generator(device=cuda).manual_seed(2**31 + 3) for _ in range(2))
+    for _ in range(2):
+        got = R.uniform_policy(shape[0])(g_new, torch.zeros((1, shape[1]), device=cuda))
+        want = torch.rand(shape, generator=g_old, device=cuda) * 2.0 - 1.0
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(g_new.get_state(), g_old.get_state())

@@ -18,8 +18,10 @@ from rsoccer_tpu_torch import convert
 from rsoccer_tpu_torch.batch import rollout as R
 from rsoccer_tpu_torch.batch.vecenv import BatchedEnv
 from rsoccer_tpu_torch.core.state import tree_map
+from rsoccer_tpu_torch.ops import rollout_epilogue
 from rsoccer_tpu_torch.ops.vss_full import pack_vss_state
 from rsoccer_tpu_torch.ops.philox import make_key
+from rsoccer_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -160,6 +162,34 @@ def test_rollout_metrics_equal_per_step_sums():
     assert float(got.episode_return_sum) == pytest.approx(ret_sum, abs=1e-3)
     assert float(got.episode_length_sum) == len_sum
     assert float(got.mean_episode_length) == pytest.approx(len_sum / eps)
+
+
+@pytest.mark.parametrize("seed", [0, 2**31 + 5])
+@pytest.mark.parametrize("shape", [(2, 4099), (5, 1024)], ids=["2x4099", "5x1024"])
+def test_uniform_policy_draw_is_rand_times_two_minus_one(shape, seed):
+    """The policy's one ``uniform_`` draw is the bits of ``rand * 2 - 1``
+    and advances the generator alike."""
+    g_new, g_old = (torch.Generator().manual_seed(seed) for _ in range(2))
+    obs = torch.zeros((3, shape[1]))
+    got = R.uniform_policy(shape[0])(g_new, obs)
+    want = torch.rand(shape, generator=g_old) * 2.0 - 1.0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(g_new.get_state(), g_old.get_state())
+
+
+def test_cpu_rollout_takes_the_plain_bookkeeping():
+    """On the CPU no epilogue kernel is counted, and its wrappers refuse
+    CPU tensors (nothing falls back)."""
+    benv = rsoccer_tpu_torch.make_vec("VSS-v0", B, device="cpu", fused=True, fused_rng="kernel")
+    before = tracing.snapshot()
+    R.make_rollout_fn(benv, 3)(R.init_carry(benv, seed=2))
+    assert tracing.launches(rollout_epilogue.WRAPPER, since=before) == 0
+    z, t = torch.zeros(B), torch.zeros(B, dtype=torch.bool)
+    acc = torch.zeros((rollout_epilogue.N_SUMS, rollout_epilogue.SLOTS), dtype=torch.float64)
+    with pytest.raises(NotImplementedError):
+        rollout_epilogue.epilogue(z, t, t, z, z, acc, first=True)
+    with pytest.raises(NotImplementedError):
+        rollout_epilogue.finish(acc, B)
 
 
 def test_twin_rollout_runs_and_stays_in_bounds():
